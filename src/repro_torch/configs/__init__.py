@@ -1,0 +1,27 @@
+"""Architecture registry of the port: the dense attention-only configs.
+
+The other families of the reference (MoE, hybrid, SSM, audio, VLM) are
+not ported yet, so ``get_config`` resolves only these four.
+"""
+
+from __future__ import annotations
+
+from .base import ModelConfig, RunConfig, reduce_for_smoke
+
+from . import granite_34b, qwen3_32b, starcoder2_3b, starcoder2_7b
+
+ARCHS: dict[str, ModelConfig] = {
+    m.CONFIG.name: m.CONFIG
+    for m in (starcoder2_3b, starcoder2_7b, granite_34b, qwen3_32b)
+}
+
+
+def get_config(name: str) -> ModelConfig:
+    key = name.replace("-", "_").replace(".", "_")
+    if key not in ARCHS:
+        raise KeyError(f"unknown arch {name!r}; available: {sorted(ARCHS)}")
+    return ARCHS[key]
+
+
+__all__ = ["ModelConfig", "RunConfig", "ARCHS", "get_config",
+           "reduce_for_smoke"]

@@ -1,0 +1,92 @@
+"""Model and serving configuration for the PyTorch port.
+
+The port's own copy of the dense-attention part of the JAX package's
+config system: ``ModelConfig`` with the fields a dense attention stack
+reads, the serving fields of ``RunConfig``, and ``reduce_for_smoke``.
+Plain frozen dataclasses; the values of every configuration are the
+same as the reference's.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Literal
+
+__all__ = ["ModelConfig", "RunConfig", "reduce_for_smoke"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: Literal["dense", "moe", "hybrid", "ssm", "audio", "vlm"]
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                 # 0 -> d_model // num_heads
+    qk_norm: bool = False
+    rope_theta: float = 10_000.0
+    mlp: Literal["glu", "gelu"] = "glu"   # silu-GLU (llama) vs plain gelu MLP
+    norm_eps: float = 1e-5
+    dtype: str = "bfloat16"
+    tie_embeddings: bool = False
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
+
+    def param_count(self) -> int:
+        """Analytic parameter count of a dense attention stack
+        (embeddings included)."""
+        d, dff, L = self.d_model, self.d_ff, self.num_layers
+        hd = self.resolved_head_dim
+        attn = (d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd
+                + self.num_heads * hd * d)
+        ffn = (3 if self.mlp == "glu" else 2) * d * dff
+        total = L * (attn + ffn + 2 * d) + self.vocab_size * d
+        if not self.tie_embeddings:
+            total += self.vocab_size * d
+        return total
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """Serving defaults shared by the engine and the CLI."""
+    arch: str = "starcoder2_3b"
+    # decode attention: flash-decode kernel (default) vs the dense
+    # softmax parity oracle (models/attention.py::attn_decode)
+    decode_impl: Literal["flash", "dense"] = "flash"
+    # "paged" = global block pool + per-request block tables + prefix
+    # sharing; "dense" = per-slot stripes (parity oracle); "auto" = paged
+    kv_layout: Literal["auto", "paged", "dense"] = "auto"
+    serve_block_size: int = 16
+    # tokens one engine step may spend across prefill chunks + decodes
+    # (0 = num_slots + prefill_chunk)
+    serve_token_budget: int = 0
+    # DESIGN.md §Serving-resilience: queue bound (0 = unbounded),
+    # overload policy, and how many requests may jump a blocked head
+    serve_max_queue: int = 0
+    serve_admission: Literal["fifo", "deadline"] = "fifo"
+    serve_admit_lookahead: int = 4
+    serve_stall_patience: int = 8
+    seed: int = 0
+
+
+def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
+    """Shrink a config to smoke-test size, keeping its GQA ratio."""
+    kv = max(1, min(cfg.num_kv_heads, 2))
+    heads = max(kv, min(cfg.num_heads, 4))
+    heads = (heads // kv) * kv or kv
+    return dataclasses.replace(
+        cfg,
+        num_layers=min(cfg.num_layers, 4),
+        d_model=64,
+        num_heads=heads,
+        num_kv_heads=kv,
+        head_dim=16,
+        d_ff=128 if cfg.d_ff > 0 else 0,
+        vocab_size=min(cfg.vocab_size, 512),
+        dtype="float32",
+    )

@@ -1,0 +1,5 @@
+"""Device-independent attention substrate of the port."""
+
+from .merge import NEG, finalize_partial, merge_partials
+
+__all__ = ["NEG", "finalize_partial", "merge_partials"]

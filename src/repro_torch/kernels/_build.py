@@ -1,0 +1,95 @@
+"""Build and bind the port's CUDA kernels.
+
+``nvcc`` compiles each source under ``csrc/`` into a shared library with
+a plain C interface, loaded with ``ctypes``.  The build happens at first
+use, into ``build/`` beside this file (ignored by git), under a name
+keyed by a hash of the source and the flags, so a changed source is
+rebuilt and an unchanged one is loaded as it is.  Nothing here runs at
+import time: the CPU tests import every module of the port on a machine
+without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+__all__ = ["NVCC_FLAGS", "build", "flash_decode_lib"]
+
+HERE = Path(__file__).resolve().parent
+CSRC = HERE / "csrc"
+BUILD_DIR = HERE / "build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin "
+            "and PATH); the CUDA kernels are built at first use on a "
+            "machine with the CUDA toolkit")
+    return found
+
+
+def build(source: str) -> tuple[Path, str]:
+    """Compile ``csrc/<source>`` if its hash-keyed library is missing.
+    Returns (library path, compiler log; empty when already built)."""
+    src = CSRC / source
+    key = hashlib.sha256(src.read_bytes()
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    lib = BUILD_DIR / f"{src.stem}_{key}.so"
+    if lib.is_file():
+        return lib, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # compile to a private name, then rename: a concurrent build never
+    # loads a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+                              capture_output=True, text=True, check=False)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr}")
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return lib, proc.stdout + proc.stderr
+
+
+@functools.lru_cache(maxsize=None)
+def flash_decode_lib() -> ctypes.CDLL:
+    """The flash-decode library, built on first call, argtypes bound."""
+    path, _ = build("flash_decode.cu")
+    lib = ctypes.CDLL(str(path))
+    vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                         ctypes.c_float)
+    lib.flash_decode_dense.argtypes = [
+        vp, vp, vp, vp, vp, vp, vp,            # q k v lengths out out_m out_l
+        i32, i32, i32, i32, i32, i32,          # B Hkv G S D tile
+        i64, i64, i64, i64,                    # k/v batch and head strides
+        f32, i32, i32, vp]                     # scale dtype partial stream
+    lib.flash_decode_dense.restype = i32
+    lib.flash_decode_paged.argtypes = [
+        vp, vp, vp, vp, vp, vp,                # q k v lengths tables out
+        i32, i32, i32, i64, i32, i32, i32,     # B Hkv G pool_tokens bs nk D
+        f32, i32, vp]                          # scale dtype stream
+    lib.flash_decode_paged.restype = i32
+    lib.flash_decode_smem_bytes.argtypes = [i32, i32, i32]
+    lib.flash_decode_smem_bytes.restype = i64
+    lib.flash_decode_error_string.argtypes = [i32]
+    lib.flash_decode_error_string.restype = ctypes.c_char_p
+    return lib

@@ -1,0 +1,70 @@
+"""Shared building blocks: plain functions over parameter dicts.
+
+The same functional style as the JAX package: ``init_*`` builds nested
+parameter dicts, apply functions take ``(params, x, ...)``.  Weights keep
+the JAX matmul layout (``x @ w`` with w of shape (d_in, d_out)), so the
+reference's parameters convert leaf for leaf.  Compute dtype follows the
+input; parameters are cast at use.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["he_normal", "dense", "rmsnorm", "embed", "rope", "mlp_apply",
+           "EMBED_STD"]
+
+#: standard deviation of the embedding init
+EMBED_STD = 0.02
+
+
+def he_normal(shape, fan_in: int, *, generator: torch.Generator,
+              device: torch.device) -> torch.Tensor:
+    """fp32 normal with std sqrt(1 / fan_in) (the reference's ``_he``)."""
+    x = torch.randn(shape, generator=generator, device=device,
+                    dtype=torch.float32)
+    return x.mul_(math.sqrt(1.0 / max(fan_in, 1)))
+
+
+def dense(p, x):
+    return x @ p["w"].to(x.dtype)
+
+
+def rmsnorm(p, x, eps: float = 1e-5):
+    xf = x.float()
+    y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return (y * p["g"]).to(x.dtype)
+
+
+def embed(p, tokens, dtype: torch.dtype):
+    """Token embedding; negative (padding) tokens embed to zeros."""
+    out = p["e"][tokens.clamp(min=0)].to(dtype)
+    return torch.where((tokens >= 0)[..., None], out,
+                       torch.zeros((), dtype=dtype, device=out.device))
+
+
+def rope(x, pos, theta: float = 10_000.0):
+    """Rotary embedding, half-split, angles in fp32.  x (B, H, T, D);
+    pos (B, T) positions."""
+    D = x.shape[-1]
+    half = D // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = pos[:, None, :, None].float() * freqs          # (B, 1, T, half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def mlp_apply(p, x, kind: str):
+    """silu-GLU (llama family) or plain gelu MLP (starcoder2).  The gelu
+    is the tanh approximation, as ``jax.nn.gelu`` defaults to."""
+    if kind == "glu":
+        h = F.silu(x @ p["wg"].to(x.dtype)) * (x @ p["wi"].to(x.dtype))
+    else:
+        h = F.gelu(x @ p["wi"].to(x.dtype), approximate="tanh")
+    return h @ p["wo"].to(x.dtype)

@@ -1,0 +1,224 @@
+"""Dense decoder stack for serving: init, caches, chunked prefill, decode.
+
+The parameter tree mirrors the JAX package's leaf for leaf: every
+per-layer leaf is stacked on a leading period axis under
+``layers.sub_0`` (a dense attention stack has period 1), beside
+``final_norm``, ``embed`` and ``lm_head``.  Where the reference scans
+over periods, this loops over them in Python and hands each layer views
+of its parameter and cache slices, so cache writes land in place in the
+stacked tensors.
+
+Only dense attention-only stacks are ported; the MoE, hybrid, SSM,
+audio and VLM families raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from .attention import (attn_cache_init, attn_decode, attn_decode_paged,
+                        attn_paged_cache_init, attn_prefill,
+                        attn_prefill_paged)
+from .layers import EMBED_STD, dense, embed, he_normal, mlp_apply, rmsnorm
+
+__all__ = ["period_length", "block_kinds", "init_params", "init_cache",
+           "init_paged_cache", "prefill_forward", "decode_step",
+           "torch_dtype"]
+
+
+def torch_dtype(cfg: ModelConfig) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
+
+
+def _require_dense(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family is not ported to "
+            "PyTorch; the port serves dense attention-only stacks")
+
+
+def period_length(cfg: ModelConfig) -> int:
+    _require_dense(cfg)
+    return 1
+
+
+def block_kinds(cfg: ModelConfig) -> list[tuple[str, str]]:
+    """Per-layer (mixer, ffn) kinds for one period."""
+    _require_dense(cfg)
+    return [("attn", "dense" if cfg.d_ff > 0 else "none")]
+
+
+def _n_periods(cfg: ModelConfig) -> int:
+    return cfg.num_layers // period_length(cfg)
+
+
+def _index(tree, i: int):
+    """Period ``i`` of a stacked tree, as views."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+# --------------------------------------------------------------------- #
+# init
+# --------------------------------------------------------------------- #
+def init_params(cfg: ModelConfig, *, seed: int = 0,
+                device: str | torch.device = "cuda"):
+    """Random parameters from a seeded ``torch.Generator``, made on
+    ``device`` in the config's dtype: He-normal matrices (std
+    sqrt(1/fan_in)), embeddings at std 0.02, norm gains at 1.  Each
+    stacked leaf is drawn one layer at a time in fp32, so a full-width
+    model never holds an fp32 copy."""
+    dev = resolve_device(device)
+    kinds = block_kinds(cfg)
+    n_periods = _n_periods(cfg)
+    dtype = torch_dtype(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    d, hd, dff = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+
+    def stacked(shape, fan_in):
+        out = torch.empty((n_periods, *shape), dtype=dtype, device=dev)
+        for i in range(n_periods):
+            out[i].copy_(he_normal(shape, fan_in, generator=gen, device=dev))
+        return out
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=dev)
+
+    period = {}
+    for j, (_, ffn) in enumerate(kinds):
+        attn = {"wq": stacked((d, hq * hd), d),
+                "wk": stacked((d, hkv * hd), d),
+                "wv": stacked((d, hkv * hd), d),
+                "wo": stacked((hq * hd, d), hq * hd)}
+        if cfg.qk_norm:
+            attn["q_norm"] = ones(n_periods, hd)
+            attn["k_norm"] = ones(n_periods, hd)
+        sub = {"norm1": {"g": ones(n_periods, d)}, "attn": attn}
+        if ffn != "none":
+            mlp = {"wi": stacked((d, dff), d)}
+            if cfg.mlp == "glu":
+                mlp["wg"] = stacked((d, dff), d)
+            mlp["wo"] = stacked((dff, d), dff)
+            sub["norm2"] = {"g": ones(n_periods, d)}
+            sub["mlp"] = mlp
+        period[f"sub_{j}"] = sub
+
+    emb = torch.randn((cfg.vocab_size, d), generator=gen, device=dev,
+                      dtype=torch.float32).mul_(EMBED_STD)
+    params = {"layers": period, "final_norm": {"g": ones(d)},
+              "embed": {"e": emb.to(dtype)}}
+    if not cfg.tie_embeddings:
+        w = he_normal((d, cfg.vocab_size), d, generator=gen, device=dev)
+        params["lm_head"] = {"w": w.to(dtype)}
+    return params
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               device: str | torch.device = "cuda"):
+    """Dense per-slot KV stripes: per sub-layer (P, B, Hkv, S, hd)."""
+    dev, P = resolve_device(device), _n_periods(cfg)
+    return {f"sub_{j}": attn_cache_init(cfg, P, batch, max_len,
+                                        torch_dtype(cfg), dev)
+            for j in range(len(block_kinds(cfg)))}
+
+
+def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int, *,
+                     device: str | torch.device = "cuda"):
+    """Global paged KV pool: per sub-layer (P, Hkv, num_blocks *
+    block_size, hd), no slot axis."""
+    dev, P = resolve_device(device), _n_periods(cfg)
+    return {f"sub_{j}": attn_paged_cache_init(cfg, P, num_blocks, block_size,
+                                              torch_dtype(cfg), dev)
+            for j in range(len(block_kinds(cfg)))}
+
+
+# --------------------------------------------------------------------- #
+# forward passes
+# --------------------------------------------------------------------- #
+def _head(params, cfg: ModelConfig, x):
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if "lm_head" in params:
+        return dense(params["lm_head"], x)
+    return x @ params["embed"]["e"].to(x.dtype).T
+
+
+def _ffn(sub, cfg: ModelConfig, ffn: str, x):
+    if ffn == "none":
+        return x
+    return x + mlp_apply(sub["mlp"], rmsnorm(sub["norm2"], x, cfg.norm_eps),
+                         cfg.mlp)
+
+
+def prefill_forward(params, cfg: ModelConfig, cache, batch, pos, active, *,
+                    with_logits: bool = True, block_tables=None,
+                    block_size: int = 0, view_blocks: int = 0):
+    """Forward one prompt chunk and write its KV into ``cache`` in place.
+
+    batch {"tokens": (B, T)}; pos (B, T) global cache positions; active
+    (B, T) bool (False = padding: no cache write, no influence).
+    ``block_tables`` (B, nk) selects the paged pool layout, attending
+    the request's gathered logical prefix of ``view_blocks`` blocks.
+    Returns (logits (B, T, vocab) or None when ``with_logits`` is False,
+    cache)."""
+    kinds = block_kinds(cfg)
+    x = embed(params["embed"], batch["tokens"], torch_dtype(cfg))
+    write_idx = active.nonzero(as_tuple=True)
+    for i in range(_n_periods(cfg)):
+        lp, lc = _index(params["layers"], i), _index(cache, i)
+        for j, (_, ffn) in enumerate(kinds):
+            sub = lp[f"sub_{j}"]
+            h = rmsnorm(sub["norm1"], x, cfg.norm_eps)
+            if block_tables is not None:
+                mx, _ = attn_prefill_paged(
+                    sub["attn"], cfg, h, pos, lc[f"sub_{j}"], active,
+                    block_tables, block_size=block_size,
+                    view_blocks=view_blocks, write_idx=write_idx)
+            else:
+                mx, _ = attn_prefill(sub["attn"], cfg, h, pos,
+                                     lc[f"sub_{j}"], active,
+                                     write_idx=write_idx)
+            x = _ffn(sub, cfg, ffn, x + mx)
+    if not with_logits:
+        return None, cache
+    return _head(params, cfg, x), cache
+
+
+def decode_step(params, cfg: ModelConfig, cache, batch, pos_t, *,
+                attn_impl: str = "flash", attn_shards: int = 1,
+                block_tables=None, block_size: int = 0, write_mask=None):
+    """One decode step.  batch {"tokens": (B,)}; pos_t (B,) int32 current
+    positions.  Returns (logits (B, vocab), cache), the cache updated in
+    place.
+
+    ``attn_impl`` "flash" runs the flash-decode kernels, "dense" the
+    softmax oracle.  ``block_tables`` (B, nk) selects the paged pool.
+    ``write_mask`` (B,) bool restricts cache writes to its rows (the
+    paged layout also hides all KV from the other rows); None writes
+    every row."""
+    kinds = block_kinds(cfg)
+    x = embed(params["embed"], batch["tokens"], torch_dtype(cfg))
+    if block_tables is not None and write_mask is None:
+        write_mask = torch.ones(x.shape[0], dtype=torch.bool,
+                                device=x.device)
+    rows = None if write_mask is None else write_mask.nonzero().flatten()
+    for i in range(_n_periods(cfg)):
+        lp, lc = _index(params["layers"], i), _index(cache, i)
+        for j, (_, ffn) in enumerate(kinds):
+            sub = lp[f"sub_{j}"]
+            h = rmsnorm(sub["norm1"], x, cfg.norm_eps)
+            if block_tables is not None:
+                mx, _ = attn_decode_paged(
+                    sub["attn"], cfg, h, pos_t, lc[f"sub_{j}"],
+                    block_tables, write_mask, impl=attn_impl,
+                    block_size=block_size, write_rows=rows)
+            else:
+                mx, _ = attn_decode(sub["attn"], cfg, h, pos_t,
+                                    lc[f"sub_{j}"], impl=attn_impl,
+                                    shards=attn_shards, write_rows=rows)
+            x = _ffn(sub, cfg, ffn, x + mx)
+    return _head(params, cfg, x), cache
