@@ -2,21 +2,30 @@
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one
 NVIDIA GPU.
 
-Builds the hand-written CUDA kernels from the sources in this checkout,
-holds each against its plain PyTorch version on the card (f32 and
-bf16), times it beside its memory bound, its plain version and a
-library call, then drives the serving path end to end at the full width
-of starcoder2_3b (30 layers, d_model 3072, random weights from a seed):
-12 requests on 6 slots through the paged layout (``flash_decode_paged``)
-and the dense layout (``flash_decode`` in partial mode), gated on every
-request ending ok and on the kernels' launch counts.  A small f32 model
-served on the card and on the CPU (the plain path) must give the same
-tokens.
+Builds the hand-written CUDA kernels from the sources in this checkout
+(one ``nvcc`` per source, all at once), holds each against its plain
+PyTorch version on the card (f32 and bf16), and times it beside its
+bound, its plain version and a library call.  Then it drives the port's
+two paths end to end at the full width of starcoder2_3b (30 layers,
+d_model 3072, random weights from a seed), each with every kernel's
+launch count set to 0 just before and read just after:
+
+* serving: 12 requests on 6 slots through the paged layout
+  (``flash_decode_paged``) and the dense layout (``flash_decode`` in
+  partial mode), gated on every request ending ok and on the launch
+  counts; one decode step flash vs the dense oracle; a small f32 model
+  served on the card and on the CPU must give the same tokens;
+* training: 4 steps on one 8192-token wlb_llm batch (``flash_fwd``,
+  ``flash_bwd_dq``, ``flash_bwd_dkv`` on the flat work queue), gated on
+  finite losses and on 30 x (2, 1, 1) launches per step; one step with
+  the kernels vs the plain attention from the same parameters and batch;
+  and a small f32 model trained 3 steps on the card and on the CPU (the
+  kernels' twins) must agree.
 
 Run from the repository root:
 
     python3 chip_smoke.py            # everything (one GPU)
-    python3 chip_smoke.py --quick    # build + kernel parity only
+    python3 chip_smoke.py --quick    # build + parity of all five kernels
 
 Prints one JSON line per phase, the card's name and power limit, the
 kernel table, and as its last line
@@ -28,6 +37,7 @@ CUDA device.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
@@ -41,14 +51,35 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # dense, no TF32
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/flash_decode.cu"
+DOC_SOURCE = "src/repro_torch/kernels/csrc/doc_attention.cu"
 # Pallas TPU kernels replaced (function definition lines)
 REPLACES = {"flash_decode": "src/repro/kernels/flash_decode.py:156",
-            "flash_decode_paged": "src/repro/kernels/flash_decode.py:282"}
+            "flash_decode_paged": "src/repro/kernels/flash_decode.py:282",
+            "flash_fwd": "src/repro/kernels/doc_attention.py:634",
+            "flash_bwd_dq": "src/repro/kernels/doc_attention.py:802",
+            "flash_bwd_dkv": "src/repro/kernels/doc_attention.py:967"}
+DOC_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 # kernel-parity shapes: full-width starcoder2_3b heads, the serving batch
 B, HQ, HKV, D = 6, 24, 2, 128
 S_DENSE, BLOCK = 1056, 16
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+# training: full-width starcoder2_3b heads on one 8192-token batch
+ARCH, SEQ, STEPS = "starcoder2_3b", 8192, 4
+T_HQ, T_HKV, T_D, T_BLOCK = 24, 2, 128, 128
+# doc kernels vs twins: f32 isolates the algorithm (same products, other
+# order, softmax rescaled per 32-key sub-tile); bf16 adds the rounding of
+# the outputs and of p / dS.  Gradients are held relative to their
+# largest entry.
+DOC_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# matrix products per visited (q block, kv block) pair and head
+MATMULS = {"flash_fwd": 2, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}
+# full-width flash vs plain step (bf16): relative bounds on loss and
+# grad norm
+STEP_LOSS_TOL, STEP_GNORM_TOL = 5e-3, 5e-2
+# f32 smoke model, 3 steps, card kernels vs CPU twins
+SMOKE_TRAIN_TOL = 1e-4
 
 
 def emit(phase: str, **kw) -> None:
@@ -236,9 +267,28 @@ def requests(cfg, n=12, lo=256, hi=1024, prefix=128, seed=0):
             .astype(np.int32) for t in lens]
 
 
+def kernel_counters() -> dict:
+    """Every kernel wrapper of the port, by name; each counts its own
+    launches in ``.launches``."""
+    from repro_torch.kernels import doc_attention as da
+    from repro_torch.kernels import flash_decode as fd
+    return {"flash_decode": fd.flash_decode,
+            "flash_decode_paged": fd.flash_decode_paged,
+            "flash_fwd": da.flash_fwd, "flash_bwd_dq": da.flash_bwd_dq,
+            "flash_bwd_dkv": da.flash_bwd_dkv}
+
+
+def reset_counts() -> None:
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {n: fn.launches for n, fn in kernel_counters().items()}
+
+
 def serve_run(torch, cfg, params, layout, prompts, gen, device="cuda",
               **kw):
-    from repro_torch.kernels import flash_decode as fd
     from repro_torch.serve import ServeEngine
 
     max_len = max(len(p) for p in prompts) + gen
@@ -250,13 +300,11 @@ def serve_run(torch, cfg, params, layout, prompts, gen, device="cuda",
     if device == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    fd.flash_decode.launches = 0
-    fd.flash_decode_paged.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     results = eng.run()
     wall = time.perf_counter() - t0
-    launches = {"flash_decode": fd.flash_decode.launches,
-                "flash_decode_paged": fd.flash_decode_paged.launches}
+    launches = read_counts()
     bad = {r: e["status"] for r, e in results.items() if e["status"] != "ok"}
     if len(results) != len(prompts) or bad:
         raise AssertionError(f"{layout}: requests not ok: {bad}")
@@ -350,21 +398,12 @@ def profile_decode(torch, eng, cfg, params) -> dict:
             decode_step(params, cfg, cache, {"tokens": toks}, pos)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / 3
-    rows = []
-    total = 0.0
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0.0))
-        if dev_us > 0:
-            rows.append((ev.key, dev_us / 3 / 1e3, ev.count // 3))
-            total += dev_us / 3 / 1e3
-    rows.sort(key=lambda r: -r[1])
+    total, by_cat, top = device_busy(prof, 3)
     res = {"wall_ms_per_step": wall * 1e3,
-           "device_busy_ms_per_step": total,
+           "device_busy_ms_per_step": total, "busy_ms_by_category": by_cat,
            "idle_share": None if not total else max(0.0, 1 - total
                                                     / (wall * 1e3)),
-           "top": [{"name": n[:80], "ms": ms, "calls": c}
-                   for n, ms, c in rows[:10]]}
+           "top": top}
     emit("profile_dense_decode_step", **res)
     return res
 
@@ -394,6 +433,352 @@ def smoke_parity_phase(torch) -> None:
             raise AssertionError(f"{layout}: cuda and cpu tokens differ")
 
 
+# ----------------------------------------------------------------------- #
+# doc-attention training kernels: parity and timing
+# ----------------------------------------------------------------------- #
+def doc_batch(pad: int = 0, grid: str = "flat", step: int = 0):
+    """A real wlb_llm batch of the port's pipeline at SEQ tokens (the last
+    ``pad`` tokens padding) with its visit tables, on the card."""
+    from repro_torch.data.pipeline import PipelineConfig, make_batch
+    from repro_torch.launch.steps import batch_to_device
+    # aligning to SEQ pads the SEQ - pad tokens of documents to SEQ
+    pipe = PipelineConfig(dataset="wlb_llm", context_len=SEQ - pad,
+                          batch_per_host=1, cp_size=1, vocab_size=49152,
+                          align=SEQ, emit_tables=True, table_grid=grid)
+    return batch_to_device(make_batch(pipe, step), "cuda")
+
+
+def doc_tables(batch, grid: str):
+    """(fwd/dQ tables, dKV reverse tables) of rank 0 of a batch."""
+    from repro_torch.table_layout import GRID_TABLE_HALF, table_keys
+    t = tuple(batch[k][:, 0].contiguous()
+              for k in table_keys("tab_loc_", grid))
+    h = GRID_TABLE_HALF[grid]
+    return t[:h], t[h:]
+
+
+def visits_of(batch) -> int:
+    """Visited (q block, kv block) pairs of a batch's flat tables."""
+    flags = batch["tab_loc_fq_flags"]
+    return int(((flags & 4) != 0).sum())
+
+
+def doc_inputs(torch, gen, dtype):
+    shape_q = (1, T_HQ, SEQ, T_D)
+    shape_k = (1, T_HKV, SEQ, T_D)
+    return [torch.randn(s, generator=gen, device="cuda").to(dtype)
+            for s in (shape_q, shape_k, shape_k, shape_q)]
+
+
+def _err(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def doc_kernel_phase(torch, timer, quick: bool) -> dict:
+    """Each doc kernel vs its twin on a real batch at the training head
+    geometry (Hq 24, Hkv 2, D 128, SEQ tokens, blocks 128): f32 and bf16
+    on the flat grid with 300 padding tokens (two empty q-block rows and
+    a part-empty one), f32 on the rect grid; then bf16 times."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import doc_attention as da
+    from repro_torch.kernels.ref import doc_mask
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4321)
+    err = {n: 0.0 for n in DOC_KERNELS}
+    for name, grid, pad in (("float32", "flat", 300), ("bfloat16", "flat", 300),
+                            ("float32", "rect", 0)):
+        dtype = getattr(torch, name)
+        tol = DOC_TOL[name]
+        batch = doc_batch(pad=pad, grid=grid)
+        meta = [batch[k] for k in ("doc", "pos", "doc", "pos")]
+        fwd_t, rev_t = doc_tables(batch, grid)
+        q, k, v, do = doc_inputs(torch, gen, dtype)
+        kw = dict(scale=T_D ** -0.5, block_q=T_BLOCK, block_k=T_BLOCK,
+                  grid=grid)
+        o, lse = da.flash_fwd(q, k, v, *meta, fwd_t, **kw)
+        torch.cuda.synchronize()
+        po, plse = da.flash_fwd_plain(q, k, v, *meta, fwd_t, **kw)
+        empty = torch.isinf(plse)
+        fin = ~empty
+        e_o = _err(o, po)
+        e_lse = (lse[fin] - plse[fin]).abs().max().item()
+        empty_ok = bool(torch.equal(torch.isneginf(lse), empty)
+                        and (o[empty[..., None].expand_as(o)] == 0).all())
+        delta = (do.float() * po.float()).sum(-1)
+        dq = da.flash_bwd_dq(q, k, v, do, plse, delta, *meta, fwd_t, **kw)
+        dk, dv = da.flash_bwd_dkv(q, k, v, do, plse, delta, *meta, rev_t,
+                                  **kw)
+        torch.cuda.synchronize()
+        pdq = da.flash_bwd_dq_plain(q, k, v, do, plse, delta, *meta, fwd_t,
+                                    **kw)
+        pdk, pdv = da.flash_bwd_dkv_plain(q, k, v, do, plse, delta, *meta,
+                                          rev_t, **kw)
+        grads = {"dq": (dq, pdq), "dk": (dk, pdk), "dv": (dv, pdv)}
+        rel = {n: _err(a, b) / max(b.float().abs().max().item(), 1e-30)
+               for n, (a, b) in grads.items()}
+        emit("doc_kernel_parity", dtype=name, grid=grid, pad_tokens=pad,
+             tol=tol, o_err=e_o, lse_err=e_lse,
+             grad_rel_err=rel, grad_abs_err={n: _err(a, b) for n, (a, b)
+                                             in grads.items()},
+             empty_rows=int(empty.sum()), empty_rows_exact=empty_ok,
+             visits=visits_of(batch) if grid == "flat" else None)
+        if max(e_o, e_lse, *rel.values()) > tol or not empty_ok:
+            raise AssertionError(f"doc kernel parity failed: {name} {grid}")
+        err["flash_fwd"] = max(err["flash_fwd"], e_o)
+        err["flash_bwd_dq"] = max(err["flash_bwd_dq"], _err(dq, pdq))
+        err["flash_bwd_dkv"] = max(err["flash_bwd_dkv"], _err(dk, pdk),
+                                   _err(dv, pdv))
+        del q, k, v, do, o, po, dq, dk, dv, pdq, pdk, pdv, grads
+    if quick:
+        return {"err": err}
+
+    # times in the model dtype on the main path's schedule (flat grid, an
+    # unpadded batch), bounds from this batch's visited blocks
+    dt, es = torch.bfloat16, 2
+    batch = doc_batch()
+    meta = [batch[k] for k in ("doc", "pos", "doc", "pos")]
+    fwd_t, rev_t = doc_tables(batch, "flat")
+    q, k, v, do = doc_inputs(torch, gen, dt)
+    kw = dict(scale=T_D ** -0.5, block_q=T_BLOCK, block_k=T_BLOCK,
+              grid="flat")
+    o, lse = da.flash_fwd(q, k, v, *meta, fwd_t, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    visits = visits_of(batch)
+    mask = doc_mask(batch["doc"], batch["pos"], batch["doc"],
+                    batch["pos"])[:, None]
+    qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    sd_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                            enable_gqa=True)
+    lib = {"flash_fwd": lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=True)}
+    lib["flash_bwd_dq"] = lib["flash_bwd_dkv"] = lambda: torch.autograd.grad(
+        sd_out, (qg, kg, vg), do, retain_graph=True)
+    nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
+    qkv_b = nbytes(q, k, v)
+    meta_b = nbytes(*meta)
+    calls = {
+        "flash_fwd": (lambda: da.flash_fwd(q, k, v, *meta, fwd_t, **kw),
+                      lambda: da.flash_fwd_plain(q, k, v, *meta, fwd_t,
+                                                 **kw),
+                      qkv_b + meta_b + nbytes(*fwd_t), nbytes(o, lse)),
+        "flash_bwd_dq": (
+            lambda: da.flash_bwd_dq(q, k, v, do, lse, delta, *meta, fwd_t,
+                                    **kw),
+            lambda: da.flash_bwd_dq_plain(q, k, v, do, lse, delta, *meta,
+                                          fwd_t, **kw),
+            qkv_b + nbytes(do, lse, delta) + meta_b + nbytes(*fwd_t),
+            nbytes(q)),
+        "flash_bwd_dkv": (
+            lambda: da.flash_bwd_dkv(q, k, v, do, lse, delta, *meta, rev_t,
+                                     **kw),
+            lambda: da.flash_bwd_dkv_plain(q, k, v, do, lse, delta, *meta,
+                                           rev_t, **kw),
+            qkv_b + nbytes(do, lse, delta) + meta_b + nbytes(*rev_t),
+            nbytes(k, v))}
+    times = {}
+    for name, (call, plain, rb, wb) in calls.items():
+        flops = visits * T_HQ * MATMULS[name] * 2 * T_BLOCK * T_BLOCK * T_D
+        bms, by = bound_ms(rb, wb, flops, "bfloat16")
+        times[name] = {"ms": timer(call, reps=20), "plain_ms":
+                       timer(plain, reps=20), "library_ms":
+                       timer(lib[name], reps=20), "bound_ms": bms,
+                       "bound_by": by, "flops": flops, "bytes": rb + wb,
+                       "visits": visits}
+        emit("kernel_time", name=name, dtype="bfloat16", **times[name],
+             library=("scaled_dot_product_attention forward"
+                      if name == "flash_fwd" else
+                      "scaled_dot_product_attention backward (dq, dk, dv "
+                      "together; shared by both backward rows)"))
+    return {"err": err, "times": times}
+
+
+# ----------------------------------------------------------------------- #
+# the training path
+# ----------------------------------------------------------------------- #
+def train_args(*extra):
+    from repro_torch.launch.train import build_parser
+    return build_parser().parse_args(list(extra))
+
+
+def train(args, params=None):
+    from repro_torch.launch.train import train as run_train
+    return run_train(args, params)
+
+
+# device-time categories of a profile, by kernel name
+CATEGORIES = (("doc_attention", ("fwd_kernel", "dq_kernel", "dkv_kernel")),
+              ("flash_decode", ("decode_kernel",)),
+              ("gemm", ("nvjet", "gemm", "cutlass", "sm90_xmma")))
+
+
+def device_busy(prof, steps: int = 1):
+    """(device busy ms, ms by category, top kernels) per step from a
+    profiler run: only device-side (kernel and copy) events count; a CPU
+    operator's device time is that of the kernels it launched, counted
+    there already."""
+    from torch.autograd import DeviceType
+    rows, total = [], 0.0
+    by_cat = {c: 0.0 for c, _ in CATEGORIES} | {"other": 0.0}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        ms = ev.self_device_time_total / steps / 1e3
+        if ms > 0:
+            rows.append({"name": ev.key[:80], "ms": ms,
+                         "calls": ev.count // steps})
+            total += ms
+            cat = next((c for c, keys in CATEGORIES
+                        if any(k in ev.key for k in keys)), "other")
+            by_cat[cat] += ms
+    rows.sort(key=lambda r: -r["ms"])
+    return total, by_cat, rows[:12]
+
+
+def profile_train_step(torch, res) -> dict:
+    """Device time by kernel over one more full-width training step, and
+    the device's idle share of its wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch.steps import batch_to_device
+
+    batch = batch_to_device(make_batch(res["pipeline"], STEPS), "cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        m = res["step_fn"](res["params"], res["opt_state"], batch, STEPS)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    total, by_cat, top = device_busy(prof)
+    out = {"wall_ms": wall * 1e3, "device_busy_ms": total,
+           "busy_ms_by_category": by_cat,
+           "idle_share": None if not total else max(0.0, 1 - total
+                                                    / (wall * 1e3)),
+           "top": top}
+    emit("profile_train_step", **out)
+    return out
+
+
+def train_phase(torch) -> dict:
+    """The main path: ``train`` at full width for STEPS steps through the
+    kernels, launch counts read around it."""
+    import math
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch
+
+    cfg = get_config(ARCH)
+    args = train_args("--arch", ARCH, "--seq-len", str(SEQ), "--batch", "1",
+                      "--steps", str(STEPS), "--device", "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = train(args)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.num_layers
+    want = {"flash_fwd": STEPS * L * 2, "flash_bwd_dq": STEPS * L,
+            "flash_bwd_dkv": STEPS * L}
+    visits = [visits_of(make_batch(res["pipeline"], s))
+              for s in range(STEPS)]
+    tokens = SEQ                       # processed per step (batch 1)
+    # model flops: 6 N per token for the matrices (the embedding table, a
+    # lookup, not counted) plus the attention's two products per visited
+    # block pair and head, times 3 for forward and backward
+    # (rematerialization not counted)
+    n_dense = cfg.param_count() - cfg.vocab_size * cfg.d_model
+    flops = [6 * n_dense * tokens + 3 * 2 * v * T_HQ * 2 * T_BLOCK
+             * T_BLOCK * T_D * L for v in visits]
+    step_s = res["step_s"][1:]
+    mean_s = statistics.mean(step_s)
+    mean_flops = statistics.mean(flops[1:])
+    out = {"arch": ARCH, "params": cfg.param_count(), "seq_len": SEQ,
+           "batch": 1, "steps": STEPS, "wall_s": wall,
+           "losses": res["losses"], "grad_norms": res["grad_norms"],
+           "lrs": res["lrs"], "step_s": res["step_s"],
+           "step_s_after_first": mean_s, "tokens_per_s": tokens / mean_s,
+           "visits_per_step": visits, "model_flops_per_step": flops,
+           "model_tflops_per_s": mean_flops / mean_s / 1e12,
+           "bf16_peak_share": mean_flops / mean_s / PEAK_FLOPS["bfloat16"],
+           "peak_bytes": peak, "launches": launches,
+           "expected_launches": want}
+    emit("train_full_width", **out)
+    finite = all(math.isfinite(x) for x in res["losses"] + res["grad_norms"])
+    if not finite:
+        raise AssertionError("training produced non-finite losses")
+    if any(launches[n] != want[n] for n in want):
+        raise AssertionError(f"training launches {launches}, want {want}")
+    out["profile"] = profile_train_step(torch, res)
+    return out, res
+
+
+def step_parity_phase(torch, res) -> None:
+    """One full-width step from the trained parameters and one batch,
+    loss and gradients through the kernels vs the plain attention."""
+    import dataclasses
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch.steps import batch_to_device, build_train_step
+    from repro_torch.optim import global_norm
+
+    batch = batch_to_device(make_batch(res["pipeline"], STEPS + 1), "cuda")
+    got = {}
+    for impl in ("flash", "plain"):
+        run = dataclasses.replace(res["run"], attention_impl=impl)
+        fn = build_train_step(res["config"], run, q_chunk=512,
+                              device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (loss, _), grads = fn.loss_and_grads(res["params"], batch)
+        norm = float(global_norm(grads))
+        got[impl] = {"loss": float(loss), "grad_norm": norm,
+                     "seconds": time.perf_counter() - t0}
+        del grads
+        torch.cuda.empty_cache()
+    d_loss = abs(got["flash"]["loss"] - got["plain"]["loss"]) \
+        / abs(got["plain"]["loss"])
+    d_norm = abs(got["flash"]["grad_norm"] - got["plain"]["grad_norm"]) \
+        / got["plain"]["grad_norm"]
+    emit("train_step_flash_vs_plain", **got, loss_rel_diff=d_loss,
+         grad_norm_rel_diff=d_norm, loss_tol=STEP_LOSS_TOL,
+         grad_norm_tol=STEP_GNORM_TOL)
+    if not (d_loss <= STEP_LOSS_TOL and d_norm <= STEP_GNORM_TOL):
+        raise AssertionError("flash and plain training steps disagree")
+
+
+def smoke_train_phase(torch) -> None:
+    """A small f32 model trained 3 steps through the kernels on the card
+    and through their twins on the CPU, from the same seed and batches."""
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.models import init_params
+    from repro_torch.optim._slices import leaves
+
+    params_cpu = init_params(reduce_for_smoke(get_config(ARCH)), seed=0,
+                             device="cpu")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        reset_counts()
+        res = train(train_args("--smoke", "--steps", "3", "--seq-len", "512",
+                               "--batch", "2", "--device", dev,
+                               "--log-every", "100"),
+                    params=_to(params_cpu, dev))
+        out[dev] = (res["losses"], [p.detach().float().cpu()
+                                    for p in leaves(res["params"])])
+        if dev == "cuda" and not all(read_counts()[n] for n in DOC_KERNELS):
+            raise AssertionError("smoke training launched no doc kernel")
+    d_loss = max(abs(a - b) / abs(b)
+                 for a, b in zip(out["cuda"][0], out["cpu"][0]))
+    d_par = max((a - b).abs().max().item()
+                for a, b in zip(out["cuda"][1], out["cpu"][1]))
+    emit("smoke_train_cuda_vs_cpu", losses_cuda=out["cuda"][0],
+         losses_cpu=out["cpu"][0], loss_rel_diff=d_loss,
+         param_max_abs_diff=d_par, tol=SMOKE_TRAIN_TOL)
+    if not (d_loss <= SMOKE_TRAIN_TOL and d_par <= SMOKE_TRAIN_TOL):
+        raise AssertionError("cuda and cpu smoke training disagree")
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -421,25 +806,48 @@ def main() -> int:
          cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    _, log = _build.build("flash_decode.cu")
-    print(log, file=sys.stderr)
+    built = _build.build_all()
+    for source, (_, log, _) in built.items():
+        print(f"== {source}\n{log}", file=sys.stderr)
     _build.flash_decode_lib()
-    emit("build", seconds=time.perf_counter() - t0, source=KERNEL_SOURCE)
+    _build.doc_attention_lib()
+    emit("build", seconds=time.perf_counter() - t0,
+         per_source={s: sec for s, (_, _, sec) in built.items()},
+         sources=[KERNEL_SOURCE, DOC_SOURCE])
 
     timer = Timer(torch)
     kern = kernel_phase(torch, timer, args.quick)
+    doc = doc_kernel_phase(torch, timer, args.quick)
     kernels = []
     if not args.quick:
         serving = main_path_phase(torch)
+        launches = {name: serving[layout]["launches"]
+                    for name, layout in (("flash_decode", "dense"),
+                                         ("flash_decode_paged", "paged"))}
+        del serving
         smoke_parity_phase(torch)
-        for name, layout in (("flash_decode", "dense"),
-                             ("flash_decode_paged", "paged")):
-            t = kern["times"][name]
+        gc.collect()
+        torch.cuda.empty_cache()
+        trained, res = train_phase(torch)
+        launches.update({n: trained["launches"][n] for n in DOC_KERNELS})
+        res["opt_state"] = None       # the parity step needs no optimizer
+        gc.collect()
+        torch.cuda.empty_cache()
+        step_parity_phase(torch, res)
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+        smoke_train_phase(torch)
+        errs = {**kern["err"], **doc["err"]}
+        times = {**kern["times"], **doc["times"]}
+        for name in REPLACES:
+            t = times[name]
             kernels.append({
-                "name": name, "route": "cuda", "source": KERNEL_SOURCE,
-                "replaces": REPLACES[name],
-                "launches": serving[layout]["launches"],
-                "max_abs_err": kern["err"][name], "ms": t["ms"],
+                "name": name, "route": "cuda",
+                "source": DOC_SOURCE if name in DOC_KERNELS
+                else KERNEL_SOURCE,
+                "replaces": REPLACES[name], "launches": launches[name],
+                "max_abs_err": errs[name], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     print(card_line(), flush=True)

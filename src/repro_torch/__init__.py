@@ -3,11 +3,13 @@
 A second package beside the JAX reference ``repro``: it imports torch
 and numpy, never jax and never ``repro``, and keeps its own copies of
 the host code it needs.  Its layout mirrors ``repro``'s so that each
-module's counterpart is easy to find (``configs``, ``core``,
-``kernels``, ``models``, ``serve``, ``launch``).  The ported slice is
-the serving path: paged continuous batching over a dense attention
-stack, with hand-written CUDA flash-decode kernels
-(``kernels/csrc/flash_decode.cu``).
+module's counterpart is easy to find (``configs``, ``core``, ``data``,
+``planner``, ``kernels``, ``models``, ``optim``, ``serve``, ``launch``).
+Two slices are ported: the serving path (paged continuous batching over
+a dense attention stack, hand-written CUDA flash-decode kernels in
+``kernels/csrc/flash_decode.cu``) and single-device training (the data
+pipeline at one CP rank, doc-masked attention through the CUDA training
+kernels in ``kernels/csrc/doc_attention.cu``, AdamW).
 
 Entry points take an explicit ``device`` and default to "cuda"; without
 a card they raise unless the caller passes "cpu", which runs the

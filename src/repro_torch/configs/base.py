@@ -2,7 +2,8 @@
 
 The port's own copy of the dense-attention part of the JAX package's
 config system: ``ModelConfig`` with the fields a dense attention stack
-reads, the serving fields of ``RunConfig``, and ``reduce_for_smoke``.
+reads, the serving and single-device training fields of ``RunConfig``,
+and ``reduce_for_smoke``.
 Plain frozen dataclasses; the values of every configuration are the
 same as the reference's.
 """
@@ -53,8 +54,28 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
-    """Serving defaults shared by the engine and the CLI."""
+    """Serving and training defaults shared by the engines and the CLIs.
+    The training fields take the reference's defaults, except that
+    ``attention_impl`` defaults to the kernels (``"flash"``, the
+    reference's ``"pallas"``; ``"plain"`` is its ``"xla"``)."""
     arch: str = "starcoder2_3b"
+    cp_strategy: Literal["flashcp", "llama3", "per_doc", "ring",
+                         "contiguous"] = "flashcp"
+    attention_impl: Literal["flash", "plain"] = "flash"
+    # chunked = local-KV partial + N-1 merged hops (at one device: the
+    # local partial); none = the monolithic islands
+    cp_overlap: Literal["chunked", "none"] = "chunked"
+    # kernel schedule: flat = work queue in LPT row order; rect = the
+    # padded rectangular visit lists
+    kernel_grid: Literal["flat", "rect"] = "flat"
+    # optimizer
+    lr: float = 3e-4
+    weight_decay: float = 0.1
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    grad_clip: float = 1.0
+    grad_compression: Literal["none", "topk", "int8"] = "none"
+    remat: bool = True
     # decode attention: flash-decode kernel (default) vs the dense
     # softmax parity oracle (models/attention.py::attn_decode)
     decode_impl: Literal["flash", "dense"] = "flash"

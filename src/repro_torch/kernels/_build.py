@@ -18,9 +18,12 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build", "flash_decode_lib"]
+__all__ = ["NVCC_FLAGS", "SOURCES", "build", "build_all", "flash_decode_lib",
+           "doc_attention_lib"]
 
 HERE = Path(__file__).resolve().parent
 CSRC = HERE / "csrc"
@@ -28,6 +31,8 @@ BUILD_DIR = HERE / "build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: every CUDA source of the port, one library each
+SOURCES = ("flash_decode.cu", "doc_attention.cu")
 
 
 def _nvcc() -> str:
@@ -70,6 +75,18 @@ def build(source: str) -> tuple[Path, str]:
     return lib, proc.stdout + proc.stderr
 
 
+def build_all(sources=SOURCES) -> dict[str, tuple[Path, str, float]]:
+    """Build several sources at once, one ``nvcc`` process each, all
+    started together.  Returns {source: (library, log, seconds)}."""
+    def one(source):
+        t0 = time.perf_counter()
+        path, log = build(source)
+        return source, (path, log, time.perf_counter() - t0)
+
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        return dict(pool.map(one, sources))
+
+
 @functools.lru_cache(maxsize=None)
 def flash_decode_lib() -> ctypes.CDLL:
     """The flash-decode library, built on first call, argtypes bound."""
@@ -92,4 +109,29 @@ def flash_decode_lib() -> ctypes.CDLL:
     lib.flash_decode_smem_bytes.restype = i64
     lib.flash_decode_error_string.argtypes = [i32]
     lib.flash_decode_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def doc_attention_lib() -> ctypes.CDLL:
+    """The doc-attention training kernels, built on first call, argtypes
+    bound.  The three entries share one argument list."""
+    path, _ = build("doc_attention.cu")
+    lib = ctypes.CDLL(str(path))
+    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    args = [vp, vp, vp, vp,                    # q k v do
+            vp, vp, vp, vp,                    # q_doc q_pos kv_doc kv_pos
+            vp, vp, vp, vp,                    # t0 t1 t2 starts
+            vp, vp, vp, vp,                    # lse delta out0 out1
+            i32, i32, i32, i32, i32, i32,      # B Hq Hkv Tq Tk D
+            i32, i32, i32, i32, i32,           # bq bk rows width flat
+            f32, i32, vp]                      # scale dtype stream
+    for name in ("doc_attn_fwd", "doc_attn_dq", "doc_attn_dkv"):
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = i32
+    lib.doc_attn_smem_bytes.argtypes = [i32, i32, i32]
+    lib.doc_attn_smem_bytes.restype = ctypes.c_longlong
+    lib.doc_attn_error_string.argtypes = [i32]
+    lib.doc_attn_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,0 +1,767 @@
+// Document-masked causal flash attention for Hopper (sm_90a): the three
+// training kernels, walking host-built visit tables (rect lists or flat
+// work queues).
+//
+// Replaces the Pallas TPU kernels of src/repro/kernels/doc_attention.py:
+//   * fwd_kernel<T, FLAT>  <- ::flash_fwd (_fwd_kernel / _fwd_kernel_flat
+//     over _fwd_init, _fwd_visit, _fwd_finalize);
+//   * dq_kernel<T, FLAT>   <- ::flash_bwd_dq (_dq_kernel / _dq_kernel_flat
+//     over _dq_visit);
+//   * dkv_kernel<T, FLAT>  <- ::flash_bwd_dkv (_dkv_kernel /
+//     _dkv_kernel_flat over _dkv_visit).
+//
+// Bound on this card: operations.  Each visited (q block, kv block) pair
+// costs 2 * bq * bk * D flops per matrix product and head: 2 products in
+// the forward, 3 in dQ, 4 in dK/dV, against about (bq + 2 bk) * D * 2
+// bytes of input, far above the ridge point.  The tensor-core bound is
+// what chip_smoke.py reports; these kernels run scalar f32 FMA (no mma,
+// wgmma or TMA), so the f32 CUDA-core rate is their practical ceiling.
+// The design keeps the whole working set of a visit in shared memory and
+// registers: the owned tile (q, or q and dO, staged once per CTA) as f32,
+// 32-key sub-tiles of K and V, and per-thread 8x2 (scores) and 8x8
+// (accumulator) register micro-tiles read with 16-byte shared loads.
+//
+// Ordering.  A Pallas grid walks the visits of a row in order and carries
+// the accumulator in VMEM; a GPU grid has no order.  So one CTA owns one
+// output block row and loops over that row's visits itself:
+//   * rect: visits kv_idx[b, row, t] for t < kv_nvis[b, row];
+//   * flat: queue row i starts at starts[b, i] (a FIRST step); the CTA
+//     computes on VALID steps and stops after the LAST step, so it never
+//     reads another row's steps or the pad tail.  CTAs are numbered row
+//     ordinal outermost, so the queue's LPT order is the launch order.
+// An empty row (a sentinel step, or nvis 0) still writes: o = 0 and
+// lse = -inf forward, zeros backward.
+//
+// Semantics (identical to the TPU kernels):
+//   * visible iff same doc, q_pos >= kv_pos, and both docs >= 0;
+//   * forward: online softmax in f32 with m initialised to -1e30; masked
+//     scores are -1e30; p is rounded to V's dtype before PV while l sums
+//     the unrounded p; o = acc / l (0 where l = 0), lse = m + log(l)
+//     (-inf where l = 0).  The TPU kernel updates m once per 128-key block;
+//     this one once per 32-key sub-tile (the same softmax, rescaled in
+//     other steps);
+//   * dQ: P = exp(S - lse_safe) with lse_safe = 0 where lse is -inf,
+//     dS = P (dO.V^T - delta) scale, rounded to K's dtype before dS.K;
+//   * dK/dV: the same P and dS, nothing rounded; dV += P^T dO and
+//     dK += dS^T Q summed over the GQA group in f32.  A 128-key KV row is
+//     split over CTAs by 32-key sub-tile, all walking the same visits, so
+//     a CTA's dK and dV accumulators fit in registers with no atomics.
+//
+// Plain C interface for ctypes; each entry returns cudaGetLastError() right
+// after its launch.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr float NEG = -1e30f;
+constexpr int THREADS = 256;   // 16 x 16: ty = tid / 16, tx = tid % 16
+constexpr int KT = 32;         // keys per sub-tile (block_k is a multiple)
+constexpr int PP = KT + 1;     // pitch of a (rows x KT) score tile
+constexpr int MAXI = 8;        // rows per thread: block_q / 16 <= 8
+constexpr int UNROLL = 4;      // 16-byte loads in flight per thread
+constexpr int STATIC_SMEM_LIMIT = 48 * 1024;
+constexpr int FLAG_LAST = 2, FLAG_VALID = 4;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// round through T and back: the reference's x.astype(T) before a product
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f(from_f<T>(x));
+}
+
+struct Params {
+  const void* q;          // (B, Hq, Tq, D)
+  const void* k;          // (B, Hkv, Tk, D)
+  const void* v;
+  const void* dout;       // (B, Hq, Tq, D), backward only
+  const int* q_doc;       // (B, Tq)
+  const int* q_pos;
+  const int* kv_doc;      // (B, Tk)
+  const int* kv_pos;
+  const int* t0;          // rect: idx (B, R, W); flat: row (B, W)
+  const int* t1;          // rect: nvis (B, R);   flat: col (B, W)
+  const int* t2;          // flat: flags (B, W)
+  const int* starts;      // flat: (B, R) queue position of each run
+  const float* lse;       // (B, Hq, Tq), backward only
+  const float* delta;
+  void* out0;             // fwd: o; dq: dq; dkv: dk
+  void* out1;             // fwd: lse (f32); dkv: dv
+  int B, Hq, Hkv, G, Tq, Tk, D, bq, bk, R, W;
+  float scale;
+};
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float s) {
+  s = fmaf(a.x, b.x, s);
+  s = fmaf(a.y, b.y, s);
+  s = fmaf(a.z, b.z, s);
+  return fmaf(a.w, b.w, s);
+}
+
+__device__ __forceinline__ void fma4(float a, float4 b, float4& c) {
+  c.x = fmaf(a, b.x, c.x);
+  c.y = fmaf(a, b.y, c.y);
+  c.z = fmaf(a, b.z, c.z);
+  c.w = fmaf(a, b.w, c.w);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ bool visible(int qd, int qp, int kd, int kp) {
+  return qd == kd && qp >= kp && qd >= 0 && kd >= 0;
+}
+
+// sum / max over the 16 threads of one half-warp (the tx of one ty)
+__device__ __forceinline__ float half_warp_max(float x) {
+  for (int o = 8; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float half_warp_sum(float x) {
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Stage `nrows` rows of D contiguous elements (16-byte aligned) into shared
+// memory as f32 with row pitch DP.  Each thread issues up to UNROLL 16-byte
+// loads before it converts and stores any.
+template <typename T>
+__device__ __forceinline__ void stage(const T* __restrict__ src, float* dst,
+                                      int nrows, int D, int DP, int tid) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int nvec = nrows * D / VEC;
+  const uint4* s4 = reinterpret_cast<const uint4*>(src);
+  for (int base = 0; base < nvec; base += THREADS * UNROLL) {
+    uint4 r[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int c = base + u * THREADS + tid;
+      if (c < nvec) r[u] = __ldg(s4 + c);
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int c = base + u * THREADS + tid;
+      if (c < nvec) {
+        const int e = c * VEC, row = e / D, col = e - row * D;
+        const T* x = reinterpret_cast<const T*>(&r[u]);
+        float* d = dst + row * DP + col;
+#pragma unroll
+        for (int j = 0; j < VEC; j += 4)
+          *reinterpret_cast<float4*>(d + j) = make_float4(
+              to_f(x[j]), to_f(x[j + 1]), to_f(x[j + 2]), to_f(x[j + 3]));
+      }
+    }
+  }
+}
+
+// CTA -> (row ordinal i, rest): row ordinal outermost
+__device__ __forceinline__ int cta_row(int per_row, int* rest) {
+  const int i = blockIdx.x / per_row;
+  *rest = blockIdx.x - i * per_row;
+  return i;
+}
+
+// First queue position and output row of row ordinal i; false when the
+// queue holds no run for it.
+template <bool FLAT>
+__device__ __forceinline__ bool walk_begin(const Params& p, int b, int i,
+                                           int* s0, int* row) {
+  if (!FLAT) {
+    *s0 = 0;
+    *row = i;
+    return true;
+  }
+  *s0 = p.starts[b * p.R + i];
+  if (*s0 < 0) return false;
+  *row = p.t0[(long long)b * p.W + *s0];
+  return true;
+}
+
+// Visit t of the row's walk: returns false when the walk is over; else
+// sets *col and *flags (VALID: compute; LAST: stop after this one).
+template <bool FLAT>
+__device__ __forceinline__ bool walk_step(const Params& p, int b, int row,
+                                          int s0, int t, int* col,
+                                          int* flags) {
+  if (FLAT) {
+    const int s = s0 + t;
+    if (s >= p.W) return false;
+    const long long o = (long long)b * p.W + s;
+    *flags = p.t2[o];
+    *col = p.t1[o];
+    return true;
+  }
+  const long long r = (long long)b * p.R + row;
+  if (t >= p.t1[r]) return false;
+  *col = p.t0[r * p.W + t];
+  *flags = FLAG_VALID;
+  return true;
+}
+
+// Scores of one 32-key sub-tile: acc[i][j] = a[row(i)] . b[key(j)] for the
+// rows ty + 16 i of `a` (pitch DP) and the keys tx + 16 j of `b`.
+__device__ __forceinline__ void tile_scores(const float* a, const float* b,
+                                            int NI, int ND4, int DP, int ty,
+                                            int tx, float (&acc)[MAXI][2]) {
+#pragma unroll
+  for (int i = 0; i < MAXI; ++i) acc[i][0] = acc[i][1] = 0.f;
+  const float* b0 = b + tx * DP;
+  const float* b1 = b + (tx + 16) * DP;
+  for (int d4 = 0; d4 < ND4; ++d4) {
+    const float4 k0 = ld4(b0 + 4 * d4), k1 = ld4(b1 + 4 * d4);
+#pragma unroll
+    for (int i = 0; i < MAXI; ++i) {
+      if (i < NI) {
+        const float4 x = ld4(a + (ty + 16 * i) * DP + 4 * d4);
+        acc[i][0] = dot4(x, k0, acc[i][0]);
+        acc[i][1] = dot4(x, k1, acc[i][1]);
+      }
+    }
+  }
+}
+
+// acc[i][j] (row ty + 16 i, columns 4 (tx + 16 j) .. + 3) += w[row][c] *
+// m[c][cols] over the KT columns c of w (pitch PP) and rows of m (pitch DP).
+__device__ __forceinline__ void tile_accum(const float* w, const float* m,
+                                           int NI, int ND4, int DP, int ty,
+                                           int tx, float4 (&acc)[MAXI][2]) {
+  const bool has0 = tx < ND4, has1 = tx + 16 < ND4;
+  for (int c = 0; c < KT; ++c) {
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 m0 = has0 ? ld4(m + c * DP + 4 * tx) : z;
+    const float4 m1 = has1 ? ld4(m + c * DP + 4 * (tx + 16)) : z;
+#pragma unroll
+    for (int i = 0; i < MAXI; ++i) {
+      if (i < NI) {
+        const float x = w[(ty + 16 * i) * PP + c];
+        fma4(x, m0, acc[i][0]);
+        fma4(x, m1, acc[i][1]);
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------------------
+// forward: CTA = (q-block row, b, hq).  Replaces flash_fwd
+// (doc_attention.py:634, _fwd_kernel / _fwd_kernel_flat).  Bound:
+// operations, 2 products of 2 * bq * bk * D flops per visit and head.
+// ------------------------------------------------------------------------
+template <typename T, bool FLAT>
+__global__ void __launch_bounds__(THREADS, 1) fwd_kernel(Params p) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int D = p.D, DP = D + 4, BQ = p.bq, BK = p.bk;
+  const int NI = BQ / 16, ND4 = D / 4;
+  float* q_s = smem;                    // BQ x DP
+  float* k_s = q_s + BQ * DP;           // KT x DP
+  float* v_s = k_s + KT * DP;           // KT x DP
+  float* p_s = v_s + KT * DP;           // BQ x PP
+  int* qd_s = reinterpret_cast<int*>(p_s + BQ * PP);   // BQ
+  int* qp_s = qd_s + BQ;
+  int* kd_s = qp_s + BQ;                // KT
+  int* kp_s = kd_s + KT;
+
+  int rest;
+  const int i_row = cta_row(p.B * p.Hq, &rest);
+  const int b = rest / p.Hq, h = rest - b * p.Hq, hkv = h / p.G;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  int s0, row;
+  if (!walk_begin<FLAT>(p, b, i_row, &s0, &row)) return;
+
+  const long long q0 = ((long long)b * p.Hq + h) * p.Tq + (long long)row * BQ;
+  stage<T>(static_cast<const T*>(p.q) + q0 * D, q_s, BQ, D, DP, tid);
+  for (int r = tid; r < BQ; r += THREADS) {
+    qd_s[r] = p.q_doc[(long long)b * p.Tq + row * BQ + r];
+    qp_s[r] = p.q_pos[(long long)b * p.Tq + row * BQ + r];
+  }
+  float m[MAXI], l[MAXI];
+  float4 acc[MAXI][2];
+#pragma unroll
+  for (int i = 0; i < MAXI; ++i) {
+    m[i] = NEG;
+    l[i] = 0.f;
+    acc[i][0] = acc[i][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  const long long kv0 = ((long long)b * p.Hkv + hkv) * p.Tk;
+  const T* kg = static_cast<const T*>(p.k);
+  const T* vg = static_cast<const T*>(p.v);
+  __syncthreads();
+
+  int col, flags;
+  for (int t = 0; walk_step<FLAT>(p, b, row, s0, t, &col, &flags); ++t) {
+    if (flags & FLAG_VALID) {
+      for (int kt = 0; kt < BK; kt += KT) {
+        const long long key0 = (long long)col * BK + kt;
+        stage<T>(kg + (kv0 + key0) * D, k_s, KT, D, DP, tid);
+        stage<T>(vg + (kv0 + key0) * D, v_s, KT, D, DP, tid);
+        if (tid < KT) {
+          kd_s[tid] = p.kv_doc[(long long)b * p.Tk + key0 + tid];
+          kp_s[tid] = p.kv_pos[(long long)b * p.Tk + key0 + tid];
+        }
+        __syncthreads();
+
+        float s[MAXI][2];
+        tile_scores(q_s, k_s, NI, ND4, DP, ty, tx, s);
+        const int kd0 = kd_s[tx], kp0 = kp_s[tx];
+        const int kd1 = kd_s[tx + 16], kp1 = kp_s[tx + 16];
+#pragma unroll
+        for (int i = 0; i < MAXI; ++i) {
+          if (i < NI) {
+            const int r = ty + 16 * i;
+            const int qd = qd_s[r], qp = qp_s[r];
+            const bool v0 = visible(qd, qp, kd0, kp0);
+            const bool v1 = visible(qd, qp, kd1, kp1);
+            const float x0 = v0 ? s[i][0] * p.scale : NEG;
+            const float x1 = v1 ? s[i][1] * p.scale : NEG;
+            const float m_new = fmaxf(m[i], half_warp_max(fmaxf(x0, x1)));
+            const float alpha = expf(m[i] - m_new);
+            const float p0 = v0 ? expf(x0 - m_new) : 0.f;
+            const float p1 = v1 ? expf(x1 - m_new) : 0.f;
+            l[i] = l[i] * alpha + half_warp_sum(p0 + p1);
+            m[i] = m_new;
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              acc[i][j].x *= alpha;
+              acc[i][j].y *= alpha;
+              acc[i][j].z *= alpha;
+              acc[i][j].w *= alpha;
+            }
+            p_s[r * PP + tx] = round_to<T>(p0);       // PV takes p in V's dtype
+            p_s[r * PP + tx + 16] = round_to<T>(p1);
+          }
+        }
+        __syncthreads();
+        tile_accum(p_s, v_s, NI, ND4, DP, ty, tx, acc);
+        __syncthreads();
+      }
+    }
+    if (flags & FLAG_LAST) break;
+  }
+
+  T* o = static_cast<T*>(p.out0) + q0 * D;
+  float* lse = static_cast<float*>(p.out1) +
+               ((long long)b * p.Hq + h) * p.Tq + (long long)row * BQ;
+#pragma unroll
+  for (int i = 0; i < MAXI; ++i) {
+    if (i < NI) {
+      const int r = ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int d4 = tx + 16 * j;
+        if (d4 < ND4) {
+          T* dst = o + (long long)r * D + 4 * d4;
+          // acc / l, as the reference divides
+          const float4 a = acc[i][j];
+          const bool any = l[i] > 0.f;
+          const float lc = fmaxf(l[i], 1e-30f);
+          dst[0] = from_f<T>(any ? a.x / lc : 0.f);
+          dst[1] = from_f<T>(any ? a.y / lc : 0.f);
+          dst[2] = from_f<T>(any ? a.z / lc : 0.f);
+          dst[3] = from_f<T>(any ? a.w / lc : 0.f);
+        }
+      }
+      if (tx == 0)
+        lse[r] = l[i] > 0.f ? m[i] + logf(fmaxf(l[i], 1e-30f)) : -INFINITY;
+    }
+  }
+}
+
+// Per-row backward inputs of one q tile into shared memory: doc, pos,
+// lse_safe (0 where lse is -inf) and delta.
+__device__ __forceinline__ void stage_rows(const Params& p, int b, int h,
+                                           int qblk, int BQ, int tid,
+                                           int* qd_s, int* qp_s,
+                                           float* lse_s, float* dl_s) {
+  const long long tok = (long long)b * p.Tq + (long long)qblk * BQ;
+  const long long hr = ((long long)b * p.Hq + h) * p.Tq + (long long)qblk * BQ;
+  for (int r = tid; r < BQ; r += THREADS) {
+    qd_s[r] = p.q_doc[tok + r];
+    qp_s[r] = p.q_pos[tok + r];
+    const float x = p.lse[hr + r];
+    lse_s[r] = isfinite(x) ? x : 0.f;
+    dl_s[r] = p.delta[hr + r];
+  }
+}
+
+// P and dS of one (q tile x 32-key sub-tile) pair, in registers: rows
+// ty + 16 i of q_s/do_s, keys tx + 16 j of k_s/v_s (key metadata in
+// kd/kp).  dS = P (dO.V^T - delta) scale.
+__device__ __forceinline__ void tile_p_ds(
+    const float* q_s, const float* do_s, const float* k_s, const float* v_s,
+    const int* qd_s, const int* qp_s, const float* lse_s, const float* dl_s,
+    const int (&kd)[2], const int (&kp)[2], float scale, int NI, int ND4,
+    int DP, int ty, int tx, float (&pr)[MAXI][2], float (&ds)[MAXI][2]) {
+  tile_scores(q_s, k_s, NI, ND4, DP, ty, tx, pr);
+  tile_scores(do_s, v_s, NI, ND4, DP, ty, tx, ds);
+#pragma unroll
+  for (int i = 0; i < MAXI; ++i) {
+    if (i < NI) {
+      const int r = ty + 16 * i;
+      const int qd = qd_s[r], qp = qp_s[r];
+      const float ls = lse_s[r], dl = dl_s[r];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float x = pr[i][j] * scale;
+        const float pp = visible(qd, qp, kd[j], kp[j]) ? expf(x - ls) : 0.f;
+        pr[i][j] = pp;
+        ds[i][j] = pp * (ds[i][j] - dl) * scale;
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------------------
+// dQ: CTA = (q-block row, b, hq), the forward's tables.  Replaces
+// flash_bwd_dq (doc_attention.py:802, _dq_kernel / _dq_kernel_flat).
+// Bound: operations, 3 products per visit and head (S, dP, dS.K).
+// ------------------------------------------------------------------------
+template <typename T, bool FLAT>
+__global__ void __launch_bounds__(THREADS, 1) dq_kernel(Params p) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int D = p.D, DP = D + 4, BQ = p.bq, BK = p.bk;
+  const int NI = BQ / 16, ND4 = D / 4;
+  float* q_s = smem;                    // BQ x DP
+  float* do_s = q_s + BQ * DP;          // BQ x DP
+  float* k_s = do_s + BQ * DP;          // KT x DP
+  float* v_s = k_s + KT * DP;           // KT x DP
+  float* ds_s = v_s + KT * DP;          // BQ x PP
+  float* lse_s = ds_s + BQ * PP;        // BQ
+  float* dl_s = lse_s + BQ;             // BQ
+  int* qd_s = reinterpret_cast<int*>(dl_s + BQ);       // BQ
+  int* qp_s = qd_s + BQ;
+  int* kd_s = qp_s + BQ;                // KT
+  int* kp_s = kd_s + KT;
+
+  int rest;
+  const int i_row = cta_row(p.B * p.Hq, &rest);
+  const int b = rest / p.Hq, h = rest - b * p.Hq, hkv = h / p.G;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  int s0, row;
+  if (!walk_begin<FLAT>(p, b, i_row, &s0, &row)) return;
+
+  const long long q0 = ((long long)b * p.Hq + h) * p.Tq + (long long)row * BQ;
+  stage<T>(static_cast<const T*>(p.q) + q0 * D, q_s, BQ, D, DP, tid);
+  stage<T>(static_cast<const T*>(p.dout) + q0 * D, do_s, BQ, D, DP, tid);
+  stage_rows(p, b, h, row, BQ, tid, qd_s, qp_s, lse_s, dl_s);
+  float4 acc[MAXI][2];
+#pragma unroll
+  for (int i = 0; i < MAXI; ++i)
+    acc[i][0] = acc[i][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+  const long long kv0 = ((long long)b * p.Hkv + hkv) * p.Tk;
+  const T* kg = static_cast<const T*>(p.k);
+  const T* vg = static_cast<const T*>(p.v);
+  __syncthreads();
+
+  int col, flags;
+  for (int t = 0; walk_step<FLAT>(p, b, row, s0, t, &col, &flags); ++t) {
+    if (flags & FLAG_VALID) {
+      for (int kt = 0; kt < BK; kt += KT) {
+        const long long key0 = (long long)col * BK + kt;
+        stage<T>(kg + (kv0 + key0) * D, k_s, KT, D, DP, tid);
+        stage<T>(vg + (kv0 + key0) * D, v_s, KT, D, DP, tid);
+        if (tid < KT) {
+          kd_s[tid] = p.kv_doc[(long long)b * p.Tk + key0 + tid];
+          kp_s[tid] = p.kv_pos[(long long)b * p.Tk + key0 + tid];
+        }
+        __syncthreads();
+        const int kd[2] = {kd_s[tx], kd_s[tx + 16]};
+        const int kp[2] = {kp_s[tx], kp_s[tx + 16]};
+        float pr[MAXI][2], ds[MAXI][2];
+        tile_p_ds(q_s, do_s, k_s, v_s, qd_s, qp_s, lse_s, dl_s, kd, kp,
+                  p.scale, NI, ND4, DP, ty, tx, pr, ds);
+#pragma unroll
+        for (int i = 0; i < MAXI; ++i) {
+          if (i < NI) {
+            const int r = ty + 16 * i;
+            ds_s[r * PP + tx] = round_to<T>(ds[i][0]);   // dS in K's dtype
+            ds_s[r * PP + tx + 16] = round_to<T>(ds[i][1]);
+          }
+        }
+        __syncthreads();
+        tile_accum(ds_s, k_s, NI, ND4, DP, ty, tx, acc);
+        __syncthreads();
+      }
+    }
+    if (flags & FLAG_LAST) break;
+  }
+
+  T* dq = static_cast<T*>(p.out0) + q0 * D;
+#pragma unroll
+  for (int i = 0; i < MAXI; ++i) {
+    if (i < NI) {
+      const int r = ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int d4 = tx + 16 * j;
+        if (d4 < ND4) {
+          T* dst = dq + (long long)r * D + 4 * d4;
+          dst[0] = from_f<T>(acc[i][j].x);
+          dst[1] = from_f<T>(acc[i][j].y);
+          dst[2] = from_f<T>(acc[i][j].z);
+          dst[3] = from_f<T>(acc[i][j].w);
+        }
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------------------
+// dK, dV: CTA = (kv-block row, b, hkv, 32-key sub-tile), reverse tables.
+// Replaces flash_bwd_dkv (doc_attention.py:967, _dkv_kernel /
+// _dkv_kernel_flat).  Bound: operations, 4 products per visit and head
+// (S, dP, P^T dO, dS^T Q); q and dO are re-staged per head of the group.
+// ------------------------------------------------------------------------
+template <typename T, bool FLAT>
+__global__ void __launch_bounds__(THREADS, 1) dkv_kernel(Params p) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int D = p.D, DP = D + 4, BQ = p.bq, BK = p.bk;
+  const int NI = BQ / 16, ND4 = D / 4, NSUB = BK / KT;
+  float* q_s = smem;                    // BQ x DP
+  float* do_s = q_s + BQ * DP;          // BQ x DP
+  float* k_s = do_s + BQ * DP;          // KT x DP
+  float* v_s = k_s + KT * DP;           // KT x DP
+  float* p_s = v_s + KT * DP;           // BQ x PP
+  float* ds_s = p_s + BQ * PP;          // BQ x PP
+  float* lse_s = ds_s + BQ * PP;        // BQ
+  float* dl_s = lse_s + BQ;             // BQ
+  int* qd_s = reinterpret_cast<int*>(dl_s + BQ);       // BQ
+  int* qp_s = qd_s + BQ;
+
+  int rest;
+  const int i_row = cta_row(p.B * p.Hkv * NSUB, &rest);
+  const int b = rest / (p.Hkv * NSUB);
+  rest -= b * p.Hkv * NSUB;
+  const int hkv = rest / NSUB, sub = rest - hkv * NSUB;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  int s0, row;
+  if (!walk_begin<FLAT>(p, b, i_row, &s0, &row)) return;
+
+  // this CTA's keys: [key0, key0 + KT) of kv block `row`
+  const long long key0 = (long long)row * BK + (long long)sub * KT;
+  const long long k0 = ((long long)b * p.Hkv + hkv) * p.Tk + key0;
+  stage<T>(static_cast<const T*>(p.k) + k0 * D, k_s, KT, D, DP, tid);
+  stage<T>(static_cast<const T*>(p.v) + k0 * D, v_s, KT, D, DP, tid);
+  const int kd[2] = {p.kv_doc[(long long)b * p.Tk + key0 + tx],
+                     p.kv_doc[(long long)b * p.Tk + key0 + tx + 16]};
+  const int kp[2] = {p.kv_pos[(long long)b * p.Tk + key0 + tx],
+                     p.kv_pos[(long long)b * p.Tk + key0 + tx + 16]};
+  // accumulators: keys ty + 16 i (i < 2), columns 4 (tx + 16 j) .. + 3
+  float4 dk[2][2], dv[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    dk[i][0] = dk[i][1] = dv[i][0] = dv[i][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+  const bool has0 = tx < ND4, has1 = tx + 16 < ND4;
+  const T* qg = static_cast<const T*>(p.q);
+  const T* dog = static_cast<const T*>(p.dout);
+
+  int col, flags;
+  for (int t = 0; walk_step<FLAT>(p, b, row, s0, t, &col, &flags); ++t) {
+    if (flags & FLAG_VALID) {
+      for (int g = 0; g < p.G; ++g) {
+        const int h = hkv * p.G + g;
+        const long long q0 =
+            ((long long)b * p.Hq + h) * p.Tq + (long long)col * BQ;
+        __syncthreads();   // the previous pass is done with the tiles
+        stage<T>(qg + q0 * D, q_s, BQ, D, DP, tid);
+        stage<T>(dog + q0 * D, do_s, BQ, D, DP, tid);
+        stage_rows(p, b, h, col, BQ, tid, qd_s, qp_s, lse_s, dl_s);
+        __syncthreads();
+        float pr[MAXI][2], ds[MAXI][2];
+        tile_p_ds(q_s, do_s, k_s, v_s, qd_s, qp_s, lse_s, dl_s, kd, kp,
+                  p.scale, NI, ND4, DP, ty, tx, pr, ds);
+#pragma unroll
+        for (int i = 0; i < MAXI; ++i) {
+          if (i < NI) {
+            const int r = ty + 16 * i;
+            p_s[r * PP + tx] = pr[i][0];
+            p_s[r * PP + tx + 16] = pr[i][1];
+            ds_s[r * PP + tx] = ds[i][0];
+            ds_s[r * PP + tx + 16] = ds[i][1];
+          }
+        }
+        __syncthreads();
+        const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int r = 0; r < BQ; ++r) {
+          const float4 o0 = has0 ? ld4(do_s + r * DP + 4 * tx) : z;
+          const float4 o1 = has1 ? ld4(do_s + r * DP + 4 * (tx + 16)) : z;
+          const float4 x0 = has0 ? ld4(q_s + r * DP + 4 * tx) : z;
+          const float4 x1 = has1 ? ld4(q_s + r * DP + 4 * (tx + 16)) : z;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const float pk = p_s[r * PP + ty + 16 * i];
+            const float dsk = ds_s[r * PP + ty + 16 * i];
+            fma4(pk, o0, dv[i][0]);
+            fma4(pk, o1, dv[i][1]);
+            fma4(dsk, x0, dk[i][0]);
+            fma4(dsk, x1, dk[i][1]);
+          }
+        }
+      }
+    }
+    if (flags & FLAG_LAST) break;
+  }
+
+  T* dkg = static_cast<T*>(p.out0) + k0 * D;
+  T* dvg = static_cast<T*>(p.out1) + k0 * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = ty + 16 * i;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int d4 = tx + 16 * j;
+      if (d4 < ND4) {
+        T* a = dkg + (long long)r * D + 4 * d4;
+        T* c = dvg + (long long)r * D + 4 * d4;
+        a[0] = from_f<T>(dk[i][j].x);
+        a[1] = from_f<T>(dk[i][j].y);
+        a[2] = from_f<T>(dk[i][j].z);
+        a[3] = from_f<T>(dk[i][j].w);
+        c[0] = from_f<T>(dv[i][j].x);
+        c[1] = from_f<T>(dv[i][j].y);
+        c[2] = from_f<T>(dv[i][j].z);
+        c[3] = from_f<T>(dv[i][j].w);
+      }
+    }
+  }
+}
+
+// shared-memory bytes of one CTA; kind 0 = fwd, 1 = dq, 2 = dkv
+long long smem_bytes(int kind, int bq, int D) {
+  const long long DP = D + 4;
+  long long floats, ints;
+  if (kind == 0) {
+    floats = bq * DP + 2LL * KT * DP + (long long)bq * PP;
+    ints = 2LL * bq + 2LL * KT;
+  } else if (kind == 1) {
+    floats = 2LL * bq * DP + 2LL * KT * DP + (long long)bq * PP + 2LL * bq;
+    ints = 2LL * bq + 2LL * KT;
+  } else {
+    floats = 2LL * bq * DP + 2LL * KT * DP + 2LL * bq * PP + 2LL * bq;
+    ints = 2LL * bq;
+  }
+  return 4 * (floats + ints);
+}
+
+template <typename K>
+int launch(K kernel, const Params& p, long long blocks, size_t smem,
+           cudaStream_t stream) {
+  if (smem > STATIC_SMEM_LIMIT) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (blocks > 0) kernel<<<(unsigned)blocks, THREADS, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+Params make_params(const void* q, const void* k, const void* v,
+                   const void* dout, const int* q_doc, const int* q_pos,
+                   const int* kv_doc, const int* kv_pos, const int* t0,
+                   const int* t1, const int* t2, const int* starts,
+                   const float* lse, const float* delta, void* out0,
+                   void* out1, int B, int Hq, int Hkv, int Tq, int Tk, int D,
+                   int bq, int bk, int rows, int width, float scale) {
+  Params p{};
+  p.q = q; p.k = k; p.v = v; p.dout = dout;
+  p.q_doc = q_doc; p.q_pos = q_pos; p.kv_doc = kv_doc; p.kv_pos = kv_pos;
+  p.t0 = t0; p.t1 = t1; p.t2 = t2; p.starts = starts;
+  p.lse = lse; p.delta = delta; p.out0 = out0; p.out1 = out1;
+  p.B = B; p.Hq = Hq; p.Hkv = Hkv; p.G = Hkv > 0 ? Hq / Hkv : 0;
+  p.Tq = Tq; p.Tk = Tk; p.D = D; p.bq = bq; p.bk = bk;
+  p.R = rows; p.W = width; p.scale = scale;
+  return p;
+}
+
+using Kernel = void (*)(Params);
+
+// the kernel of one entry for (dtype, grid); nullptr for an unknown dtype
+template <typename T>
+Kernel pick(int kind, int flat) {
+  if (kind == 0) return flat ? fwd_kernel<T, true> : fwd_kernel<T, false>;
+  if (kind == 1) return flat ? dq_kernel<T, true> : dq_kernel<T, false>;
+  return flat ? dkv_kernel<T, true> : dkv_kernel<T, false>;
+}
+
+int dispatch(const Params& p, int kind, long long blocks, int flat, int dtype,
+             cudaStream_t s) {
+  Kernel k = dtype == 0   ? pick<float>(kind, flat)
+             : dtype == 1 ? pick<__nv_bfloat16>(kind, flat)
+                          : nullptr;
+  if (k == nullptr) return (int)cudaErrorInvalidValue;
+  return launch(k, p, blocks, (size_t)smem_bytes(kind, p.bq, p.D), s);
+}
+
+bool shapes_ok(int Hq, int Hkv, int D, int bq, int bk) {
+  return Hkv > 0 && Hq % Hkv == 0 && D > 0 && D <= 128 && D % 4 == 0 &&
+         bq >= 16 && bq <= 16 * MAXI && bq % 16 == 0 && bk >= KT &&
+         bk <= 128 && bk % KT == 0;
+}
+
+}  // namespace
+
+#define DOC_ATTN_ARGS                                                        \
+  const void *q, const void *k, const void *v, const void *dout,             \
+      const int *q_doc, const int *q_pos, const int *kv_doc,                 \
+      const int *kv_pos, const int *t0, const int *t1, const int *t2,        \
+      const int *starts, const float *lse, const float *delta, void *out0,   \
+      void *out1, int B, int Hq, int Hkv, int Tq, int Tk, int D, int bq,     \
+      int bk, int rows, int width, int flat, float scale, int dtype,         \
+      void *stream
+
+#define DOC_ATTN_PARAMS                                                      \
+  make_params(q, k, v, dout, q_doc, q_pos, kv_doc, kv_pos, t0, t1, t2,       \
+              starts, lse, delta, out0, out1, B, Hq, Hkv, Tq, Tk, D, bq, bk, \
+              rows, width, scale)
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16; flat: 0 = rect tables, 1 = work queue
+int doc_attn_fwd(DOC_ATTN_ARGS) {
+  if (!shapes_ok(Hq, Hkv, D, bq, bk)) return (int)cudaErrorInvalidValue;
+  const Params p = DOC_ATTN_PARAMS;
+  return dispatch(p, 0, (long long)rows * B * Hq, flat, dtype,
+                          static_cast<cudaStream_t>(stream));
+}
+
+int doc_attn_dq(DOC_ATTN_ARGS) {
+  if (!shapes_ok(Hq, Hkv, D, bq, bk)) return (int)cudaErrorInvalidValue;
+  const Params p = DOC_ATTN_PARAMS;
+  return dispatch(p, 1, (long long)rows * B * Hq, flat, dtype,
+                         static_cast<cudaStream_t>(stream));
+}
+
+int doc_attn_dkv(DOC_ATTN_ARGS) {
+  if (!shapes_ok(Hq, Hkv, D, bq, bk)) return (int)cudaErrorInvalidValue;
+  const Params p = DOC_ATTN_PARAMS;
+  return dispatch(p, 2, (long long)rows * B * Hkv * (bk / KT), flat,
+                          dtype, static_cast<cudaStream_t>(stream));
+}
+
+long long doc_attn_smem_bytes(int kind, int bq, int D) {
+  return smem_bytes(kind, bq, D);
+}
+
+const char* doc_attn_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

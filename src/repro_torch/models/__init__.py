@@ -1,10 +1,13 @@
-"""Dense decoder stack of the port (serving path)."""
+"""Dense decoder stack of the port (training and serving paths)."""
 
+from .context import ExecContext, make_local_context
 from .convert import params_from_numpy
-from .transformer import (block_kinds, decode_step, init_cache,
-                          init_paged_cache, init_params, period_length,
+from .transformer import (block_kinds, decode_step, forward, init_cache,
+                          init_paged_cache, init_params, loss_fn,
+                          loss_fn_chunked_head, period_length,
                           prefill_forward, torch_dtype)
 
-__all__ = ["block_kinds", "decode_step", "init_cache", "init_paged_cache",
-           "init_params", "params_from_numpy", "period_length",
-           "prefill_forward", "torch_dtype"]
+__all__ = ["ExecContext", "block_kinds", "decode_step", "forward",
+           "init_cache", "init_paged_cache", "init_params", "loss_fn",
+           "loss_fn_chunked_head", "make_local_context", "params_from_numpy",
+           "period_length", "prefill_forward", "torch_dtype"]

@@ -1,5 +1,6 @@
-"""GQA attention for serving: projections, RoPE, KV-cache writes, and the
-decode and chunked-prefill attention over dense or paged caches.
+"""GQA attention: the training block (projections, RoPE, the context's
+doc-masked attention) and, for serving, KV-cache writes and the decode
+and chunked-prefill attention over dense or paged caches.
 
 The JAX package updates its caches functionally and relies on buffer
 donation to do it in place, dropping inactive writes by routing them out
@@ -22,7 +23,7 @@ from repro_torch.kernels.flash_decode import (decode_reference,
 from repro_torch.kernels.ref import mha_reference
 from .layers import rope
 
-__all__ = ["attn_cache_init", "attn_paged_cache_init", "attn_decode",
+__all__ = ["attn_apply", "attn_cache_init", "attn_paged_cache_init", "attn_decode",
            "attn_decode_paged", "attn_prefill", "attn_prefill_paged"]
 
 
@@ -53,6 +54,18 @@ def _qkv_roped(p, cfg, x, pos):
 
 def _out(p, out):
     return out @ p["wo"].to(out.dtype)
+
+
+def attn_apply(p, cfg, ctx, x):
+    """Training attention block: x (B, T, d) -> (B, T, d), with the
+    context's attention over its plan-order doc/pos."""
+    B, T, _ = x.shape
+    q, k, v = _project(p, cfg, x)
+    q = rope(q, ctx.pos, cfg.rope_theta)
+    k = rope(k, ctx.pos, cfg.rope_theta)
+    out = ctx.attn(q, k, v)                               # (B, Hq, T, hd)
+    return _out(p, out.transpose(1, 2).reshape(
+        B, T, cfg.num_heads * cfg.resolved_head_dim))
 
 
 # ------------------------------------------------------------------ #

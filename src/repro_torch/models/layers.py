@@ -13,9 +13,10 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 __all__ = ["he_normal", "dense", "rmsnorm", "embed", "rope", "mlp_apply",
-           "EMBED_STD"]
+           "cross_entropy", "chunked_lm_loss", "EMBED_STD"]
 
 #: standard deviation of the embedding init
 EMBED_STD = 0.02
@@ -40,7 +41,8 @@ def rmsnorm(p, x, eps: float = 1e-5):
 
 
 def embed(p, tokens, dtype: torch.dtype):
-    """Token embedding; negative (padding) tokens embed to zeros."""
+    """Token embedding; negative (padding) tokens embed to zeros, and the
+    mask keeps their gradient out of the table."""
     out = p["e"][tokens.clamp(min=0)].to(dtype)
     return torch.where((tokens >= 0)[..., None], out,
                        torch.zeros((), dtype=dtype, device=out.device))
@@ -68,3 +70,37 @@ def mlp_apply(p, x, kind: str):
     else:
         h = F.gelu(x @ p["wi"].to(x.dtype), approximate="tanh")
     return h @ p["wo"].to(x.dtype)
+
+
+def cross_entropy(logits, labels):
+    """Mean CE over valid positions (labels < 0 are masked).  logits
+    (B, T, V); labels (B, T).  fp32 log-softmax."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return torch.sum((lse - gold) * mask) / torch.clamp(mask.sum(), min=1.0)
+
+
+def chunked_lm_loss(x, head_w, labels, *, chunk: int = 128):
+    """Fused head projection + CE over token chunks: each chunk's logits
+    live only inside a rematerialized chunk body, so the full (B, T, V)
+    logits never exist."""
+    B, T, _ = x.shape
+    if T % chunk != 0:
+        chunk = T
+
+    def body(xc, lc):
+        lf = (xc @ head_w.to(xc.dtype)).float()            # (B, chunk, V)
+        lse = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, lc.clamp(min=0).long()[..., None])[..., 0]
+        mask = (lc >= 0).float()
+        return torch.sum((lse - gold) * mask), mask.sum()
+
+    s = torch.zeros((), dtype=torch.float32, device=x.device)
+    n = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, T, chunk):
+        cs, cn = checkpoint(body, x[:, c0:c0 + chunk],
+                            labels[:, c0:c0 + chunk], use_reentrant=False)
+        s, n = s + cs, n + cn
+    return s / torch.clamp(n, min=1.0)

@@ -1,4 +1,5 @@
-"""Dense decoder stack for serving: init, caches, chunked prefill, decode.
+"""Dense decoder stack: init, the training forward and losses, and for
+serving the caches, chunked prefill and decode.
 
 The parameter tree mirrors the JAX package's leaf for leaf: every
 per-layer leaf is stacked on a leading period axis under
@@ -8,6 +9,11 @@ over periods, this loops over them in Python and hands each layer views
 of its parameter and cache slices, so cache writes land in place in the
 stacked tensors.
 
+Training unbinds the stacked leaves once per forward, so each layer's
+gradient lands in one stacked gradient per leaf, and rematerializes each
+sublayer in the backward (``torch.utils.checkpoint`` without reentry, as
+the reference wraps each sublayer in ``jax.checkpoint``).
+
 Only dense attention-only stacks are ported; the MoE, hybrid, SSM,
 audio and VLM families raise ``NotImplementedError``.
 """
@@ -15,17 +21,22 @@ audio and VLM families raise ``NotImplementedError``.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from .attention import (attn_cache_init, attn_decode, attn_decode_paged,
+from .attention import (attn_apply, attn_cache_init, attn_decode, attn_decode_paged,
                         attn_paged_cache_init, attn_prefill,
                         attn_prefill_paged)
-from .layers import EMBED_STD, dense, embed, he_normal, mlp_apply, rmsnorm
+from .layers import (EMBED_STD, chunked_lm_loss, cross_entropy, dense, embed,
+                     he_normal, mlp_apply, rmsnorm)
 
 __all__ = ["period_length", "block_kinds", "init_params", "init_cache",
-           "init_paged_cache", "prefill_forward", "decode_step",
-           "torch_dtype"]
+           "init_paged_cache", "inputs_to_embeds", "forward", "loss_fn",
+           "loss_fn_chunked_head", "prefill_forward", "decode_step",
+           "torch_dtype", "AUX_LOSS_WEIGHT"]
+
+AUX_LOSS_WEIGHT = 0.01
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -59,6 +70,15 @@ def _index(tree, i: int):
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _unbind(tree, n: int) -> list:
+    """The ``n`` periods of a stacked tree, one ``unbind`` per leaf: the
+    backward stacks the per-period gradients once per leaf."""
+    if isinstance(tree, dict):
+        per_key = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 # --------------------------------------------------------------------- #
@@ -152,6 +172,59 @@ def _ffn(sub, cfg: ModelConfig, ffn: str, x):
         return x
     return x + mlp_apply(sub["mlp"], rmsnorm(sub["norm2"], x, cfg.norm_eps),
                          cfg.mlp)
+
+
+def inputs_to_embeds(params, cfg: ModelConfig, batch):
+    """Token embeddings (the dense families read tokens only)."""
+    return embed(params["embed"], batch["tokens"], torch_dtype(cfg))
+
+
+def _apply_sub(sub, cfg: ModelConfig, ctx, x, ffn: str):
+    h = rmsnorm(sub["norm1"], x, cfg.norm_eps)
+    return _ffn(sub, cfg, ffn, x + attn_apply(sub["attn"], cfg, ctx, h))
+
+
+def _trunk(params, cfg: ModelConfig, ctx, batch, remat: bool):
+    """Embeddings through every layer; returns (x, aux).  Dense stacks
+    carry no auxiliary loss (aux is 0)."""
+    kinds = block_kinds(cfg)
+    x = inputs_to_embeds(params, cfg, batch)
+    for lp in _unbind(params["layers"], _n_periods(cfg)):
+        for j, (_, ffn) in enumerate(kinds):
+            def apply(sub, x, ffn=ffn):
+                return _apply_sub(sub, cfg, ctx, x, ffn)
+            sub = lp[f"sub_{j}"]
+            x = checkpoint(apply, sub, x, use_reentrant=False) if remat \
+                else apply(sub, x)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def forward(params, cfg: ModelConfig, ctx, batch, *, remat: bool = True):
+    """batch -> (logits (B, T, vocab), aux_loss scalar).
+
+    Remat: the residual stream between sublayers is saved; each
+    sublayer's interior is recomputed in the backward, so its attention
+    forward runs twice per step."""
+    x, aux = _trunk(params, cfg, ctx, batch, remat)
+    return _head(params, cfg, x), aux
+
+
+def loss_fn(params, cfg: ModelConfig, ctx, batch, *, remat: bool = True):
+    logits, aux = forward(params, cfg, ctx, batch, remat=remat)
+    ce = cross_entropy(logits, batch["labels"])
+    return ce + AUX_LOSS_WEIGHT * aux, {"ce": ce, "aux": aux}
+
+
+def loss_fn_chunked_head(params, cfg: ModelConfig, ctx, batch, *,
+                         remat: bool = True, chunk: int = 128):
+    """Loss with the fused chunked head: the (B, T, vocab) logits are
+    never materialized."""
+    x, aux = _trunk(params, cfg, ctx, batch, remat)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    head = params["lm_head"]["w"] if "lm_head" in params \
+        else params["embed"]["e"].T
+    ce = chunked_lm_loss(x, head, batch["labels"], chunk=chunk)
+    return ce + AUX_LOSS_WEIGHT * aux, {"ce": ce, "aux": aux}
 
 
 def prefill_forward(params, cfg: ModelConfig, cache, batch, pos, active, *,

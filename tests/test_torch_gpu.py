@@ -1,16 +1,19 @@
-"""The CUDA flash-decode kernels against their plain versions, on the card.
+"""The CUDA kernels against their plain versions, on the card.
 
 Marked ``gpu``: without a CUDA device every test here skips.  On a
 machine with one (the H100 the port targets):
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
-Shapes sweep what ``chip_smoke.py`` does not: MHA (G 1) and wide groups
-(G 8, 12), head dims 64 and 128, cache lengths that are not a multiple of
-the tile, shard slices (strided views), block sizes 8 and 32, and the
-inputs the kernels refuse.  Tolerances: f32 1e-5 (the same arithmetic in
-another summation order), bf16 2e-2 on the normalized output (bf16
-rounding of the output and of p before PV).
+Shapes sweep what ``chip_smoke.py`` does not.  Decode kernels: MHA (G 1)
+and wide groups (G 8, 12), head dims 64 and 128, cache lengths that are
+not a multiple of the tile, shard slices (strided views), block sizes 8
+and 32, and the inputs the kernels refuse; tolerances f32 1e-5 (the same
+arithmetic in another summation order), bf16 2e-2 on the normalized
+output (bf16 rounding of the output and of p before PV).  Doc-attention
+training kernels (flash_fwd, flash_bwd_dq, flash_bwd_dkv) against their
+twins: G 1/3/12, D 64/128, blocks 64/128, flat and rect, padded
+documents and all-empty rows; tolerances in ``DOC_TOL``.
 """
 
 import pytest
@@ -121,3 +124,118 @@ def test_kernels_count_launches_and_refuse_what_they_cannot_take(gen):
     with pytest.raises(ValueError):                    # mixed devices
         fd.flash_decode(q.cpu(), k, k, ln)
     assert fd.flash_decode.launches == before + 1
+
+
+# --------------------------------------------------------------------- #
+# the doc-attention training kernels against their twins
+# --------------------------------------------------------------------- #
+# f32: the same products in another order, with the online softmax
+# rescaled per 32-key sub-tile instead of per block (observed ~1e-6);
+# bf16: outputs rounded to bf16 and p (forward) / dS (dQ) rounded to bf16
+# at slightly different values
+DOC_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+def _doc_layout(B, T, n_docs, pad, seed):
+    """Sorted random documents, positions restarting per document, the
+    last ``pad`` tokens padding (doc -1)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    doc = np.sort(rng.integers(0, n_docs, (B, T)), 1).astype(np.int32)
+    pos = np.zeros_like(doc)
+    for b in range(B):
+        for d in np.unique(doc[b]):
+            m = doc[b] == d
+            pos[b, m] = np.arange(m.sum())
+    if pad:
+        doc[:, -pad:] = -1
+    return doc, pos
+
+
+def _doc_case(gen, B, Hq, Hkv, T, D, bq, bk, dtype, pad, seed=0):
+    from repro_torch.kernels.doc_attention import build_block_tables
+    doc, pos = _doc_layout(B, T, 5, pad, seed)
+    tabs = build_block_tables(doc, pos, doc, pos, block_q=bq, block_k=bk)
+    meta = [torch.from_numpy(a).cuda() for a in (doc, pos, doc, pos)]
+    q = _randn(gen, (B, Hq, T, D), dtype)
+    k = _randn(gen, (B, Hkv, T, D), dtype)
+    v = _randn(gen, (B, Hkv, T, D), dtype)
+    do = _randn(gen, (B, Hq, T, D), dtype)
+    return q, k, v, do, meta, tabs
+
+
+def _halves(tabs, grid):
+    t = tabs.flat_as_torch("cuda") if grid == "flat" \
+        else tabs.as_torch("cuda")
+    n = len(t) // 2
+    return t[:n], t[n:]
+
+
+def _maxerr(a, b):
+    return (a.float() - b.float()).abs().max().item()
+
+
+@pytest.mark.parametrize("grid", ["flat", "rect"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv,D,bq,bk,T,pad", [
+    (2, 2, 64, 64, 64, 512, 0),          # G 1
+    (6, 2, 128, 128, 128, 768, 37),      # G 3, padded docs
+    (24, 2, 128, 128, 128, 1024, 0),     # G 12, the training geometry
+    (12, 1, 64, 64, 128, 512, 100),      # G 12, block_q != block_k
+    (4, 1, 128, 128, 64, 384, 384),      # all rows empty
+])
+def test_doc_kernels_match_twins(gen, grid, dtype, Hq, Hkv, D, bq, bk, T,
+                                 pad):
+    from repro_torch.kernels import doc_attention as da
+    q, k, v, do, meta, tabs = _doc_case(gen, 2, Hq, Hkv, T, D, bq, bk,
+                                        dtype, pad)
+    fwd_t, rev_t = _halves(tabs, grid)
+    kw = dict(scale=D ** -0.5, block_q=bq, block_k=bk, grid=grid)
+    tol = DOC_TOL[dtype]
+    o, lse = da.flash_fwd(q, k, v, *meta, fwd_t, **kw)
+    torch.cuda.synchronize()
+    po, plse = da.flash_fwd_plain(q, k, v, *meta, fwd_t, **kw)
+    assert _maxerr(o, po) <= tol
+    assert torch.equal(torch.isinf(lse), torch.isinf(plse))
+    fin = torch.isfinite(plse)
+    assert (lse[fin] - plse[fin]).abs().max().item() <= tol if fin.any() \
+        else True
+    empty = torch.isinf(plse)
+    assert bool((o.float()[empty] == 0).all())
+
+    delta = (do.float() * po.float()).sum(-1)
+    dq = da.flash_bwd_dq(q, k, v, do, plse, delta, *meta, fwd_t, **kw)
+    dk, dv = da.flash_bwd_dkv(q, k, v, do, plse, delta, *meta, rev_t, **kw)
+    torch.cuda.synchronize()
+    pdq = da.flash_bwd_dq_plain(q, k, v, do, plse, delta, *meta, fwd_t, **kw)
+    pdk, pdv = da.flash_bwd_dkv_plain(q, k, v, do, plse, delta, *meta,
+                                      rev_t, **kw)
+    # gradients scale with the number of visible keys: relative bound
+    for got, want in ((dq, pdq), (dk, pdk), (dv, pdv)):
+        scale = max(want.float().abs().max().item(), 1.0)
+        assert _maxerr(got, want) <= tol * scale
+    if pad == T:
+        assert not dq.any() and not dk.any() and not dv.any()
+
+
+def test_doc_kernels_count_launches_and_refuse_what_they_cannot_take(gen):
+    from repro_torch.kernels import doc_attention as da
+    q, k, v, do, meta, tabs = _doc_case(gen, 1, 4, 2, 256, 64, 64, 64,
+                                        torch.float32, 0)
+    fwd_t, _ = _halves(tabs, "rect")
+    kw = dict(scale=0.125, block_q=64, block_k=64, grid="rect")
+    before = da.flash_fwd.launches
+    da.flash_fwd(q, k, v, *meta, fwd_t, **kw)
+    assert da.flash_fwd.launches == before + 1
+    with pytest.raises(ValueError):                    # block_k not /32
+        da.flash_fwd(q, k, v, *meta, fwd_t, **{**kw, "block_k": 16})
+    with pytest.raises(ValueError):                    # not contiguous
+        da.flash_fwd(q.transpose(2, 3).contiguous().transpose(2, 3), k, v,
+                     *meta, fwd_t, **kw)
+    with pytest.raises(TypeError):                     # no f16 kernel
+        da.flash_fwd(q.half(), k.half(), v.half(), *meta, fwd_t, **kw)
+    with pytest.raises(ValueError):                    # int64 tables
+        da.flash_fwd(q, k, v, *meta, tuple(t.long() for t in fwd_t), **kw)
+    with pytest.raises(ValueError):                    # mixed devices
+        da.flash_fwd(q.cpu(), k, v, *meta, fwd_t, **kw)
+    assert da.flash_fwd.launches == before + 1

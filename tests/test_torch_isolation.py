@@ -41,6 +41,8 @@ def test_port_sources_import_no_jax_and_no_reference():
 @pytest.mark.parametrize("modules", [
     ["repro_torch.serve", "repro_torch.launch.serve"],
     ["repro_torch.kernels.flash_decode", "repro_torch.models"],
+    ["repro_torch.launch.train", "repro_torch.kernels.doc_attention",
+     "repro_torch.kernels.ops"],
 ])
 def test_port_imports_without_jax_nvcc_or_a_card(modules):
     """A fresh interpreter with no CUDA toolkit on its path and no
