@@ -4,17 +4,21 @@ NVIDIA GPU.
 
 Builds the hand-written CUDA kernels from the sources in this checkout
 (one ``nvcc`` per source, all at once), holds each against its plain
-PyTorch version on the card (f32 and bf16), and times it beside its
-bound, its plain version and a library call.  Then it drives the port's
+PyTorch version on the card (f32 and bf16; the split-KV paged kernel
+also against its split twin), and times it beside its bound, its plain
+version and a library call, with its achieved GB/s, TFLOP/s and share
+of the bound.  Then it drives the port's
 two paths end to end at the full width of starcoder2_3b (30 layers,
 d_model 3072, random weights from a seed), each with every kernel's
 launch count set to 0 just before and read just after:
 
 * serving: 12 requests on 6 slots through the paged layout
-  (``flash_decode_paged``) and the dense layout (``flash_decode`` in
-  partial mode), gated on every request ending ok and on the launch
-  counts; one decode step flash vs the dense oracle; a small f32 model
-  served on the card and on the CPU must give the same tokens;
+  (``flash_decode_paged``, split-KV) and the dense layout
+  (``flash_decode`` in partial mode), gated on every request ending ok
+  and on the launch counts; one decode step flash vs the dense oracle;
+  one profiled decode step of each layout; a small f32 model served on
+  the card and on the CPU must give the same tokens, and the same on
+  the paged and the dense layout;
 * training: 4 steps on one 8192-token wlb_llm batch (``flash_fwd``,
   ``flash_bwd_dq``, ``flash_bwd_dkv`` on the flat work queue), gated on
   finite losses and on 30 x (2, 1, 1) launches per step; one step with
@@ -164,6 +168,19 @@ def paged_case(torch, dtype, gen):
             tables.to("cuda"))
 
 
+def paged_split(torch, tables):
+    """The (pages_per_split, n_split) the paged wrapper picks here."""
+    from repro_torch.kernels import flash_decode as fd
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return fd.paged_split_plan(B, HKV, tables.shape[1], BLOCK, sms)
+
+
+def achieved(ms: float, nbytes: int, flops: int, bms: float) -> dict:
+    """A kernel time's rates and its share of the bound."""
+    return {"gb_per_s": nbytes / ms / 1e6, "tflops_per_s": flops / ms / 1e9,
+            "bound_share": bms / ms}
+
+
 def visible_positions(lengths) -> int:
     return int(sum(max(int(x) + 1, 0) for x in lengths.tolist()))
 
@@ -198,16 +215,26 @@ def kernel_phase(torch, timer, quick: bool) -> dict:
         torch.cuda.synchronize()
         refp = fd.paged_decode_reference(qp, kp, vp, lp, tp,
                                          block_size=BLOCK)
+        pps, n_split = paged_split(torch, tp)
+        twin = fd.paged_decode_split_plain(qp, kp, vp, lp, tp,
+                                           block_size=BLOCK,
+                                           pages_per_split=pps)
         e_paged = (outp.float() - refp.float()).abs().max().item()
+        e_twin = (outp.float() - twin.float()).abs().max().item()
+        paged_empty_ok = bool((outp[B - 1] == 0).all())   # length -1
         emit("kernel_parity", dtype=name, tol=tol,
              flash_decode_err=e_norm, flash_decode_partial_err=e_part,
              partial_m_err=e_m, partial_l_rel_err=e_l,
-             flash_decode_paged_err=e_paged, empty_row_exact=empty_ok)
-        if max(e_norm, e_part, e_paged) > tol or not empty_ok \
-                or e_m > tol or e_l > max(tol, 1e-5):
+             flash_decode_paged_err=e_paged,
+             flash_decode_paged_vs_split_twin_err=e_twin,
+             paged_pages_per_split=pps, paged_splits=n_split,
+             empty_row_exact=empty_ok, paged_empty_row_exact=paged_empty_ok)
+        if max(e_norm, e_part, e_paged, e_twin) > tol or not empty_ok \
+                or not paged_empty_ok or e_m > tol or e_l > max(tol, 1e-5):
             raise AssertionError(f"kernel parity failed in {name}")
         err["flash_decode"] = max(err["flash_decode"], e_norm, e_part)
-        err["flash_decode_paged"] = max(err["flash_decode_paged"], e_paged)
+        err["flash_decode_paged"] = max(err["flash_decode_paged"], e_paged,
+                                        e_twin)
     if quick:
         return {"err": err}
 
@@ -244,11 +271,13 @@ def kernel_phase(torch, timer, quick: bool) -> dict:
              B * HQ * D * esize)):
         vis = visible_positions(lens)
         read = (B * HQ * D + 2 * vis * HKV * D) * esize + B * 4 + extra_in
-        bms, by = bound_ms(read, out_b, 4 * vis * (HQ // HKV) * HKV * D,
-                           "bfloat16")
-        times[name] = {"ms": timer(call), "plain_ms": timer(plain),
+        flops = 4 * vis * HQ * D
+        bms, by = bound_ms(read, out_b, flops, "bfloat16")
+        ms = timer(call)
+        times[name] = {"ms": ms, "plain_ms": timer(plain),
                        "library_ms": timer(lib), "bound_ms": bms,
-                       "bound_by": by, "bytes": read + out_b}
+                       "bound_by": by, "bytes": read + out_b,
+                       **achieved(ms, read + out_b, flops, bms)}
         emit("kernel_time", name=name, dtype="bfloat16", **times[name])
     return {"err": err, "times": times}
 
@@ -375,13 +404,17 @@ def main_path_phase(torch) -> dict:
          max_abs_logit=scale, limit=0.02 * scale)
     if not diff <= 0.02 * scale:
         raise AssertionError("flash and dense decode steps disagree")
-    out["profile"] = profile_decode(torch, eng, cfg, params)
+    out["profile"] = {layout: profile_decode(torch, out[layout]["eng"], cfg,
+                                             params)
+                      for layout in ("paged", "dense")}
     return out
 
 
 def profile_decode(torch, eng, cfg, params) -> dict:
-    """Device time by kernel over three dense-layout decode steps, and
-    the device's idle share of their wall time (informational)."""
+    """Device time by kernel over three decode steps of the engine's
+    layout (paged: the split-KV kernel over distinct pool blocks; dense:
+    the stripes), and the device's idle share of their wall time
+    (informational)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import decode_step
 
@@ -390,12 +423,20 @@ def profile_decode(torch, eng, cfg, params) -> dict:
                        device="cuda")
     cache = {j: {n: t.clone() for n, t in sub.items()}
              for j, sub in eng.cache.items()}
+    kw = {}
+    if eng.layout == "paged":
+        # the pool holds 6 slots' full tables: one distinct block each
+        nk = eng.num_blocks // 6
+        kw = {"block_tables": torch.arange(6 * nk, dtype=torch.int32,
+                                           device="cuda").reshape(6, nk),
+              "block_size": eng.block_size}
+    decode_step(params, cfg, cache, {"tokens": toks}, pos, **kw)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(3):
-            decode_step(params, cfg, cache, {"tokens": toks}, pos)
+            decode_step(params, cfg, cache, {"tokens": toks}, pos, **kw)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / 3
     total, by_cat, top = device_busy(prof, 3)
@@ -404,7 +445,7 @@ def profile_decode(torch, eng, cfg, params) -> dict:
            "idle_share": None if not total else max(0.0, 1 - total
                                                     / (wall * 1e3)),
            "top": top}
-    emit("profile_dense_decode_step", **res)
+    emit(f"profile_{eng.layout}_decode_step", **res)
     return res
 
 
@@ -419,6 +460,7 @@ def smoke_parity_phase(torch) -> None:
     params_gpu = _to(params_cpu, "cuda")
     prompts = requests(cfg, n=6, lo=20, hi=60, prefix=16, seed=4)
     kw = dict(num_slots=3, prefill_chunk=16, block_size=16)
+    card = {}
     for layout in ("paged", "dense"):
         toks = {}
         for dev, params in (("cuda", params_gpu), ("cpu", params_cpu)):
@@ -431,6 +473,14 @@ def smoke_parity_phase(torch) -> None:
         emit("smoke_cuda_vs_cpu_tokens", layout=layout, identical=same)
         if not same:
             raise AssertionError(f"{layout}: cuda and cpu tokens differ")
+        card[layout] = toks["cuda"]
+    # f32: the split-KV paged kernel and the dense kernel give the same
+    # greedy tokens (at full width in bf16, random weights leave near-ties
+    # that the two kernels' rounding breaks differently)
+    same = card["paged"] == card["dense"]
+    emit("smoke_paged_vs_dense_tokens", identical=same)
+    if not same:
+        raise AssertionError("paged and dense smoke tokens differ")
 
 
 # ----------------------------------------------------------------------- #
@@ -580,11 +630,12 @@ def doc_kernel_phase(torch, timer, quick: bool) -> dict:
     for name, (call, plain, rb, wb) in calls.items():
         flops = visits * T_HQ * MATMULS[name] * 2 * T_BLOCK * T_BLOCK * T_D
         bms, by = bound_ms(rb, wb, flops, "bfloat16")
-        times[name] = {"ms": timer(call, reps=20), "plain_ms":
-                       timer(plain, reps=20), "library_ms":
-                       timer(lib[name], reps=20), "bound_ms": bms,
-                       "bound_by": by, "flops": flops, "bytes": rb + wb,
-                       "visits": visits}
+        ms = timer(call, reps=20)
+        times[name] = {"ms": ms, "plain_ms": timer(plain, reps=20),
+                       "library_ms": timer(lib[name], reps=20),
+                       "bound_ms": bms, "bound_by": by, "flops": flops,
+                       "bytes": rb + wb, "visits": visits,
+                       **achieved(ms, rb + wb, flops, bms)}
         emit("kernel_time", name=name, dtype="bfloat16", **times[name],
              library=("scaled_dot_product_attention forward"
                       if name == "flash_fwd" else
@@ -607,8 +658,10 @@ def train(args, params=None):
 
 
 # device-time categories of a profile, by kernel name
-CATEGORIES = (("doc_attention", ("fwd_kernel", "dq_kernel", "dkv_kernel")),
-              ("flash_decode", ("decode_kernel",)),
+CATEGORIES = (("doc_attention", ("fwd_kernel", "fwd_mma_kernel", "dq_kernel",
+                                  "dkv_kernel")),
+              ("flash_decode", ("decode_kernel", "decode_split_kernel",
+                                "decode_combine_kernel")),
               ("gemm", ("nvjet", "gemm", "cutlass", "sm90_xmma")))
 
 

@@ -102,11 +102,15 @@ def flash_decode_lib() -> ctypes.CDLL:
     lib.flash_decode_dense.restype = i32
     lib.flash_decode_paged.argtypes = [
         vp, vp, vp, vp, vp, vp,                # q k v lengths tables out
+        vp, vp, vp,                            # part_o part_m part_l
         i32, i32, i32, i64, i32, i32, i32,     # B Hkv G pool_tokens bs nk D
+        i32, i32,                              # pages_per_split n_split
         f32, i32, vp]                          # scale dtype stream
     lib.flash_decode_paged.restype = i32
     lib.flash_decode_smem_bytes.argtypes = [i32, i32, i32]
     lib.flash_decode_smem_bytes.restype = i64
+    lib.flash_decode_paged_smem_bytes.argtypes = [i32, i32, i32, i32]
+    lib.flash_decode_paged_smem_bytes.restype = i64
     lib.flash_decode_error_string.argtypes = [i32]
     lib.flash_decode_error_string.restype = ctypes.c_char_p
     return lib

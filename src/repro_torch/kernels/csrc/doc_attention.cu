@@ -3,8 +3,9 @@
 // work queues).
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/doc_attention.py:
-//   * fwd_kernel<T, FLAT>  <- ::flash_fwd (_fwd_kernel / _fwd_kernel_flat
-//     over _fwd_init, _fwd_visit, _fwd_finalize);
+//   * fwd_mma_kernel<FLAT, KT>  <- ::flash_fwd in bf16, and
+//     fwd_kernel<float, FLAT>   <- ::flash_fwd in f32 (_fwd_kernel /
+//     _fwd_kernel_flat over _fwd_init, _fwd_visit, _fwd_finalize);
 //   * dq_kernel<T, FLAT>   <- ::flash_bwd_dq (_dq_kernel / _dq_kernel_flat
 //     over _dq_visit);
 //   * dkv_kernel<T, FLAT>  <- ::flash_bwd_dkv (_dkv_kernel /
@@ -13,13 +14,30 @@
 // Bound on this card: operations.  Each visited (q block, kv block) pair
 // costs 2 * bq * bk * D flops per matrix product and head: 2 products in
 // the forward, 3 in dQ, 4 in dK/dV, against about (bq + 2 bk) * D * 2
-// bytes of input, far above the ridge point.  The tensor-core bound is
-// what chip_smoke.py reports; these kernels run scalar f32 FMA (no mma,
-// wgmma or TMA), so the f32 CUDA-core rate is their practical ceiling.
-// The design keeps the whole working set of a visit in shared memory and
-// registers: the owned tile (q, or q and dO, staged once per CTA) as f32,
-// 32-key sub-tiles of K and V, and per-thread 8x2 (scores) and 8x8
-// (accumulator) register micro-tiles read with 16-byte shared loads.
+// bytes of input, far above the ridge point, so the tensor cores set the
+// bound that chip_smoke.py reports.
+//   * fwd_mma_kernel (bf16) runs both products on the tensor cores
+//     (mma.sync m16n8k16, bf16 in, f32 accumulate).  bq / 16 warps each
+//     own 16 q rows: the Q tile is copied once with cp.async and held in
+//     registers as A fragments (ldmatrix); K and V stream in KT-key bf16
+//     sub-tiles (64, or 32 where block_k demands) through a 2-stage
+//     cp.async ring, the next sub-tile of the walk in flight while one is
+//     computed, rows padded by 16 bytes so that ldmatrix (.trans for V) is
+//     free of bank conflicts.  The walk's next table step is loaded one
+//     visit ahead.  S, the online softmax (row max and sum over the 4
+//     threads of a quad, on unscaled scores with the scale folded into
+//     the exponent, exp as ex2.approx) and O stay in the accumulator
+//     registers;
+//     P becomes the A fragment of P V in registers.  Two barriers per
+//     sub-tile.  It takes D % 16 == 0 (D <= 128) and a positive scale;
+//     the wrapper refuses other bf16 inputs.
+//   * fwd_kernel (f32, the parity reference on the card), dq_kernel and
+//     dkv_kernel run scalar f32 FMA (no mma, wgmma or TMA), so the f32
+//     CUDA-core rate is their practical ceiling.  They keep the whole
+//     working set of a visit in shared memory and registers: the owned
+//     tile (q, or q and dO, staged once per CTA) as f32, 32-key sub-tiles
+//     of K and V, and per-thread 8x2 (scores) and 8x8 (accumulator)
+//     register micro-tiles read with 16-byte shared loads.
 //
 // Ordering.  A Pallas grid walks the visits of a row in order and carries
 // the accumulator in VMEM; a GPU grid has no order.  So one CTA owns one
@@ -38,7 +56,7 @@
 //     scores are -1e30; p is rounded to V's dtype before PV while l sums
 //     the unrounded p; o = acc / l (0 where l = 0), lse = m + log(l)
 //     (-inf where l = 0).  The TPU kernel updates m once per 128-key block;
-//     this one once per 32-key sub-tile (the same softmax, rescaled in
+//     these once per 32- or 64-key sub-tile (the same softmax, rescaled in
 //     other steps);
 //   * dQ: P = exp(S - lse_safe) with lse_safe = 0 where lse is -inf,
 //     dS = P (dO.V^T - delta) scale, rounded to K's dtype before dS.K;
@@ -383,6 +401,356 @@ __global__ void __launch_bounds__(THREADS, 1) fwd_kernel(Params p) {
   }
 }
 
+// ------------------------------------------------------------------------
+// bf16 forward on the tensor cores: CTA = (q-block row, b, hq), as
+// fwd_kernel, with bq / 16 warps of 16 q rows each.  Replaces flash_fwd
+// (doc_attention.py:634) for bf16.  Bound: operations; S = Q K^T and
+// O += P V run as mma.sync m16n8k16 (bf16 in, f32 accumulate).
+// ------------------------------------------------------------------------
+constexpr int MMA_MAX_D = 128;
+// bf16 rows in shared memory are padded by 8 elements (16 bytes): the 8
+// row addresses of one ldmatrix phase then fall in 8 distinct 4-bank
+// groups for every D % 16 == 0
+__host__ __device__ inline int mma_pitch(int D) { return D + 8; }
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+// c += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&x);
+}
+
+// 2^x (ex2.approx: 2 ulp; 2^-inf is +0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// max / sum over the 4 threads of a quad (the threads of one fragment row)
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// The walk as a stream of KT-key sub-tiles.  The cursor holds the step
+// after the current one already loaded (n*), so moving to the next visit
+// never waits on the tables: the load of a step is issued one visit ahead.
+struct Cursor {
+  int t = -1, kt = 0, col = 0, flags = 0;
+  int ncol = 0, nflags = 0, nvis = 0;
+  bool nend = false;
+};
+
+// load walk step t of the row into the cursor's n* fields
+template <bool FLAT>
+__device__ __forceinline__ void load_step(const Params& p, int b, int row,
+                                          int s0, int t, Cursor& c) {
+  if (FLAT) {
+    c.nend = s0 + t >= p.W;
+    if (!c.nend) {
+      const long long o = (long long)b * p.W + s0 + t;
+      c.nflags = p.t2[o];
+      c.ncol = p.t1[o];
+    }
+  } else {
+    c.nend = t >= c.nvis;
+    if (!c.nend) {
+      c.ncol = p.t0[((long long)b * p.R + row) * p.W + t];
+      c.nflags = FLAG_VALID;
+    }
+  }
+}
+
+template <bool FLAT>
+__device__ __forceinline__ Cursor walk_start(const Params& p, int b, int row,
+                                             int s0) {
+  Cursor c;
+  if (!FLAT) c.nvis = p.t1[(long long)b * p.R + row];
+  load_step<FLAT>(p, b, row, s0, 0, c);
+  return c;
+}
+
+// advance to the next sub-tile of a VALID visit; false once the walk is
+// over (a LAST step done, or no step left), and from then on
+template <bool FLAT, int KT>
+__device__ __forceinline__ bool advance(const Params& p, int b, int row,
+                                        int s0, Cursor& c) {
+  if (c.t >= 0 && (c.flags & FLAG_VALID) && c.kt + KT < p.bk) {
+    c.kt += KT;
+    return true;
+  }
+  while (!(c.t >= 0 && (c.flags & FLAG_LAST))) {
+    if (c.nend) {
+      c.flags = FLAG_LAST;
+      return false;
+    }
+    ++c.t;
+    c.col = c.ncol;
+    c.flags = c.nflags;
+    load_step<FLAT>(p, b, row, s0, c.t + 1, c);
+    if (c.flags & FLAG_VALID) {
+      c.kt = 0;
+      return true;
+    }
+  }
+  return false;
+}
+
+// bytes of shared memory of one fwd_mma_kernel CTA: the q tile, a 2-stage
+// ring of K and V sub-tiles (bf16, padded rows) and their doc / pos
+__host__ __device__ inline long long mma_smem_bytes(int bq, int D, int KT) {
+  const long long row = 2LL * mma_pitch(D);
+  return bq * row + 2 * (2 * KT * row + 2LL * KT * 4);
+}
+
+template <bool FLAT, int KT>
+__global__ void __launch_bounds__(256, 1) fwd_mma_kernel(Params p) {
+  using bf16 = __nv_bfloat16;
+  constexpr int NT = KT / 8;                 // 8-key n-tiles of S
+  constexpr int MAXK = MMA_MAX_D / 16;       // 16-wide k-steps of Q K^T
+  constexpr int MAXN = MMA_MAX_D / 8;        // 8-wide n-tiles of O
+  extern __shared__ float4 smem4[];
+  const int D = p.D, DP = mma_pitch(D), BQ = p.bq;
+  const int NK = D / 16, ND = D / 8;
+  bf16* q_s = reinterpret_cast<bf16*>(smem4);          // BQ x DP
+  bf16* ring = q_s + BQ * DP;                          // 2 x {K, V}: KT x DP
+  int* meta = reinterpret_cast<int*>(ring + 4 * KT * DP);   // 2 x {doc, pos}
+
+  int rest;
+  const int i_row = cta_row(p.B * p.Hq, &rest);
+  const int b = rest / p.Hq, h = rest - b * p.Hq, hkv = h / p.G;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nthreads = BQ * 2;
+  int s0, row;
+  if (!walk_begin<FLAT>(p, b, i_row, &s0, &row)) return;
+
+  const long long q0 = ((long long)b * p.Hq + h) * p.Tq + (long long)row * BQ;
+  const long long kv0 = ((long long)b * p.Hkv + hkv) * p.Tk;
+  const bf16* kg = static_cast<const bf16*>(p.k);
+  const bf16* vg = static_cast<const bf16*>(p.v);
+  const int vecs = D / 8;                    // 16-byte chunks per row
+
+  // copy sub-tile (col, kt) of K, V and its key doc / pos into ring slot
+  auto issue = [&](const Cursor& c, int slot) {
+    const long long key0 = (long long)c.col * p.bk + c.kt;
+    bf16* ks = ring + slot * 2 * KT * DP;
+    bf16* vs = ks + KT * DP;
+    for (int i = tid; i < KT * vecs; i += nthreads) {
+      const int r = i / vecs, col = (i - r * vecs) * 8;
+      cp_async16(ks + r * DP + col, kg + (kv0 + key0 + r) * D + col);
+      cp_async16(vs + r * DP + col, vg + (kv0 + key0 + r) * D + col);
+    }
+    int* ms = meta + slot * 2 * KT;
+    const long long t0 = (long long)b * p.Tk + key0;
+    for (int i = tid; i < 2 * KT; i += nthreads)
+      cp_async4(ms + i, (i < KT ? p.kv_doc + t0 + i : p.kv_pos + t0 + i - KT));
+  };
+
+  // this thread's two q rows (fragment rows g and g + 8 of its warp)
+  const int g = lane >> 2, tq = lane & 3;
+  const int r0 = warp * 16 + g, r1 = r0 + 8;
+  const long long tok = (long long)b * p.Tq + (long long)row * BQ;
+  const int qd0 = p.q_doc[tok + r0], qp0 = p.q_pos[tok + r0];
+  const int qd1 = p.q_doc[tok + r1], qp1 = p.q_pos[tok + r1];
+
+  Cursor cur = walk_start<FLAT>(p, b, row, s0);
+  bool have = advance<FLAT, KT>(p, b, row, s0, cur);
+  float o[MAXN][4];
+#pragma unroll
+  for (int n = 0; n < MAXN; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  // m: row max of the unscaled scores; l: this thread's share of the sum
+  float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;
+  const float c2 = p.scale * 1.4426950408889634f;   // scale * log2(e)
+
+  if (have) {
+    const bf16* qg = static_cast<const bf16*>(p.q) + q0 * D;
+    for (int i = tid; i < BQ * vecs; i += nthreads) {
+      const int r = i / vecs, col = (i - r * vecs) * 8;
+      cp_async16(q_s + r * DP + col, qg + (long long)r * D + col);
+    }
+    issue(cur, 0);
+    cp_async_commit();
+  }
+  unsigned qf[MAXK][4];          // this warp's Q rows as A fragments
+  bool first = true;
+  int slot = 0;
+  while (have) {
+    Cursor nxt = cur;
+    const bool more = advance<FLAT, KT>(p, b, row, s0, nxt);
+    if (more) issue(nxt, slot ^ 1);   // slot ^ 1 was freed by the last barrier
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (first) {
+#pragma unroll
+      for (int kk = 0; kk < MAXK; ++kk)
+        if (kk < NK)
+          ldsm_x4(qf[kk], q_s + (warp * 16 + (lane & 15)) * DP + kk * 16 +
+                              (lane >> 4) * 8);
+      first = false;
+    }
+    const bf16* ks = ring + slot * 2 * KT * DP;
+    const bf16* vs = ks + KT * DP;
+    const int* kd_s = meta + slot * 2 * KT;
+    const int* kp_s = kd_s + KT;
+
+    // S = Q K^T: n-tiles j, j + 1 of keys per ldmatrix.x4
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < MAXK; ++kk) {
+      if (kk < NK) {
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+          unsigned kf[4];
+          ldsm_x4(kf, ks + (8 * j + (lane & 7) + (lane >> 4) * 8) * DP +
+                          kk * 16 + ((lane >> 3) & 1) * 8);
+          mma_bf16(s[j], qf[kk], kf[0], kf[1]);
+          mma_bf16(s[j + 1], qf[kk], kf[2], kf[3]);
+        }
+      }
+    }
+
+    // mask, online softmax in f32 (rows r0: s[.][0..1], r1: s[.][2..3]) on
+    // unscaled scores: scale > 0 commutes with the max, and folds with
+    // log2(e) into one FFMA before ex2.  A masked score is -inf: its p is
+    // exactly 0 and, as m never drops below NEG, it moves no max, which is
+    // what the reference's NEG score does.
+    float mx0 = NEG, mx1 = NEG;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int key = 8 * j + 2 * tq;
+      const int2 kd = *reinterpret_cast<const int2*>(kd_s + key);
+      const int2 kp = *reinterpret_cast<const int2*>(kp_s + key);
+      s[j][0] = visible(qd0, qp0, kd.x, kp.x) ? s[j][0] : -INFINITY;
+      s[j][1] = visible(qd0, qp0, kd.y, kp.y) ? s[j][1] : -INFINITY;
+      s[j][2] = visible(qd1, qp1, kd.x, kp.x) ? s[j][2] : -INFINITY;
+      s[j][3] = visible(qd1, qp1, kd.y, kp.y) ? s[j][3] : -INFINITY;
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    }
+    const float mn0 = fmaxf(m0, quad_max(mx0));
+    const float mn1 = fmaxf(m1, quad_max(mx1));
+    const float a0 = ex2((m0 - mn0) * c2), a1 = ex2((m1 - mn1) * c2);
+    m0 = mn0;
+    m1 = mn1;
+    const float mc0 = mn0 * c2, mc1 = mn1 * c2;
+    float sum0 = 0.f, sum1 = 0.f;
+    unsigned pf[NT / 2][4];        // P as A fragments, in V's dtype
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float p0 = ex2(fmaf(s[j][0], c2, -mc0));
+      const float p1 = ex2(fmaf(s[j][1], c2, -mc0));
+      const float p2 = ex2(fmaf(s[j][2], c2, -mc1));
+      const float p3 = ex2(fmaf(s[j][3], c2, -mc1));
+      sum0 += p0 + p1;
+      sum1 += p2 + p3;
+      pf[j / 2][(j & 1) * 2] = pack_bf16(p0, p1);
+      pf[j / 2][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+    }
+    l0 = l0 * a0 + sum0;
+    l1 = l1 * a1 + sum1;
+#pragma unroll
+    for (int n = 0; n < MAXN; ++n) {
+      o[n][0] *= a0;
+      o[n][1] *= a0;
+      o[n][2] *= a1;
+      o[n][3] *= a1;
+    }
+
+    // O += P V: V^T fragments by ldmatrix.trans, n-tiles n, n + 1 of D
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk) {
+#pragma unroll
+      for (int n = 0; n < MAXN; n += 2) {
+        if (n < ND) {
+          unsigned vf[4];
+          ldsm_x4_t(vf, vs + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                 DP + 8 * n + (lane >> 4) * 8);
+          mma_bf16(o[n], pf[kk], vf[0], vf[1]);
+          mma_bf16(o[n + 1], pf[kk], vf[2], vf[3]);
+        }
+      }
+    }
+    __syncthreads();               // the slot is free for the next copy
+    cur = nxt;
+    have = more;
+    slot ^= 1;
+  }
+  cp_async_wait<0>();
+
+  // epilogue: o = acc / l (0 where l = 0), lse = m + log l (-inf there)
+  const float lt0 = quad_sum(l0), lt1 = quad_sum(l1);
+  bf16* og = static_cast<bf16*>(p.out0) + q0 * D;
+#pragma unroll
+  for (int n = 0; n < MAXN; ++n) {
+    if (n < ND) {
+      const int c = 8 * n + 2 * tq;
+      const float d0 = fmaxf(lt0, 1e-30f), d1 = fmaxf(lt1, 1e-30f);
+      *reinterpret_cast<__nv_bfloat162*>(og + (long long)r0 * D + c) =
+          lt0 > 0.f ? __floats2bfloat162_rn(o[n][0] / d0, o[n][1] / d0)
+                    : __floats2bfloat162_rn(0.f, 0.f);
+      *reinterpret_cast<__nv_bfloat162*>(og + (long long)r1 * D + c) =
+          lt1 > 0.f ? __floats2bfloat162_rn(o[n][2] / d1, o[n][3] / d1)
+                    : __floats2bfloat162_rn(0.f, 0.f);
+    }
+  }
+  if (tq == 0) {
+    float* lse = static_cast<float*>(p.out1) +
+                 ((long long)b * p.Hq + h) * p.Tq + (long long)row * BQ;
+    lse[r0] = lt0 > 0.f ? m0 * p.scale + logf(lt0) : -INFINITY;
+    lse[r1] = lt1 > 0.f ? m1 * p.scale + logf(lt1) : -INFINITY;
+  }
+}
+
 // Per-row backward inputs of one q tile into shared memory: doc, pos,
 // lse_safe (0 where lse is -inf) and delta.
 __device__ __forceinline__ void stage_rows(const Params& p, int b, int h,
@@ -662,14 +1030,14 @@ long long smem_bytes(int kind, int bq, int D) {
 }
 
 template <typename K>
-int launch(K kernel, const Params& p, long long blocks, size_t smem,
-           cudaStream_t stream) {
+int launch(K kernel, const Params& p, long long blocks, int threads,
+           size_t smem, cudaStream_t stream) {
   if (smem > STATIC_SMEM_LIMIT) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  if (blocks > 0) kernel<<<(unsigned)blocks, THREADS, smem, stream>>>(p);
+  if (blocks > 0) kernel<<<(unsigned)blocks, threads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -693,21 +1061,40 @@ Params make_params(const void* q, const void* k, const void* v,
 
 using Kernel = void (*)(Params);
 
-// the kernel of one entry for (dtype, grid); nullptr for an unknown dtype
+// the backward kernel of one entry for (dtype, grid)
 template <typename T>
-Kernel pick(int kind, int flat) {
-  if (kind == 0) return flat ? fwd_kernel<T, true> : fwd_kernel<T, false>;
+Kernel pick_bwd(int kind, int flat) {
   if (kind == 1) return flat ? dq_kernel<T, true> : dq_kernel<T, false>;
   return flat ? dkv_kernel<T, true> : dkv_kernel<T, false>;
 }
 
+// the bf16 forward: 64-key sub-tiles where block_k allows, else 32
+int launch_fwd_mma(const Params& p, long long blocks, int flat,
+                   cudaStream_t s) {
+  if (p.D % 16 || p.D > MMA_MAX_D || !(p.scale > 0.f))
+    return (int)cudaErrorInvalidValue;
+  const bool k64 = p.bk % 64 == 0;
+  Kernel k = k64 ? (flat ? fwd_mma_kernel<true, 64> : fwd_mma_kernel<false, 64>)
+                 : (flat ? fwd_mma_kernel<true, 32> : fwd_mma_kernel<false, 32>);
+  return launch(k, p, blocks, 2 * p.bq,
+                (size_t)mma_smem_bytes(p.bq, p.D, k64 ? 64 : 32), s);
+}
+
+// f32 forward: fwd_kernel; bf16 forward: fwd_mma_kernel; backward:
+// dq_kernel / dkv_kernel in either dtype
 int dispatch(const Params& p, int kind, long long blocks, int flat, int dtype,
              cudaStream_t s) {
-  Kernel k = dtype == 0   ? pick<float>(kind, flat)
-             : dtype == 1 ? pick<__nv_bfloat16>(kind, flat)
-                          : nullptr;
+  if (kind == 0 && dtype == 1) return launch_fwd_mma(p, blocks, flat, s);
+  Kernel k = nullptr;
+  if (kind == 0 && dtype == 0)
+    k = flat ? fwd_kernel<float, true> : fwd_kernel<float, false>;
+  else if (kind != 0 && dtype == 0)
+    k = pick_bwd<float>(kind, flat);
+  else if (kind != 0 && dtype == 1)
+    k = pick_bwd<__nv_bfloat16>(kind, flat);
   if (k == nullptr) return (int)cudaErrorInvalidValue;
-  return launch(k, p, blocks, (size_t)smem_bytes(kind, p.bq, p.D), s);
+  return launch(k, p, blocks, THREADS, (size_t)smem_bytes(kind, p.bq, p.D),
+                s);
 }
 
 bool shapes_ok(int Hq, int Hkv, int D, int bq, int bk) {

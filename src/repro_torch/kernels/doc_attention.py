@@ -24,7 +24,8 @@ Kernels (``csrc/doc_attention.cu``, built by ``_build`` at first use),
 each with the reference's signature minus ``interpret``:
 
 * :func:`flash_fwd` -> ``(o, lse)``: o in q's dtype, lse f32 (-inf on
-  rows that see nothing; their o is 0);
+  rows that see nothing; their o is 0).  In bf16 it runs on the tensor
+  cores and takes head dims that are a multiple of 16 (others raise);
 * :func:`flash_bwd_dq` -> dq, over the same q-block rows and tables;
 * :func:`flash_bwd_dkv` -> ``(dk, dv)``, over the reverse tables
   (kv-block rows visited by q blocks), the GQA group summed in f32.
@@ -620,6 +621,9 @@ def _check_kernel_inputs(kind, q, k, v, metas, tables, grid, block_q,
     if D > 128 or (D * esize) % 16:
         raise ValueError(f"head dim {D} unsupported: at most 128 and a "
                          "multiple of 16 bytes")
+    if kind == "fwd" and q.dtype == torch.bfloat16 and D % 16:
+        raise ValueError(f"head dim {D} unsupported by the bf16 tensor-core "
+                         "forward: a multiple of 16")
     if not (16 <= block_q <= 128 and block_q % 16 == 0):
         raise ValueError(f"block_q {block_q} unsupported: a multiple of 16 "
                          "up to 128")
@@ -714,6 +718,9 @@ def flash_fwd(q, k, v, q_doc, q_pos, kv_doc, kv_pos, tables, *,
                                tables, scale=scale, block_q=block_q,
                                block_k=block_k, grid=grid)
     B, Hq, Tq, D = q.shape
+    if q.dtype == torch.bfloat16 and not scale > 0:
+        raise ValueError(f"scale {scale} unsupported by the bf16 forward: "
+                         "it must be positive")
     out = torch.empty_like(q)
     lse = torch.empty((B, Hq, Tq), dtype=torch.float32, device=q.device)
     _launch("fwd", "flash_fwd", q, k, v, q_doc, q_pos, kv_doc, kv_pos,

@@ -17,7 +17,11 @@ Wrappers and the kernels behind them (``csrc/flash_decode.cu``, built by
   one partial each, merged on the online-LSE substrate.
 * :func:`flash_decode_paged` — the KV lives in a global block pool
   (Hkv, num_blocks * block_size, D) and ``tables`` (B, nk) maps each
-  request's logical block to its physical one.
+  request's logical block to its physical one.  On the card it is
+  split-KV flash decoding: one block per (b, kv head, split of
+  ``pages_per_split`` pages) writes an f32 partial, and a combine kernel
+  merges them (:func:`paged_split_plan` picks the split;
+  :func:`paged_decode_split_plain` is its plain form).
 
 A wrapper given CPU tensors runs its plain PyTorch version below
 (``decode_reference``, ``decode_partial_reference``,
@@ -28,6 +32,7 @@ raises.  Each kernel wrapper counts its launches in ``.launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -35,7 +40,8 @@ from repro_torch.core.merge import NEG, finalize_partial, merge_partials
 
 __all__ = ["flash_decode", "flash_decode_sharded", "flash_decode_paged",
            "decode_reference", "decode_partial_reference",
-           "paged_decode_reference", "gather_paged_kv", "DENSE_TILE"]
+           "paged_decode_reference", "paged_decode_split_plain",
+           "paged_split_plan", "gather_paged_kv", "DENSE_TILE"]
 
 #: KV positions per tile of the dense kernel; any S works (ragged edge
 #: masked), so unlike the TPU kernel the tile never shrinks to divide S
@@ -43,6 +49,10 @@ DENSE_TILE = 32
 #: shared memory one block may use on Hopper
 _SMEM_LIMIT = 232_448
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: the paged kernel's split: at least this many positions per split, and
+#: about this many blocks per SM (chosen by scripts/paged_split_sweep.py)
+SPLIT_MIN_POSITIONS = 32
+SPLIT_BLOCKS_PER_SM = 4
 
 
 # --------------------------------------------------------------------- #
@@ -107,6 +117,39 @@ def paged_decode_reference(q, k_pool, v_pool, lengths, tables, *,
     return decode_reference(q, k, v, lengths, scale=scale)
 
 
+def paged_split_plan(B: int, Hkv: int, nk: int, block_size: int,
+                     sms: int = 132) -> tuple[int, int]:
+    """``(pages_per_split, n_split)`` of the split-KV paged kernel, from
+    sizes the host knows (never from ``lengths``): enough splits that the
+    B * Hkv * n_split blocks fill ``sms`` SMs about SPLIT_BLOCKS_PER_SM
+    deep, each split at least SPLIT_MIN_POSITIONS positions long."""
+    nk = max(nk, 1)
+    pps = max(-(-SPLIT_MIN_POSITIONS // block_size),
+              -(-B * Hkv * nk // (SPLIT_BLOCKS_PER_SM * sms)))
+    pps = min(pps, nk)
+    return pps, -(-nk // pps)
+
+
+def paged_decode_split_plain(q, k_pool, v_pool, lengths, tables, *,
+                             block_size: int, pages_per_split: int,
+                             scale=None):
+    """Plain form of the split-KV paged kernel: per split of
+    ``pages_per_split`` logical pages, the partial ``(o, m, l)`` against
+    the split's local length (clamped; a split wholly past the length
+    is the merge identity), merged with ``merge_partials`` and
+    normalized."""
+    nk = tables.shape[1]
+    parts = []
+    for kb in range(0, nk, pages_per_split):
+        t = tables[:, kb:kb + pages_per_split]
+        local = torch.clamp(lengths - kb * block_size, -1,
+                            t.shape[1] * block_size - 1).to(torch.int32)
+        k = gather_paged_kv(k_pool, t, block_size)
+        v = gather_paged_kv(v_pool, t, block_size)
+        parts.append(decode_partial_reference(q, k, v, local, scale=scale))
+    return finalize_partial(merge_partials(parts), q.dtype)
+
+
 # --------------------------------------------------------------------- #
 # kernel wrappers
 # --------------------------------------------------------------------- #
@@ -149,6 +192,11 @@ def _check_aligned(D: int, *tensors) -> None:
         if t.data_ptr() % 16 or any(s * esize % 16 for s in t.stride()[:-1]):
             raise ValueError("k and v must be 16-byte aligned "
                              f"(strides {t.stride()})")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _raise_on_error(lib, code: int, name: str) -> None:
@@ -272,18 +320,31 @@ def flash_decode_paged(q, k_pool, v_pool, lengths, tables, *,
             or tables.shape[0] != B or not tables.is_contiguous():
         raise ValueError("tables must be a contiguous int32 (B, nk) tensor")
     _check_aligned(D, k_pool, v_pool)
+    if D > 512:
+        raise ValueError(f"head dim {D} unsupported: at most 512")
     G = Hq // Hkv
     nk = tables.shape[1]
     lib = flash_decode_lib()
-    _check_smem(lib, G, D, block_size)
+    dtype = _DTYPE_CODE[q.dtype]
+    need = lib.flash_decode_paged_smem_bytes(G, D, block_size, dtype)
+    if need > _SMEM_LIMIT:
+        raise ValueError(f"G={G}, D={D}, block_size={block_size} needs "
+                         f"{need} bytes of shared memory (limit {_SMEM_LIMIT})")
+    pps, n_split = paged_split_plan(B, Hkv, nk, block_size,
+                                    _sm_count(q.device))
     out = torch.empty_like(q)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    part_o = torch.empty((B, Hkv, n_split, G, D), **f32)
+    part_m = torch.empty((B, Hkv, n_split, G), **f32)
+    part_l = torch.empty((B, Hkv, n_split, G), **f32)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = lib.flash_decode_paged(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             lengths.data_ptr(), tables.data_ptr(), out.data_ptr(),
-            B, Hkv, G, nbtok, block_size, nk, D, float(scale),
-            _DTYPE_CODE[q.dtype], ctypes.c_void_p(stream))
+            part_o.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
+            B, Hkv, G, nbtok, block_size, nk, D, pps, n_split, float(scale),
+            dtype, ctypes.c_void_p(stream))
     _raise_on_error(lib, code, "flash_decode_paged")
     flash_decode_paged.launches += 1
     return out

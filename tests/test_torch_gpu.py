@@ -105,6 +105,34 @@ def test_paged_kernel_matches_plain(gen, dtype, bs, G):
     assert bool((out[0] == 0).all())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs", [8, 16, 32])
+@pytest.mark.parametrize("G", [1, 8, 12, 48])
+def test_paged_split_kernel_matches_plain(gen, dtype, bs, G):
+    """The split-KV kernel over long tables (many splits, splits past the
+    shorter lengths, a shared prefix, lengths -1 and 0), G up to 48
+    (MQA), against the gather oracle and the split twin."""
+    B, Hkv, D, nk = 5, 2 if G < 48 else 1, 128, 70
+    nb = B * nk + 3
+    kp = _randn(gen, (Hkv, nb * bs, D), dtype)
+    vp = _randn(gen, (Hkv, nb * bs, D), dtype)
+    perm = torch.randperm(nb, generator=gen, device="cuda")
+    tables = perm[:B * nk].reshape(B, nk).to(torch.int32).contiguous()
+    tables[1, :4] = tables[0, :4]                     # a shared prefix
+    ln = torch.tensor([nk * bs - 1, 5 * bs + 3, -1, 0, 40 * bs],
+                      dtype=torch.int32, device="cuda")
+    q = _randn(gen, (B, G * Hkv, D), dtype)
+    out = fd.flash_decode_paged(q, kp, vp, ln, tables, block_size=bs)
+    torch.cuda.synchronize()
+    ref = fd.paged_decode_reference(q, kp, vp, ln, tables, block_size=bs)
+    pps, _ = fd.paged_split_plan(B, Hkv, nk, bs, torch.cuda.get_device_properties(0).multi_processor_count)
+    twin = fd.paged_decode_split_plain(q, kp, vp, ln, tables, block_size=bs,
+                                       pages_per_split=pps)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    assert (out.float() - twin.float()).abs().max().item() <= TOL[dtype]
+    assert bool((out[2] == 0).all())
+
+
 def test_kernels_count_launches_and_refuse_what_they_cannot_take(gen):
     q = _randn(gen, (2, 4, 64), torch.float32)
     k = _randn(gen, (2, 2, 40, 64), torch.float32)
@@ -238,4 +266,26 @@ def test_doc_kernels_count_launches_and_refuse_what_they_cannot_take(gen):
         da.flash_fwd(q, k, v, *meta, tuple(t.long() for t in fwd_t), **kw)
     with pytest.raises(ValueError):                    # mixed devices
         da.flash_fwd(q.cpu(), k, v, *meta, fwd_t, **kw)
+    assert da.flash_fwd.launches == before + 1
+
+
+def test_bf16_forward_refuses_head_dims_off_the_tensor_cores(gen):
+    """The bf16 forward runs only on the tensor cores: a head dim that is
+    not a multiple of 16 raises instead of running another kernel."""
+    from repro_torch.kernels import doc_attention as da
+    q, k, v, _, meta, tabs = _doc_case(gen, 1, 4, 2, 256, 24, 64, 64,
+                                       torch.bfloat16, 0)
+    fwd_t, _ = _halves(tabs, "flat")
+    kw = dict(scale=24 ** -0.5, block_q=64, block_k=64, grid="flat")
+    before = da.flash_fwd.launches
+    with pytest.raises(ValueError, match="multiple of 16"):
+        da.flash_fwd(q, k, v, *meta, fwd_t, **kw)
+    q16, k16, v16, _, meta16, tabs16 = _doc_case(gen, 1, 4, 2, 256, 64, 64,
+                                                 64, torch.bfloat16, 0)
+    with pytest.raises(ValueError, match="positive"):
+        da.flash_fwd(q16, k16, v16, *meta16, _halves(tabs16, "flat")[0],
+                     **{**kw, "scale": -0.125})
+    assert da.flash_fwd.launches == before
+    # the same shape in f32 runs the scalar kernel
+    da.flash_fwd(q.float(), k.float(), v.float(), *meta, fwd_t, **kw)
     assert da.flash_fwd.launches == before + 1

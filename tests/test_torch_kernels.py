@@ -123,6 +123,38 @@ def test_flash_decode_paged_matches_jax():
     assert np.all(out.numpy()[4] == 0)
 
 
+@pytest.mark.parametrize("pages_per_split", [1, 2, 3, 6])
+def test_paged_split_plain_matches_jax(pages_per_split):
+    """The split-KV twin (per-split partials, merged) against the Pallas
+    paged kernel: a shared prefix block, a length of 0 and of -1, and
+    (for small splits) splits wholly past a request's length.  6 = nk is
+    one split per request."""
+    q, kp, vp, lengths, tables, bs = _paged_case(seed=5)
+    lengths[2] = 0
+    ref = jfd.flash_decode_paged(jnp.asarray(q), jnp.asarray(kp),
+                                 jnp.asarray(vp), jnp.asarray(lengths),
+                                 jnp.asarray(tables), block_size=bs,
+                                 interpret=True)
+    out = tfd.paged_decode_split_plain(_t(q), _t(kp), _t(vp), _t(lengths),
+                                       _t(tables), block_size=bs,
+                                       pages_per_split=pages_per_split)
+    np.testing.assert_allclose(out.numpy(), _np(ref), atol=ATOL, rtol=0)
+    assert np.all(out.numpy()[4] == 0)
+
+
+@pytest.mark.parametrize("B,Hkv,nk,bs", [(6, 2, 66, 16), (1, 1, 4, 16),
+                                         (64, 8, 256, 16), (3, 2, 9, 8)])
+def test_paged_split_plan_covers_the_table(B, Hkv, nk, bs):
+    """Every table slot lies in exactly one split; splits are at least
+    SPLIT_MIN_POSITIONS long unless the table is shorter; a small batch
+    gets about SPLIT_BLOCKS_PER_SM blocks per SM."""
+    pps, n_split = tfd.paged_split_plan(B, Hkv, nk, bs, sms=132)
+    assert 1 <= pps <= nk and (n_split - 1) * pps < nk <= n_split * pps
+    assert pps * bs >= min(tfd.SPLIT_MIN_POSITIONS, nk * bs)
+    if B * Hkv * nk >= tfd.SPLIT_BLOCKS_PER_SM * 132 * pps:
+        assert B * Hkv * n_split >= 132
+
+
 def test_gather_paged_kv_matches_jax():
     _, kp, _, _, tables, bs = _paged_case(seed=3)
     ref = jfd.gather_paged_kv(jnp.asarray(kp), jnp.asarray(tables), bs)
