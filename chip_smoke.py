@@ -4,17 +4,17 @@ NVIDIA GPU.
 
 Builds the hand-written CUDA kernels from the sources in this checkout
 (one ``nvcc`` per source, all at once), holds each against its plain
-PyTorch version on the card (f32 and bf16; the split-KV paged kernel
-also against its split twin), and times it beside its bound, its plain
-version and a library call, with its achieved GB/s, TFLOP/s and share
-of the bound.  Then it drives the port's
+PyTorch version on the card (f32 and bf16; the split-KV decode kernels
+also against their split twins), and times it beside its bound, its
+plain version and a library call, with its achieved GB/s, TFLOP/s and
+share of the bound.  Then it drives the port's
 two paths end to end at the full width of starcoder2_3b (30 layers,
 d_model 3072, random weights from a seed), each with every kernel's
 launch count set to 0 just before and read just after:
 
 * serving: 12 requests on 6 slots through the paged layout
-  (``flash_decode_paged``, split-KV) and the dense layout
-  (``flash_decode`` in partial mode), gated on every request ending ok
+  (``flash_decode_paged``) and the dense layout (``flash_decode`` in
+  partial mode), both split-KV, gated on every request ending ok
   and on the launch counts; one decode step flash vs the dense oracle;
   one profiled decode step of each layout; a small f32 model served on
   the card and on the CPU must give the same tokens, and the same on
@@ -68,6 +68,9 @@ DOC_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 B, HQ, HKV, D = 6, 24, 2, 128
 S_DENSE, BLOCK = 1056, 16
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# the dense split kernel's partial m (absolute) and l (relative) against
+# its split twin in either dtype: f32 statistics of the same scores
+STAT_TOL = 1e-5
 
 # training: full-width starcoder2_3b heads on one 8192-token batch
 ARCH, SEQ, STEPS = "starcoder2_3b", 8192, 4
@@ -175,6 +178,14 @@ def paged_split(torch, tables):
     return fd.paged_split_plan(B, HKV, tables.shape[1], BLOCK, sms)
 
 
+def dense_split(torch, S):
+    """The (pages_per_split, n_split) the dense wrapper picks here, over
+    tiles of fd.DENSE_TILE positions."""
+    from repro_torch.kernels import flash_decode as fd
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return fd.dense_split_plan(B, HKV, S, sms)
+
+
 def achieved(ms: float, nbytes: int, flops: int, bms: float) -> dict:
     """A kernel time's rates and its share of the bound."""
     return {"gb_per_s": nbytes / ms / 1e6, "tflops_per_s": flops / ms / 1e9,
@@ -210,6 +221,17 @@ def kernel_phase(torch, timer, quick: bool) -> dict:
         e_l = ((l[1:] - pl[1:]).abs() / pl[1:]).max().item()
         empty_ok = bool((o[0] == 0).all() and (l[0] == 0).all()
                         and (m[0] == -1e30).all() and (out[0] == 0).all())
+        # the dense split kernel against its split twin, both modes
+        dpps, d_split = dense_split(torch, S_DENSE)
+        tw = fd.decode_split_plain(q, k, v, ln, tile=fd.DENSE_TILE,
+                                   pages_per_split=dpps, partial=True)
+        tw_norm = finalize_partial(tw, dtype)
+        e_dtwin = max(
+            (out.float() - tw_norm.float()).abs().max().item(),
+            (finalize_partial((o, m, l), torch.float32)
+             - finalize_partial(tw, torch.float32)).abs().max().item())
+        e_dtwin_m = (m - tw[1]).abs().max().item()
+        e_dtwin_l = ((l[1:] - tw[2][1:]).abs() / tw[2][1:]).max().item()
         qp, kp, vp, lp, tp = paged_case(torch, dtype, gen)
         outp = fd.flash_decode_paged(qp, kp, vp, lp, tp, block_size=BLOCK)
         torch.cuda.synchronize()
@@ -225,14 +247,22 @@ def kernel_phase(torch, timer, quick: bool) -> dict:
         emit("kernel_parity", dtype=name, tol=tol,
              flash_decode_err=e_norm, flash_decode_partial_err=e_part,
              partial_m_err=e_m, partial_l_rel_err=e_l,
+             flash_decode_vs_split_twin_err=e_dtwin,
+             split_twin_m_err=e_dtwin_m, split_twin_l_rel_err=e_dtwin_l,
+             stat_tol=STAT_TOL,
+             dense_tile=fd.DENSE_TILE, dense_pages_per_split=dpps,
+             dense_splits=d_split,
              flash_decode_paged_err=e_paged,
              flash_decode_paged_vs_split_twin_err=e_twin,
              paged_pages_per_split=pps, paged_splits=n_split,
              empty_row_exact=empty_ok, paged_empty_row_exact=paged_empty_ok)
-        if max(e_norm, e_part, e_paged, e_twin) > tol or not empty_ok \
-                or not paged_empty_ok or e_m > tol or e_l > max(tol, 1e-5):
+        if max(e_norm, e_part, e_paged, e_twin, e_dtwin) > tol \
+                or not empty_ok or not paged_empty_ok or e_m > tol \
+                or e_l > max(tol, 1e-5) or e_dtwin_m > STAT_TOL \
+                or e_dtwin_l > STAT_TOL:
             raise AssertionError(f"kernel parity failed in {name}")
-        err["flash_decode"] = max(err["flash_decode"], e_norm, e_part)
+        err["flash_decode"] = max(err["flash_decode"], e_norm, e_part,
+                                  e_dtwin)
         err["flash_decode_paged"] = max(err["flash_decode_paged"], e_paged,
                                         e_twin)
     if quick:
@@ -659,8 +689,9 @@ def train(args, params=None):
 
 # device-time categories of a profile, by kernel name
 CATEGORIES = (("doc_attention", ("fwd_kernel", "fwd_mma_kernel", "dq_kernel",
-                                  "dkv_kernel")),
-              ("flash_decode", ("decode_kernel", "decode_split_kernel",
+                                  "dkv_kernel", "dkv_mma_kernel",
+                                  "dkv_sum_kernel")),
+              ("flash_decode", ("decode_split_kernel",
                                 "decode_combine_kernel")),
               ("gemm", ("nvjet", "gemm", "cutlass", "sm90_xmma")))
 

@@ -7,9 +7,11 @@ caller that wants the CPU (the parity tests) asks for it.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "sm_count"]
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
@@ -22,3 +24,10 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device: what the split kernels
+    size their grids by."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

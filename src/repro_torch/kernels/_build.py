@@ -96,8 +96,10 @@ def flash_decode_lib() -> ctypes.CDLL:
                          ctypes.c_float)
     lib.flash_decode_dense.argtypes = [
         vp, vp, vp, vp, vp, vp, vp,            # q k v lengths out out_m out_l
+        vp, vp, vp,                            # part_o part_m part_l
         i32, i32, i32, i32, i32, i32,          # B Hkv G S D tile
         i64, i64, i64, i64,                    # k/v batch and head strides
+        i32, i32,                              # pages_per_split n_split
         f32, i32, i32, vp]                     # scale dtype partial stream
     lib.flash_decode_dense.restype = i32
     lib.flash_decode_paged.argtypes = [
@@ -107,10 +109,8 @@ def flash_decode_lib() -> ctypes.CDLL:
         i32, i32,                              # pages_per_split n_split
         f32, i32, vp]                          # scale dtype stream
     lib.flash_decode_paged.restype = i32
-    lib.flash_decode_smem_bytes.argtypes = [i32, i32, i32]
-    lib.flash_decode_smem_bytes.restype = i64
-    lib.flash_decode_paged_smem_bytes.argtypes = [i32, i32, i32, i32]
-    lib.flash_decode_paged_smem_bytes.restype = i64
+    lib.flash_decode_split_smem_bytes.argtypes = [i32, i32, i32, i32]
+    lib.flash_decode_split_smem_bytes.restype = i64
     lib.flash_decode_error_string.argtypes = [i32]
     lib.flash_decode_error_string.restype = ctypes.c_char_p
     return lib
@@ -119,7 +119,8 @@ def flash_decode_lib() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def doc_attention_lib() -> ctypes.CDLL:
     """The doc-attention training kernels, built on first call, argtypes
-    bound.  The three entries share one argument list."""
+    bound.  The three entries share one argument list; dK/dV adds its
+    split."""
     path, _ = build("doc_attention.cu")
     lib = ctypes.CDLL(str(path))
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -134,6 +135,9 @@ def doc_attention_lib() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = i32
+    # dK/dV also takes the bf16 kernel's split: key parts, group slices,
+    # f32 slice workspace
+    lib.doc_attn_dkv.argtypes = args + [i32, i32, vp]
     lib.doc_attn_smem_bytes.argtypes = [i32, i32, i32]
     lib.doc_attn_smem_bytes.restype = ctypes.c_longlong
     lib.doc_attn_error_string.argtypes = [i32]

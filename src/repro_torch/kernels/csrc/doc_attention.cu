@@ -8,8 +8,9 @@
 //     _fwd_kernel_flat over _fwd_init, _fwd_visit, _fwd_finalize);
 //   * dq_kernel<T, FLAT>   <- ::flash_bwd_dq (_dq_kernel / _dq_kernel_flat
 //     over _dq_visit);
-//   * dkv_kernel<T, FLAT>  <- ::flash_bwd_dkv (_dkv_kernel /
-//     _dkv_kernel_flat over _dkv_visit).
+//   * dkv_mma_kernel<FLAT, QC> (+ dkv_sum_kernel) <- ::flash_bwd_dkv in
+//     bf16, and dkv_kernel<float, FLAT> <- ::flash_bwd_dkv in f32
+//     (_dkv_kernel / _dkv_kernel_flat over _dkv_visit).
 //
 // Bound on this card: operations.  Each visited (q block, kv block) pair
 // costs 2 * bq * bk * D flops per matrix product and head: 2 products in
@@ -31,8 +32,12 @@
 //     P becomes the A fragment of P V in registers.  Two barriers per
 //     sub-tile.  It takes D % 16 == 0 (D <= 128) and a positive scale;
 //     the wrapper refuses other bf16 inputs.
-//   * fwd_kernel (f32, the parity reference on the card), dq_kernel and
-//     dkv_kernel run scalar f32 FMA (no mma, wgmma or TMA), so the f32
+//   * dkv_mma_kernel (bf16) runs all four dK/dV products on the tensor
+//     cores with the CTA's keys as the M dimension, so P^T and dS^T feed
+//     the dV and dK products from registers; its design is described
+//     above the kernel.
+//   * fwd_kernel and dkv_kernel (f32, the parity references on the card)
+//     and dq_kernel run scalar f32 FMA (no mma, wgmma or TMA), so the f32
 //     CUDA-core rate is their practical ceiling.  They keep the whole
 //     working set of a visit in shared memory and registers: the owned
 //     tile (q, or q and dO, staged once per CTA) as f32, 32-key sub-tiles
@@ -60,10 +65,13 @@
 //     other steps);
 //   * dQ: P = exp(S - lse_safe) with lse_safe = 0 where lse is -inf,
 //     dS = P (dO.V^T - delta) scale, rounded to K's dtype before dS.K;
-//   * dK/dV: the same P and dS, nothing rounded; dV += P^T dO and
-//     dK += dS^T Q summed over the GQA group in f32.  A 128-key KV row is
-//     split over CTAs by 32-key sub-tile, all walking the same visits, so
-//     a CTA's dK and dV accumulators fit in registers with no atomics.
+//   * dK/dV: the same P and dS; dV += P^T dO and dK += dS^T Q summed over
+//     the GQA group in f32.  f32 (dkv_kernel): nothing rounded, and a
+//     128-key KV row is split over CTAs by 32-key sub-tile, all walking
+//     the same visits, so a CTA's dK and dV accumulators fit in registers
+//     with no atomics.  bf16 (dkv_mma_kernel): P^T and dS^T are rounded
+//     to bf16 as the mma operands of dV and dK (the reference rounds
+//     neither), and the sums stay f32.
 //
 // Plain C interface for ctypes; each entry returns cudaGetLastError() right
 // after its launch.
@@ -71,6 +79,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -120,7 +130,9 @@ struct Params {
   const float* delta;
   void* out0;             // fwd: o; dq: dq; dkv: dk
   void* out1;             // fwd: lse (f32); dkv: dv
+  float* ws;              // bf16 dkv with slices > 1: f32 (2, slices, B, Hkv, Tk, D)
   int B, Hq, Hkv, G, Tq, Tk, D, bq, bk, R, W;
+  int parts, slices;      // bf16 dkv: key parts per block row, group slices
   float scale;
 };
 
@@ -517,13 +529,15 @@ __device__ __forceinline__ Cursor walk_start(const Params& p, int b, int row,
   return c;
 }
 
-// advance to the next sub-tile of a VALID visit; false once the walk is
-// over (a LAST step done, or no step left), and from then on
-template <bool FLAT, int KT>
-__device__ __forceinline__ bool advance(const Params& p, int b, int row,
-                                        int s0, Cursor& c) {
-  if (c.t >= 0 && (c.flags & FLAG_VALID) && c.kt + KT < p.bk) {
-    c.kt += KT;
+// advance to the next unit of a VALID visit (units kt = 0, step, ...
+// below limit); false once the walk is over (a LAST step done, or no step
+// left), and from then on
+template <bool FLAT>
+__device__ __forceinline__ bool advance_by(const Params& p, int b, int row,
+                                           int s0, Cursor& c, int step,
+                                           int limit) {
+  if (c.t >= 0 && (c.flags & FLAG_VALID) && c.kt + step < limit) {
+    c.kt += step;
     return true;
   }
   while (!(c.t >= 0 && (c.flags & FLAG_LAST))) {
@@ -541,6 +555,13 @@ __device__ __forceinline__ bool advance(const Params& p, int b, int row,
     }
   }
   return false;
+}
+
+// the forward's walk: KT-key sub-tiles of each visit's block_k keys
+template <bool FLAT, int KT>
+__device__ __forceinline__ bool advance(const Params& p, int b, int row,
+                                        int s0, Cursor& c) {
+  return advance_by<FLAT>(p, b, row, s0, c, KT, p.bk);
 }
 
 // bytes of shared memory of one fwd_mma_kernel CTA: the q tile, a 2-stage
@@ -1012,6 +1033,306 @@ __global__ void __launch_bounds__(THREADS, 1) dkv_kernel(Params p) {
   }
 }
 
+// ------------------------------------------------------------------------
+// bf16 dK, dV on the tensor cores: CTA = (kv-block row, b, hkv, group
+// slice, key part), reverse tables.  Replaces flash_bwd_dkv
+// (doc_attention.py:967) for bf16.  Bound: operations; S^T = K Q^T,
+// dP^T = V dO^T, dV += P^T dO and dK += dS^T Q run as mma.sync m16n8k16
+// (bf16 in, f32 accumulate).
+//
+// A warp owns 16 keys (the M dimension of all four products), so P^T and
+// dS^T come out in accumulator layout and become the A fragments of the
+// dV and dK products in registers, as P does in fwd_mma_kernel; Q and dO
+// are B operands (ldmatrix for S^T / dP^T, ldmatrix.trans for dK / dV).
+// K and V of the CTA's keys are copied once.  The walk is a stream of
+// units, (visit, head of the slice, QC-row chunk of the q block), whose Q,
+// dO and per-row doc, pos, lse and delta flow through a DKV_STAGES-deep
+// cp.async ring, the next unit in flight while one is computed; one
+// barrier per unit.  dK and dV stay in f32 registers for the whole walk
+// and are written once: in bf16 when the group is one slice, else as f32
+// slice partial that dkv_sum_kernel adds up in slice order (no atomics).
+// A block row splits into `parts` key ranges and the group into `slices`
+// so that a row with many more visits than the mean does not set the
+// kernel's time alone; the wrapper picks both from shapes only.  CTAs
+// are numbered row ordinal outermost, so the flat queue's LPT order is
+// the launch order.
+//
+// Rounding: P^T and dS^T are rounded to bf16 as mma operands (the
+// reference rounds neither before these two products); the sums are f32.
+// ------------------------------------------------------------------------
+constexpr int DKV_STAGES = 2;
+
+// bf16 elements of one ring stage: Q and dO (QC x pitch), then the rows'
+// doc, pos, lse and delta (4 x QC words)
+__host__ __device__ inline int dkv_stage_elems(int D, int QC) {
+  return 2 * QC * mma_pitch(D) + 8 * QC;
+}
+
+// bytes of shared memory of one dkv_mma_kernel CTA: K and V of its keys,
+// then the ring
+__host__ __device__ inline long long dkv_mma_smem_bytes(int keys, int D,
+                                                        int QC) {
+  return 2LL * (2LL * keys * mma_pitch(D) +
+                (long long)DKV_STAGES * dkv_stage_elems(D, QC));
+}
+
+template <bool FLAT, int QC>
+__global__ void __launch_bounds__(256, 1) dkv_mma_kernel(Params p) {
+  using bf16 = __nv_bfloat16;
+  constexpr int NT = QC / 8;                 // 8-query n-tiles of S^T
+  constexpr int KC = QC / 16;                // 16-query k-chunks of dK, dV
+  constexpr int MAXK = MMA_MAX_D / 16;       // 16-wide k-steps of K Q^T
+  constexpr int MAXN = MMA_MAX_D / 8;        // 8-wide n-tiles of dK, dV
+  constexpr float LOG2E = 1.4426950408889634f;
+  extern __shared__ float4 smem4[];
+  const int D = p.D, DP = mma_pitch(D), NK = D / 16, ND = D / 8;
+  const int KEYS = p.bk / p.parts, nthreads = 2 * KEYS;
+  const int SE = dkv_stage_elems(D, QC);
+  bf16* k_s = reinterpret_cast<bf16*>(smem4);          // KEYS x DP
+  bf16* v_s = k_s + KEYS * DP;                         // KEYS x DP
+  bf16* ring = v_s + KEYS * DP;                        // DKV_STAGES x SE
+
+  int rest;
+  const int i_row = cta_row(p.B * p.Hkv * p.slices * p.parts, &rest);
+  const int part = rest % p.parts;
+  rest /= p.parts;
+  const int slice = rest % p.slices;
+  rest /= p.slices;
+  const int hkv = rest % p.Hkv, b = rest / p.Hkv;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int s0, row;
+  if (!walk_begin<FLAT>(p, b, i_row, &s0, &row)) return;
+
+  // this slice's heads g0 .. g0 + ng - 1; units per visit: head x chunk
+  const int gps = (p.G + p.slices - 1) / p.slices;
+  const int g0 = slice * gps, ng = max(0, min(p.G, g0 + gps) - g0);
+  const int CH = p.bq / QC, n_units = ng * CH;
+  // this CTA's keys: [key0, key0 + KEYS) of kv block `row`
+  const long long key0 = (long long)row * p.bk + (long long)part * KEYS;
+  const long long k0 = ((long long)b * p.Hkv + hkv) * p.Tk + key0;
+  // this thread's two keys (fragment rows g and g + 8 of its warp)
+  const int g = lane >> 2, tq = lane & 3;
+  const long long kt = (long long)b * p.Tk + key0 + warp * 16 + g;
+  const int kd0 = p.kv_doc[kt], kp0 = p.kv_pos[kt];
+  const int kd1 = p.kv_doc[kt + 8], kp1 = p.kv_pos[kt + 8];
+
+  const bf16* qg = static_cast<const bf16*>(p.q);
+  const bf16* dog = static_cast<const bf16*>(p.dout);
+  const int vecs = D / 8;                    // 16-byte chunks per row
+  // copy unit c.kt (head g0 + kt / CH, chunk kt % CH) of visit c.col into
+  // ring slot `slot`
+  auto issue = [&](const Cursor& c, int slot) {
+    const int h = hkv * p.G + g0 + c.kt / CH;
+    const long long r0 = (long long)c.col * p.bq + (c.kt % CH) * QC;
+    const long long hr = ((long long)b * p.Hq + h) * p.Tq + r0;
+    const long long tok = (long long)b * p.Tq + r0;
+    bf16* qs = ring + slot * SE;
+    bf16* os = qs + QC * DP;
+    int* ms = reinterpret_cast<int*>(os + QC * DP);
+    for (int i = tid; i < QC * vecs; i += nthreads) {
+      const int r = i / vecs, col = (i - r * vecs) * 8;
+      cp_async16(qs + r * DP + col, qg + (hr + r) * D + col);
+      cp_async16(os + r * DP + col, dog + (hr + r) * D + col);
+    }
+    for (int i = tid; i < 4 * QC; i += nthreads) {
+      const int a = i / QC, r = i - a * QC;
+      const void* src = a == 0 ? static_cast<const void*>(p.q_doc + tok + r)
+                        : a == 1 ? static_cast<const void*>(p.q_pos + tok + r)
+                        : a == 2 ? static_cast<const void*>(p.lse + hr + r)
+                                 : static_cast<const void*>(p.delta + hr + r);
+      cp_async4(ms + i, src);
+    }
+  };
+
+  float dk[MAXN][4], dv[MAXN][4];
+#pragma unroll
+  for (int n = 0; n < MAXN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  Cursor ahead = walk_start<FLAT>(p, b, row, s0);
+  int issued = 0;
+  if (n_units > 0) {
+    // K and V of the CTA's keys join the first unit's commit group
+    const bf16* kg = static_cast<const bf16*>(p.k);
+    const bf16* vg = static_cast<const bf16*>(p.v);
+    for (int i = tid; i < KEYS * vecs; i += nthreads) {
+      const int r = i / vecs, col = (i - r * vecs) * 8;
+      cp_async16(k_s + r * DP + col, kg + (k0 + r) * D + col);
+      cp_async16(v_s + r * DP + col, vg + (k0 + r) * D + col);
+    }
+#pragma unroll
+    for (int s = 0; s < DKV_STAGES - 1; ++s) {
+      if (advance_by<FLAT>(p, b, row, s0, ahead, 1, n_units)) {
+        issue(ahead, s);
+        ++issued;
+      }
+      cp_async_commit();
+    }
+  }
+  const float c2 = p.scale * LOG2E;          // scale * log2(e)
+  const bf16* kw = k_s + warp * 16 * DP;     // this warp's keys
+  const bf16* vw = v_s + warp * 16 * DP;
+  for (int j = 0; j < issued; ++j) {
+    cp_async_wait<DKV_STAGES - 2>();   // unit j has landed (this thread's part)
+    __syncthreads();                   // ... everyone's; slot j - 1 is free
+    if (advance_by<FLAT>(p, b, row, s0, ahead, 1, n_units)) {
+      issue(ahead, (j + DKV_STAGES - 1) % DKV_STAGES);
+      ++issued;
+    }
+    cp_async_commit();
+    const bf16* qs = ring + (j % DKV_STAGES) * SE;
+    const bf16* os = qs + QC * DP;
+    const int* qd_s = reinterpret_cast<const int*>(os + QC * DP);
+    const int* qp_s = qd_s + QC;
+    const float* ls_s = reinterpret_cast<const float*>(qp_s + QC);
+    const float* dl_s = ls_s + QC;
+
+    // S^T = K Q^T and dP^T = V dO^T: n-tiles i, i + 1 of queries per
+    // ldmatrix.x4
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int i = 0; i < NT; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < MAXK; ++kk) {
+      if (kk < NK) {
+        unsigned kf[4], vf[4];
+        const int a_off = (lane & 15) * DP + kk * 16 + (lane >> 4) * 8;
+        ldsm_x4(kf, kw + a_off);
+        ldsm_x4(vf, vw + a_off);
+#pragma unroll
+        for (int i = 0; i < NT; i += 2) {
+          unsigned qf[4], of[4];
+          const int b_off = (8 * i + (lane & 7) + (lane >> 4) * 8) * DP +
+                            kk * 16 + ((lane >> 3) & 1) * 8;
+          ldsm_x4(qf, qs + b_off);
+          ldsm_x4(of, os + b_off);
+          mma_bf16(s[i], kf, qf[0], qf[1]);
+          mma_bf16(s[i + 1], kf, qf[2], qf[3]);
+          mma_bf16(dp[i], vf, of[0], of[1]);
+          mma_bf16(dp[i + 1], vf, of[2], of[3]);
+        }
+      }
+    }
+
+    // P = exp(S scale - lse_safe) where visible, dS = P (dP - delta) scale
+    // (keys g: [.][0..1], g + 8: [.][2..3]; queries 8 i + 2 tq, + 1), as
+    // bf16 A fragments of the dV and dK products
+    unsigned pf[KC][4], df[KC][4];
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      const int qr = 8 * i + 2 * tq;
+      const int2 qd = *reinterpret_cast<const int2*>(qd_s + qr);
+      const int2 qp = *reinterpret_cast<const int2*>(qp_s + qr);
+      const float2 ls = *reinterpret_cast<const float2*>(ls_s + qr);
+      const float2 dl = *reinterpret_cast<const float2*>(dl_s + qr);
+      const float l0 = isfinite(ls.x) ? ls.x * LOG2E : 0.f;
+      const float l1 = isfinite(ls.y) ? ls.y * LOG2E : 0.f;
+      const float p0 =
+          visible(qd.x, qp.x, kd0, kp0) ? ex2(fmaf(s[i][0], c2, -l0)) : 0.f;
+      const float p1 =
+          visible(qd.y, qp.y, kd0, kp0) ? ex2(fmaf(s[i][1], c2, -l1)) : 0.f;
+      const float p2 =
+          visible(qd.x, qp.x, kd1, kp1) ? ex2(fmaf(s[i][2], c2, -l0)) : 0.f;
+      const float p3 =
+          visible(qd.y, qp.y, kd1, kp1) ? ex2(fmaf(s[i][3], c2, -l1)) : 0.f;
+      pf[i / 2][(i & 1) * 2] = pack_bf16(p0, p1);
+      pf[i / 2][(i & 1) * 2 + 1] = pack_bf16(p2, p3);
+      df[i / 2][(i & 1) * 2] = pack_bf16(p0 * (dp[i][0] - dl.x) * p.scale,
+                                         p1 * (dp[i][1] - dl.y) * p.scale);
+      df[i / 2][(i & 1) * 2 + 1] =
+          pack_bf16(p2 * (dp[i][2] - dl.x) * p.scale,
+                    p3 * (dp[i][3] - dl.y) * p.scale);
+    }
+
+    // dV += P^T dO, dK += dS^T Q: dO^T and Q^T fragments by
+    // ldmatrix.trans, n-tiles n, n + 1 of D
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+#pragma unroll
+      for (int n = 0; n < MAXN; n += 2) {
+        if (n < ND) {
+          unsigned of[4], qf[4];
+          const int t_off =
+              (16 * kc + (lane & 7) + ((lane >> 3) & 1) * 8) * DP + 8 * n +
+              (lane >> 4) * 8;
+          ldsm_x4_t(of, os + t_off);
+          ldsm_x4_t(qf, qs + t_off);
+          mma_bf16(dv[n], pf[kc], of[0], of[1]);
+          mma_bf16(dv[n + 1], pf[kc], of[2], of[3]);
+          mma_bf16(dk[n], df[kc], qf[0], qf[1]);
+          mma_bf16(dk[n + 1], df[kc], qf[2], qf[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // rows k0 + warp * 16 + g and + 8 of (B, Hkv, Tk, D), columns 8 n + 2 tq
+  const long long r0 = k0 + warp * 16 + g;
+  if (p.slices == 1) {
+    bf16* dkg = static_cast<bf16*>(p.out0);
+    bf16* dvg = static_cast<bf16*>(p.out1);
+#pragma unroll
+    for (int n = 0; n < MAXN; ++n) {
+      if (n < ND) {
+        const long long o0 = r0 * D + 8 * n + 2 * tq, o1 = o0 + 8LL * D;
+        *reinterpret_cast<__nv_bfloat162*>(dkg + o0) =
+            __floats2bfloat162_rn(dk[n][0], dk[n][1]);
+        *reinterpret_cast<__nv_bfloat162*>(dkg + o1) =
+            __floats2bfloat162_rn(dk[n][2], dk[n][3]);
+        *reinterpret_cast<__nv_bfloat162*>(dvg + o0) =
+            __floats2bfloat162_rn(dv[n][0], dv[n][1]);
+        *reinterpret_cast<__nv_bfloat162*>(dvg + o1) =
+            __floats2bfloat162_rn(dv[n][2], dv[n][3]);
+      }
+    }
+  } else {
+    const long long N = (long long)p.B * p.Hkv * p.Tk * D;
+    float* wk = p.ws + slice * N;
+    float* wv = p.ws + (p.slices + slice) * N;
+#pragma unroll
+    for (int n = 0; n < MAXN; ++n) {
+      if (n < ND) {
+        const long long o0 = r0 * D + 8 * n + 2 * tq, o1 = o0 + 8LL * D;
+        *reinterpret_cast<float2*>(wk + o0) = make_float2(dk[n][0], dk[n][1]);
+        *reinterpret_cast<float2*>(wk + o1) = make_float2(dk[n][2], dk[n][3]);
+        *reinterpret_cast<float2*>(wv + o0) = make_float2(dv[n][0], dv[n][1]);
+        *reinterpret_cast<float2*>(wv + o1) = make_float2(dv[n][2], dv[n][3]);
+      }
+    }
+  }
+}
+
+// dK, dV in bf16 from the f32 slice partials of dkv_mma_kernel: the
+// slices summed in order, four elements per thread
+__global__ void __launch_bounds__(256)
+    dkv_sum_kernel(const float* ws, __nv_bfloat16* dk, __nv_bfloat16* dv,
+                   long long n4, int slices) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < 2 * n4; i += stride) {
+    const int which = i >= n4 ? 1 : 0;       // 0: dK, 1: dV
+    const long long e = i - which * n4;
+    const float4* src =
+        reinterpret_cast<const float4*>(ws) + which * slices * n4 + e;
+    float4 a = src[0];
+    for (int s = 1; s < slices; ++s) {
+      const float4 x = src[s * n4];
+      a.x += x.x;
+      a.y += x.y;
+      a.z += x.z;
+      a.w += x.w;
+    }
+    __nv_bfloat162* dst =
+        reinterpret_cast<__nv_bfloat162*>(which ? dv : dk) + 2 * e;
+    dst[0] = __floats2bfloat162_rn(a.x, a.y);
+    dst[1] = __floats2bfloat162_rn(a.z, a.w);
+  }
+}
+
 // shared-memory bytes of one CTA; kind 0 = fwd, 1 = dq, 2 = dkv
 long long smem_bytes(int kind, int bq, int D) {
   const long long DP = D + 4;
@@ -1056,17 +1377,11 @@ Params make_params(const void* q, const void* k, const void* v,
   p.B = B; p.Hq = Hq; p.Hkv = Hkv; p.G = Hkv > 0 ? Hq / Hkv : 0;
   p.Tq = Tq; p.Tk = Tk; p.D = D; p.bq = bq; p.bk = bk;
   p.R = rows; p.W = width; p.scale = scale;
+  p.parts = 1; p.slices = 1; p.ws = nullptr;
   return p;
 }
 
 using Kernel = void (*)(Params);
-
-// the backward kernel of one entry for (dtype, grid)
-template <typename T>
-Kernel pick_bwd(int kind, int flat) {
-  if (kind == 1) return flat ? dq_kernel<T, true> : dq_kernel<T, false>;
-  return flat ? dkv_kernel<T, true> : dkv_kernel<T, false>;
-}
 
 // the bf16 forward: 64-key sub-tiles where block_k allows, else 32
 int launch_fwd_mma(const Params& p, long long blocks, int flat,
@@ -1080,18 +1395,47 @@ int launch_fwd_mma(const Params& p, long long blocks, int flat,
                 (size_t)mma_smem_bytes(p.bq, p.D, k64 ? 64 : 32), s);
 }
 
-// f32 forward: fwd_kernel; bf16 forward: fwd_mma_kernel; backward:
-// dq_kernel / dkv_kernel in either dtype
+// the bf16 dK, dV: 32-row units where block_q allows, else 16; then, with
+// more than one group slice, the slice sum
+int launch_dkv_mma(const Params& p, int flat, cudaStream_t s) {
+  if (p.D % 16 || p.D > MMA_MAX_D || p.parts <= 0 ||
+      p.bk % (16 * p.parts) || p.slices <= 0 ||
+      (p.slices > 1 && p.ws == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int keys = p.bk / p.parts;
+  const bool q32 = p.bq % 32 == 0;
+  Kernel k = q32 ? (flat ? dkv_mma_kernel<true, 32> : dkv_mma_kernel<false, 32>)
+                 : (flat ? dkv_mma_kernel<true, 16> : dkv_mma_kernel<false, 16>);
+  const long long blocks = (long long)p.R * p.B * p.Hkv * p.slices * p.parts;
+  const int e = launch(k, p, blocks, 2 * keys,
+                       (size_t)dkv_mma_smem_bytes(keys, p.D, q32 ? 32 : 16),
+                       s);
+  if (e != 0 || p.slices == 1) return e;
+  const long long n4 = (long long)p.B * p.Hkv * p.Tk * p.D / 4;
+  const long long grid = std::min<long long>((2 * n4 + 255) / 256, 132 * 8);
+  if (grid > 0)
+    dkv_sum_kernel<<<(unsigned)grid, 256, 0, s>>>(
+        p.ws, static_cast<__nv_bfloat16*>(p.out0),
+        static_cast<__nv_bfloat16*>(p.out1), n4, p.slices);
+  return (int)cudaGetLastError();
+}
+
+// f32: fwd_kernel, dq_kernel, dkv_kernel (the scalar parity references);
+// bf16: fwd_mma_kernel, dq_kernel, dkv_mma_kernel
 int dispatch(const Params& p, int kind, long long blocks, int flat, int dtype,
              cudaStream_t s) {
   if (kind == 0 && dtype == 1) return launch_fwd_mma(p, blocks, flat, s);
+  if (kind == 2 && dtype == 1) return launch_dkv_mma(p, flat, s);
   Kernel k = nullptr;
   if (kind == 0 && dtype == 0)
     k = flat ? fwd_kernel<float, true> : fwd_kernel<float, false>;
-  else if (kind != 0 && dtype == 0)
-    k = pick_bwd<float>(kind, flat);
-  else if (kind != 0 && dtype == 1)
-    k = pick_bwd<__nv_bfloat16>(kind, flat);
+  else if (kind == 1 && dtype == 0)
+    k = flat ? dq_kernel<float, true> : dq_kernel<float, false>;
+  else if (kind == 1 && dtype == 1)
+    k = flat ? dq_kernel<__nv_bfloat16, true>
+             : dq_kernel<__nv_bfloat16, false>;
+  else if (kind == 2 && dtype == 0)
+    k = flat ? dkv_kernel<float, true> : dkv_kernel<float, false>;
   if (k == nullptr) return (int)cudaErrorInvalidValue;
   return launch(k, p, blocks, THREADS, (size_t)smem_bytes(kind, p.bq, p.D),
                 s);
@@ -1136,9 +1480,15 @@ int doc_attn_dq(DOC_ATTN_ARGS) {
                          static_cast<cudaStream_t>(stream));
 }
 
-int doc_attn_dkv(DOC_ATTN_ARGS) {
+// parts, slices, ws: the bf16 kernel's key parts per block row, group
+// slices and f32 slice workspace (2, slices, B, Hkv, Tk, D); the f32
+// kernel ignores them
+int doc_attn_dkv(DOC_ATTN_ARGS, int parts, int slices, float* ws) {
   if (!shapes_ok(Hq, Hkv, D, bq, bk)) return (int)cudaErrorInvalidValue;
-  const Params p = DOC_ATTN_PARAMS;
+  Params p = DOC_ATTN_PARAMS;
+  p.parts = parts;
+  p.slices = slices;
+  p.ws = ws;
   return dispatch(p, 2, (long long)rows * B * Hkv * (bk / KT), flat,
                           dtype, static_cast<cudaStream_t>(stream));
 }

@@ -2,64 +2,64 @@
 // against a long KV cache, dense per-slot stripes or a paged block pool.
 //
 // Replaces the Pallas TPU kernels of the JAX package:
-//   * decode_kernel<T, false, PARTIAL>  <- src/repro/kernels/flash_decode.py
-//     ::flash_decode (_decode_kernel over _decode_body), both output modes
-//     (its PAGED = true instantiation, the first paged design, is no longer
-//     launched);
-//   * decode_split_kernel<T> + decode_combine_kernel<T>
+//   * decode_split_kernel<T, true> + decode_combine_kernel<T, PARTIAL>
+//                                <- src/repro/kernels/flash_decode.py
+//     ::flash_decode (_decode_kernel over _decode_body), both output modes;
+//   * decode_split_kernel<T, false> + decode_combine_kernel<T, false>
 //                                <- src/repro/kernels/flash_decode.py
 //     ::flash_decode_paged (_decode_kernel_paged over _decode_body).
 //
 // Bound on this card: device-memory bytes.  Each request reads only its
 // visible K/V, (length + 1) * Hkv * D * 2 * sizeof(T) bytes, plus q and the
 // output; the arithmetic is 4 * Hq * D flops per visible position (about
-// 12 flops per byte at G = 12), far below the ridge point.  Both designs
-// read every visible K/V element once per KV head (a block covers all
-// G = Hq / Hkv query heads of one KV head, as the TPU grid cell does) and
-// never touch a tile past the request's length (the TPU index map's
-// past-the-end clamp becomes the loop bound).  What a byte-bound kernel
-// lacks at a serving batch is blocks and loads in flight:
+// 12 flops per byte at G = 12), far below the ridge point.  A block covers
+// all G = Hq / Hkv query heads of one KV head, as the TPU grid cell does,
+// so every visible K/V element is read once, and no tile past the
+// request's length is touched (the TPU index map's past-the-end clamp
+// becomes the loop bound).  What a byte-bound kernel lacks at a serving
+// batch is blocks and loads in flight, so both layouts run one design,
+// split-KV flash decoding, and differ only in how a tile is found:
 //
-//   * dense (decode_kernel): one block per (b, hkv) walks the whole stripe;
-//     each tile is staged in shared memory as f32 with 16-byte loads, all of
-//     a thread's loads for the tile in flight together, and is not
-//     prefetched.  At B 6, Hkv 2 only 12 of 132 SMs work.
-//   * paged (split-KV flash decoding): decode_split_kernel runs one block
-//     per (b, hkv, split), each over `pages_per_split` consecutive logical
-//     pages, so a batch of 6 fills the card with ~400 blocks (the wrapper
-//     picks the split from B, Hkv, the table width and the SM count, never
-//     from `lengths`: no host sync).  Pages stream through a 3-stage
-//     cp.async ring in T (no f32 staging): the copies of the next two pages
-//     and the table lookup of the one after are in flight while one page
-//     is computed.  Inside a
-//     page, a group of lanes owns one head (the lanes cover the positions,
-//     so a head's max and sum are shuffles, and any G tiles over the warps);
-//     in P V a thread owns a column pair of every HG-th head and carries
-//     up to 8 heads through the page in registers, so each V element read
-//     from shared memory feeds 8 independent FMA chains.  Two barriers per
-//     page separate the scores from the P V sums.  Each split
-//     writes an f32 partial (o, m, l) to a workspace; decode_combine_kernel
-//     merges the live splits of each (b, hkv, head) with the online-LSE
-//     rule of core/merge.py (one block per head: the split weights in
-//     shared memory, then one column per thread) and writes the normalized
-//     output in T.
+//   * decode_split_kernel runs one block per (b, hkv, split), each over
+//     `pages_per_split` consecutive tiles of `tile` positions, so a batch
+//     of 6 fills the card with ~400 blocks (the wrapper picks the split
+//     from B, Hkv, the cache or table width and the SM count, never from
+//     `lengths`: no host sync).  Dense: tile kb of (b, h) starts at
+//     k + b * stride_kb + h * stride_kh + kb * tile * D, its rows
+//     contiguous, the last tile ragged when tile does not divide S.
+//     Paged: logical page kb is pool block tables[b, kb], whose entry is
+//     loaded one page ahead so that no iteration waits on it.  Tiles
+//     stream through a 3-stage cp.async ring in T (no f32 staging): the
+//     copies of the next two tiles are in flight while one is computed.
+//     Inside a tile, a group of lanes owns one head (the lanes cover the
+//     positions, so a head's max and sum are shuffles, and any G tiles
+//     over the warps); in P V a thread owns a column pair of every HG-th
+//     head and carries up to 8 heads through the tile in registers, so
+//     each V element read from shared memory feeds 8 independent FMA
+//     chains.  Two barriers per tile separate the scores from the P V
+//     sums.  Each split writes an f32 partial (o, m, l) to a workspace.
+//   * decode_combine_kernel merges the live splits of each (b, hkv, head)
+//     with the online-LSE rule of core/merge.py (one block per head: the
+//     split weights in shared memory, then one column per thread): m is
+//     the largest m_s, o and l the sums of o_s and l_s weighted by
+//     exp(m_s - m).  It writes the normalized output o / l in T, or, in
+//     partial mode, the merged f32 (o, m, l).
 //
 // Semantics (identical to the TPU kernel):
 //   * lengths are inclusive: position t is visible iff t <= length;
 //   * a negative length visits nothing: the normalized output is 0 and the
-//     partial is the merge identity (o = 0, m = -1e30, l = 0);
+//     partial is exactly the merge identity (o = 0, m = -1e30, l = 0);
 //   * online softmax in f32 with m initialised to -1e30 (not -inf), scale
 //     applied to the f32 dot product;
 //   * p is rounded to V's dtype before the PV product while l sums the
 //     unrounded p, as the Pallas body does (p.astype(v.dtype));
-//   * paged: logical page kb lives at pool rows tables[b, kb] * block_size;
-//     table slots past the request's length are never read.  A split that
-//     starts past the length exits at once and writes nothing, and the
-//     combine kernel reads only splits s with s * pages_per_split <= the
-//     last live page, so it never reads an unwritten partial.
+//   * paged: table slots past the request's length are never read.  A
+//     split that starts past the length exits at once and writes nothing,
+//     and the combine kernel reads only splits s with s * pages_per_split
+//     <= the last live tile, so it never reads an unwritten partial.
 //
 // Plain C interface for ctypes; each entry returns cudaGetLastError() right
-// after its launch.
+// after its launches.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,13 +67,10 @@
 namespace {
 
 constexpr float NEG = -1e30f;
-constexpr int THREADS = 128;
-constexpr int WARPS = THREADS / 32;
 constexpr int STATIC_SMEM_LIMIT = 48 * 1024;
-constexpr int UNROLL = 4;   // 16-byte loads in flight per thread per tile
-constexpr int STAGES = 3;   // pages in the split kernel's cp.async ring
+constexpr int STAGES = 3;   // tiles in the split kernel's cp.async ring
 constexpr int SPLIT_THREADS = 256;
-constexpr int PV_HEADS = 8;  // heads a thread carries through a page's P V
+constexpr int PV_HEADS = 8;  // heads a thread carries through a tile's P V
 constexpr int COMBINE_THREADS = 128;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -90,222 +87,34 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-struct Params {
+struct SplitParams {
   const void* q;          // (B, Hkv, G, D) contiguous
-  const void* k;          // dense: (B, Hkv, S, D) rows contiguous; paged: (Hkv, pool_tokens, D)
-  const void* v;
+  const void* k;          // dense: (B, Hkv, S, D) rows contiguous;
+  const void* v;          // paged: (Hkv, pool_tokens, D)
   const int* lengths;     // (B,)
   const int* tables;      // paged: (B, nk)
   void* out;              // (B, Hkv, G, D): T, or f32 in partial mode
   float* out_m;           // partial: (B, Hkv, G)
   float* out_l;
+  float* part_o;          // (B, Hkv, n_split, G, D)
+  float* part_m;          // (B, Hkv, n_split, G)
+  float* part_l;
   int Hkv, G, D;
-  int S;                  // dense: cache positions per (b, h)
-  int tile;               // positions per KV tile (paged: block_size)
+  int tile;               // positions per tile (paged: block_size)
   int nk;                 // tiles per request (paged: table width)
+  int S;                  // dense: cache positions per (b, h)
+  int pps, n_split;       // tiles per split, splits per (b, hkv)
+  int lanes;              // lanes per head: pow2 >= min(tile, 32)
   long long stride_kb, stride_kh, stride_vb, stride_vh;   // dense, elements
   long long pool_tokens;  // paged: num_blocks * block_size
   float scale;
 };
 
-// shared-memory floats for one block; rows padded to D + 1 so that threads
-// reading the same column of different rows hit different banks
-__host__ __device__ inline long long smem_floats(int G, int D, int tile) {
-  const long long DP = D + 1;
-  return G * DP + 2LL * tile * DP + (long long)G * tile + (long long)G * D +
-         3LL * G;
+// the last tile holding a visible position of a request of length `len`
+// (-1: none)
+__device__ __forceinline__ int last_tile(const SplitParams& p, int len) {
+  return len < 0 ? -1 : min(len / p.tile, p.nk - 1);
 }
-
-// Stage rows [0, n) of a K tile and a V tile (n * D contiguous elements
-// each, 16-byte aligned, D a multiple of 16 / sizeof(T)) into shared memory
-// as f32.  Each thread issues up to UNROLL 16-byte loads of K and of V
-// before it converts and stores any, so a tile costs about one memory
-// latency instead of one per element.
-template <typename T>
-__device__ __forceinline__ void stage_tile(const T* __restrict__ kt,
-                                           const T* __restrict__ vt,
-                                           float* k_s, float* v_s, int n,
-                                           int D, int DP, int tid) {
-  constexpr int VEC = 16 / sizeof(T);
-  const int nvec = n * D / VEC;
-  const uint4* k4 = reinterpret_cast<const uint4*>(kt);
-  const uint4* v4 = reinterpret_cast<const uint4*>(vt);
-  for (int base = 0; base < nvec; base += THREADS * UNROLL) {
-    uint4 kr[UNROLL], vr[UNROLL];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int c = base + u * THREADS + tid;
-      if (c < nvec) {
-        kr[u] = __ldg(k4 + c);
-        vr[u] = __ldg(v4 + c);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int c = base + u * THREADS + tid;
-      if (c < nvec) {
-        const int e = c * VEC, r = e / D, col = e - r * D;
-        const T* ke = reinterpret_cast<const T*>(&kr[u]);
-        const T* ve = reinterpret_cast<const T*>(&vr[u]);
-#pragma unroll
-        for (int j = 0; j < VEC; ++j) {
-          k_s[r * DP + col + j] = to_f(ke[j]);
-          v_s[r * DP + col + j] = to_f(ve[j]);
-        }
-      }
-    }
-  }
-}
-
-template <typename T, bool PAGED, bool PARTIAL>
-__global__ void __launch_bounds__(THREADS) decode_kernel(Params p) {
-  extern __shared__ float smem[];
-  const int G = p.G, D = p.D, TILE = p.tile, DP = D + 1;
-  float* q_s = smem;               // G x DP
-  float* k_s = q_s + G * DP;       // TILE x DP
-  float* v_s = k_s + TILE * DP;    // TILE x DP
-  float* p_s = v_s + TILE * DP;    // G x TILE: scores, then probabilities
-  float* acc = p_s + G * TILE;     // G x D
-  float* m_s = acc + G * D;        // G
-  float* l_s = m_s + G;            // G
-  float* a_s = l_s + G;            // G: this tile's rescale factor
-
-  const int b = blockIdx.x / p.Hkv;
-  const int h = blockIdx.x - b * p.Hkv;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int len = p.lengths[b];
-  const long long row0 = ((long long)b * p.Hkv + h) * G;   // first (b, h, g) row
-
-  const T* qg = static_cast<const T*>(p.q) + row0 * D;
-  for (int i = tid; i < G * D; i += THREADS) {
-    const int g = i / D;
-    q_s[g * DP + (i - g * D)] = to_f(qg[i]);
-    acc[i] = 0.f;
-  }
-  for (int g = tid; g < G; g += THREADS) {
-    m_s[g] = NEG;
-    l_s[g] = 0.f;
-  }
-  // the past-the-end clamp: tiles after the one holding `len` are never read
-  const int last = len < 0 ? -1 : min(len / TILE, p.nk - 1);
-  __syncthreads();
-
-  for (int kb = 0; kb <= last; ++kb) {
-    const T* kt;
-    const T* vt;
-    int n;  // visible positions in this tile
-    if (PAGED) {
-      const long long blk = p.tables[(long long)b * p.nk + kb];
-      const long long r = (long long)h * p.pool_tokens + blk * TILE;
-      kt = static_cast<const T*>(p.k) + r * D;
-      vt = static_cast<const T*>(p.v) + r * D;
-      n = min(TILE, len + 1 - kb * TILE);
-    } else {
-      const long long r = (long long)kb * TILE * D;
-      kt = static_cast<const T*>(p.k) + b * p.stride_kb + h * p.stride_kh + r;
-      vt = static_cast<const T*>(p.v) + b * p.stride_vb + h * p.stride_vh + r;
-      n = min(min(TILE, len + 1 - kb * TILE), p.S - kb * TILE);
-    }
-    stage_tile(kt, vt, k_s, v_s, n, D, DP, tid);
-    __syncthreads();
-
-    // scores: one (g, t) dot product per thread
-    for (int i = tid; i < G * n; i += THREADS) {
-      const int g = i / n, t = i - g * n;
-      const float* qr = q_s + g * DP;
-      const float* kr = k_s + t * DP;
-      float s = 0.f;
-      for (int d = 0; d < D; ++d) s = fmaf(qr[d], kr[d], s);
-      p_s[g * TILE + t] = s * p.scale;
-    }
-    __syncthreads();
-
-    // online softmax: one warp per query head
-    for (int g = warp; g < G; g += WARPS) {
-      float* pr = p_s + g * TILE;
-      float mx = NEG;
-      for (int t = lane; t < n; t += 32) mx = fmaxf(mx, pr[t]);
-      for (int o = 16; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_prev = m_s[g];
-      const float l_prev = l_s[g];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int t = lane; t < n; t += 32) {
-        const float e = expf(pr[t] - m_new);
-        sum += e;
-        pr[t] = to_f(from_f<T>(e));   // PV takes p in V's dtype
-      }
-      for (int o = 16; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        a_s[g] = alpha;
-        m_s[g] = m_new;
-        l_s[g] = l_prev * alpha + sum;
-      }
-    }
-    __syncthreads();
-
-    // rescale the accumulator and add this tile's P V
-    for (int i = tid; i < G * D; i += THREADS) {
-      const int g = i / D, d = i - g * D;
-      const float* pr = p_s + g * TILE;
-      float a = acc[i] * a_s[g];
-      for (int t = 0; t < n; ++t) a = fmaf(pr[t], v_s[t * DP + d], a);
-      acc[i] = a;
-    }
-    __syncthreads();
-  }
-
-  if (PARTIAL) {
-    float* o = static_cast<float*>(p.out) + row0 * D;
-    for (int i = tid; i < G * D; i += THREADS) o[i] = acc[i];
-    for (int g = tid; g < G; g += THREADS) {
-      p.out_m[row0 + g] = m_s[g];
-      p.out_l[row0 + g] = l_s[g];
-    }
-  } else {
-    T* o = static_cast<T*>(p.out) + row0 * D;
-    for (int i = tid; i < G * D; i += THREADS) {
-      const float l = l_s[i / D];
-      o[i] = from_f<T>(l > 0.f ? acc[i] / fmaxf(l, 1e-30f) : 0.f);
-    }
-  }
-}
-
-template <typename T, bool PAGED, bool PARTIAL>
-int launch(const Params& p, int B, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats(p.G, p.D, p.tile);
-  auto kernel = decode_kernel<T, PAGED, PARTIAL>;
-  if (smem > STATIC_SMEM_LIMIT) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  if (B * p.Hkv > 0) kernel<<<B * p.Hkv, THREADS, smem, stream>>>(p);
-  return (int)cudaGetLastError();
-}
-
-// ------------------------------------------------------------------------
-// paged: split-KV flash decoding
-// ------------------------------------------------------------------------
-struct SplitParams {
-  const void* q;          // (B, Hkv, G, D) contiguous
-  const void* k;          // (Hkv, pool_tokens, D)
-  const void* v;
-  const int* lengths;     // (B,)
-  const int* tables;      // (B, nk)
-  void* out;              // (B, Hkv, G, D) in T
-  float* part_o;          // (B, Hkv, n_split, G, D)
-  float* part_m;          // (B, Hkv, n_split, G)
-  float* part_l;
-  int Hkv, G, D, bs, nk;
-  int pps, n_split;       // pages per split, splits per (b, hkv)
-  int lanes;              // lanes per head: pow2 >= min(bs, 32)
-  long long pool_tokens;
-  float scale;
-};
 
 // K/V ring rows are padded by 16 bytes: a group of 8 lanes reading one
 // 16-byte column of 8 consecutive rows hits 8 distinct 4-bank groups
@@ -315,12 +124,12 @@ __host__ __device__ inline int ring_pitch(int D) {
 }
 
 // bytes of shared memory of one split block: the K/V ring in T, then f32
-// q (G x D), accumulator (G x D), probabilities (G x bs), m, l and the
-// page's rescale factor (G each)
+// q (G x D), accumulator (G x D), probabilities (G x tile), m, l and the
+// tile's rescale factor (G each)
 template <typename T>
-__host__ __device__ inline long long split_smem_bytes(int G, int D, int bs) {
-  return (long long)sizeof(T) * STAGES * 2 * bs * ring_pitch<T>(D) +
-         4LL * (2LL * G * D + (long long)G * bs + 3LL * G);
+__host__ __device__ inline long long split_smem_bytes(int G, int D, int tile) {
+  return (long long)sizeof(T) * STAGES * 2 * tile * ring_pitch<T>(D) +
+         4LL * (2LL * G * D + (long long)G * tile + 3LL * G);
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -366,44 +175,55 @@ __device__ __forceinline__ float2 ld2(const __nv_bfloat16* x) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x));
 }
 
-// Block = (b, hkv, split): the online softmax over logical pages
+// Block = (b, hkv, split): the online softmax over tiles
 // [split * pps, min((split + 1) * pps, last + 1)) for all G heads, written
-// as an f32 partial.
-template <typename T>
+// as an f32 partial.  DENSE: tiles of the (b, h) stripe; else logical
+// pages of the pool through the block table.
+template <typename T, bool DENSE>
 __global__ void __launch_bounds__(SPLIT_THREADS)
     decode_split_kernel(SplitParams p) {
   constexpr int SW = SPLIT_THREADS / 32;   // warps
   extern __shared__ float4 smem4[];
-  const int G = p.G, D = p.D, BS = p.bs, DP = ring_pitch<T>(D);
+  const int G = p.G, D = p.D, BS = p.tile, DP = ring_pitch<T>(D);
   T* ring = reinterpret_cast<T*>(smem4);                 // STAGES x {K, V}
   float* q_s = reinterpret_cast<float*>(ring + STAGES * 2 * BS * DP);
   float* acc = q_s + G * D;        // G x D
   float* p_s = acc + G * D;        // G x BS: probabilities in V's dtype
   float* m_s = p_s + G * BS;       // G
   float* l_s = m_s + G;            // G
-  float* a_s = l_s + G;            // G: this page's rescale factor
+  float* a_s = l_s + G;            // G: this tile's rescale factor
 
   const int split = blockIdx.x % p.n_split;
   const int bh = blockIdx.x / p.n_split;
   const int b = bh / p.Hkv, h = bh - b * p.Hkv;
   const int len = p.lengths[b];
-  // the past-the-end clamp: pages after the one holding `len` are never read
-  const int last = len < 0 ? -1 : min(len / BS, p.nk - 1);
+  // the past-the-end clamp: tiles after the one holding `len` are never read
+  const int last = last_tile(p, len);
   const int kb0 = split * p.pps;
   if (kb0 > last) return;                  // the combine never reads it
   const int kb1 = min(kb0 + p.pps, last + 1);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // visible positions of tile kb (the dense stripe's last tile is ragged)
+  auto rows = [&](int kb) {
+    const int n = min(BS, len + 1 - kb * BS);
+    return DENSE ? min(n, p.S - kb * BS) : n;
+  };
 
   constexpr int VEC = 16 / sizeof(T);
   const int row_vecs = D / VEC;
   const T* kg = static_cast<const T*>(p.k);
   const T* vg = static_cast<const T*>(p.v);
-  const int* tab = p.tables + (long long)b * p.nk;
-  // issue the copy of page kb (pool block blk)'s visible rows into ring
-  // slot `slot`
+  if (DENSE) {
+    kg += b * p.stride_kb + h * p.stride_kh;
+    vg += b * p.stride_vb + h * p.stride_vh;
+  }
+  const int* tab = DENSE ? nullptr : p.tables + (long long)b * p.nk;
+  // issue the copy of tile kb's visible rows (paged: pool block blk) into
+  // ring slot `slot`
   auto issue = [&](int kb, long long blk, int slot) {
-    const long long r0 = (long long)h * p.pool_tokens + blk * BS;
-    const int n = min(BS, len + 1 - kb * BS);
+    const long long r0 =
+        DENSE ? (long long)kb * BS : (long long)h * p.pool_tokens + blk * BS;
+    const int n = rows(kb);
     T* ks = ring + slot * 2 * BS * DP;
     T* vs = ks + BS * DP;
     for (int c = tid; c < n * row_vecs; c += SPLIT_THREADS) {
@@ -412,15 +232,17 @@ __global__ void __launch_bounds__(SPLIT_THREADS)
       cp_async16(vs + r * DP + col, vg + (r0 + r) * D + col);
     }
   };
-  // the first STAGES - 1 pages in flight before anything else
+  // the page table entry of tile kb (dense: unused)
+  auto entry = [&](int kb) { return DENSE ? 0 : tab[kb]; };
+  // the first STAGES - 1 tiles in flight before anything else
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
-    if (kb0 + s < kb1) issue(kb0 + s, tab[kb0 + s], s);
+    if (kb0 + s < kb1) issue(kb0 + s, entry(kb0 + s), s);
     cp_async_commit();
   }
-  // the table entry of the page to issue next, loaded one page ahead so
-  // that no iteration waits on it
-  int blk_next = kb0 + STAGES - 1 < kb1 ? tab[kb0 + STAGES - 1] : 0;
+  // paged: the table entry of the tile to issue next, loaded one tile
+  // ahead so that no iteration waits on it
+  int blk_next = kb0 + STAGES - 1 < kb1 ? entry(kb0 + STAGES - 1) : 0;
 
   const long long row0 = ((long long)b * p.Hkv + h) * G;  // first (b, h, g)
   const T* qg = static_cast<const T*>(p.q) + row0 * D;
@@ -442,16 +264,16 @@ __global__ void __launch_bounds__(SPLIT_THREADS)
   const int hg = tid / CP, c2 = 2 * (tid - hg * CP);
   for (int kb = kb0; kb < kb1; ++kb) {
     const int j = kb - kb0;
-    cp_async_wait<STAGES - 2>();   // page kb has landed (this thread's part)
+    cp_async_wait<STAGES - 2>();   // tile kb has landed (this thread's part)
     __syncthreads();               // ... everyone's; slot (j - 1) is free
     if (kb + STAGES - 1 < kb1)
       issue(kb + STAGES - 1, blk_next, (j + STAGES - 1) % STAGES);
     cp_async_commit();
-    if (kb + STAGES < kb1) blk_next = tab[kb + STAGES];
+    if (kb + STAGES < kb1) blk_next = entry(kb + STAGES);
 
     const T* ks = ring + (j % STAGES) * 2 * BS * DP;
     const T* vs = ks + BS * DP;
-    const int n = min(BS, len + 1 - kb * BS);   // visible positions
+    const int n = rows(kb);        // visible positions
 
     for (int g0 = warp * HPW; g0 < G; g0 += SW * HPW) {
       const int g = g0 + hsub;
@@ -488,7 +310,7 @@ __global__ void __launch_bounds__(SPLIT_THREADS)
     }
     __syncthreads();
 
-    // rescale the accumulator and add this page's P V
+    // rescale the accumulator and add this tile's P V
     if (hg < HG) {
       for (int h0 = hg; h0 < G; h0 += HG * PV_HEADS) {
         float2 a[PV_HEADS];
@@ -553,17 +375,18 @@ __device__ __forceinline__ float block_reduce(float x, float* red) {
 
 // Block = (b, hkv, g): merge the live splits' partials of one head with
 // the algebra of core/merge.py (the global max, each split's weight
-// exp(m_s - max), then the weighted sums) and normalize.  A request with a
-// negative length has no live split and gets exactly 0.
-template <typename T>
+// exp(m_s - max), then the weighted sums).  Normalized: o / l in T, 0
+// where l = 0.  PARTIAL: the merged f32 (o, m, l).  A request with a
+// negative length has no live split and gets exactly 0, or exactly
+// (0, -1e30, 0).
+template <typename T, bool PARTIAL>
 __global__ void __launch_bounds__(COMBINE_THREADS)
     decode_combine_kernel(SplitParams p) {
   extern __shared__ float w_s[];         // n_split weights
   __shared__ float red[COMBINE_THREADS / 32];
   const int G = p.G, D = p.D, tid = threadIdx.x;
   const int bh = blockIdx.x / G, g = blockIdx.x - bh * G, b = bh / p.Hkv;
-  const int len = p.lengths[b];
-  const int last = len < 0 ? -1 : min(len / p.bs, p.nk - 1);
+  const int last = last_tile(p, p.lengths[b]);
   const int live = last < 0 ? 0 : last / p.pps + 1;
   const long long r0 = (long long)bh * p.n_split * G + g;   // split 0's row
   float mx = NEG;
@@ -579,20 +402,28 @@ __global__ void __launch_bounds__(COMBINE_THREADS)
   }
   l = block_reduce<false>(l, red);       // its barriers publish w_s too
   const float* po = p.part_o + r0 * D;
-  T* out = static_cast<T*>(p.out) + ((long long)bh * G + g) * D;
+  const long long orow = (long long)bh * G + g;
   for (int d = tid; d < D; d += COMBINE_THREADS) {
     float o = 0.f;
 #pragma unroll 4
     for (int s = 0; s < live; ++s)
       o = fmaf(po[(long long)s * G * D + d], w_s[s], o);
-    out[d] = from_f<T>(l > 0.f ? o / fmaxf(l, 1e-30f) : 0.f);
+    if (PARTIAL)
+      static_cast<float*>(p.out)[orow * D + d] = o;
+    else
+      static_cast<T*>(p.out)[orow * D + d] =
+          from_f<T>(l > 0.f ? o / fmaxf(l, 1e-30f) : 0.f);
+  }
+  if (PARTIAL && tid == 0) {
+    p.out_m[orow] = mx;
+    p.out_l[orow] = l;
   }
 }
 
-template <typename T>
-int launch_paged(const SplitParams& p, int B, cudaStream_t stream) {
-  const size_t smem = (size_t)split_smem_bytes<T>(p.G, p.D, p.bs);
-  auto split = decode_split_kernel<T>;
+template <typename T, bool DENSE, bool PARTIAL>
+int launch_split(const SplitParams& p, int B, cudaStream_t stream) {
+  const size_t smem = (size_t)split_smem_bytes<T>(p.G, p.D, p.tile);
+  auto split = decode_split_kernel<T, DENSE>;
   if (smem > STATIC_SMEM_LIMIT) {
     cudaError_t e = cudaFuncSetAttribute(
         split, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -604,7 +435,7 @@ int launch_paged(const SplitParams& p, int B, cudaStream_t stream) {
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const size_t wsmem = sizeof(float) * p.n_split;
-  auto combine = decode_combine_kernel<T>;
+  auto combine = decode_combine_kernel<T, PARTIAL>;
   if (wsmem > STATIC_SMEM_LIMIT) {
     e = cudaFuncSetAttribute(combine,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -615,32 +446,53 @@ int launch_paged(const SplitParams& p, int B, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// what both entries refuse: a split plan that misses a tile, or a head dim
+// the P V layout cannot cover
+bool split_ok(int nk, int D, int pps, int n_split) {
+  return pps > 0 && n_split * pps >= nk && D <= 2 * SPLIT_THREADS &&
+         D % 2 == 0;
+}
+
+int lanes_for(int tile) {
+  int lanes = 1;
+  while (lanes < 32 && lanes < tile) lanes *= 2;
+  return lanes;
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16
+// dtype: 0 = float32, 1 = bfloat16.  part_o / part_m / part_l: the f32
+// workspace, (B, Hkv, n_split, G[, D]).  partial: out is f32 (B, Hkv, G, D)
+// and out_m / out_l (B, Hkv, G) are written; else out is in T.
 int flash_decode_dense(const void* q, const void* k, const void* v,
                        const int* lengths, void* out, float* out_m,
-                       float* out_l, int B, int Hkv, int G, int S, int D,
+                       float* out_l, float* part_o, float* part_m,
+                       float* part_l, int B, int Hkv, int G, int S, int D,
                        int tile, long long stride_kb, long long stride_kh,
-                       long long stride_vb, long long stride_vh, float scale,
+                       long long stride_vb, long long stride_vh,
+                       int pages_per_split, int n_split, float scale,
                        int dtype, int partial, void* stream) {
-  Params p{};
+  const int nk = tile > 0 ? (S + tile - 1) / tile : 0;
+  if (tile <= 0 || !split_ok(nk, D, pages_per_split, n_split))
+    return (int)cudaErrorInvalidValue;
+  SplitParams p{};
   p.q = q; p.k = k; p.v = v; p.lengths = lengths; p.tables = nullptr;
   p.out = out; p.out_m = out_m; p.out_l = out_l;
-  p.Hkv = Hkv; p.G = G; p.D = D; p.S = S; p.tile = tile;
-  p.nk = (S + tile - 1) / tile;
+  p.part_o = part_o; p.part_m = part_m; p.part_l = part_l;
+  p.Hkv = Hkv; p.G = G; p.D = D; p.tile = tile; p.nk = nk; p.S = S;
+  p.pps = pages_per_split; p.n_split = n_split; p.lanes = lanes_for(tile);
   p.stride_kb = stride_kb; p.stride_kh = stride_kh;
   p.stride_vb = stride_vb; p.stride_vh = stride_vh;
   p.pool_tokens = 0; p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return partial ? launch<float, false, true>(p, B, s)
-                   : launch<float, false, false>(p, B, s);
+    return partial ? launch_split<float, true, true>(p, B, s)
+                   : launch_split<float, true, false>(p, B, s);
   if (dtype == 1)
-    return partial ? launch<__nv_bfloat16, false, true>(p, B, s)
-                   : launch<__nv_bfloat16, false, false>(p, B, s);
+    return partial ? launch_split<__nv_bfloat16, true, true>(p, B, s)
+                   : launch_split<__nv_bfloat16, true, false>(p, B, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -651,31 +503,24 @@ int flash_decode_paged(const void* q, const void* k_pool, const void* v_pool,
                        int Hkv, int G, long long pool_tokens, int block_size,
                        int nk, int D, int pages_per_split, int n_split,
                        float scale, int dtype, void* stream) {
-  if (pages_per_split <= 0 || n_split * pages_per_split < nk ||
-      D > 2 * SPLIT_THREADS || D % 2)
+  if (!split_ok(nk, D, pages_per_split, n_split))
     return (int)cudaErrorInvalidValue;
   SplitParams p{};
   p.q = q; p.k = k_pool; p.v = v_pool; p.lengths = lengths; p.tables = tables;
   p.out = out; p.part_o = part_o; p.part_m = part_m; p.part_l = part_l;
-  p.Hkv = Hkv; p.G = G; p.D = D; p.bs = block_size; p.nk = nk;
+  p.Hkv = Hkv; p.G = G; p.D = D; p.tile = block_size; p.nk = nk;
   p.pps = pages_per_split; p.n_split = n_split;
-  p.lanes = 1;
-  while (p.lanes < 32 && p.lanes < block_size) p.lanes *= 2;
+  p.lanes = lanes_for(block_size);
   p.pool_tokens = pool_tokens; p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_paged<float>(p, B, s);
-  if (dtype == 1) return launch_paged<__nv_bfloat16>(p, B, s);
+  if (dtype == 0) return launch_split<float, false, false>(p, B, s);
+  if (dtype == 1) return launch_split<__nv_bfloat16, false, false>(p, B, s);
   return (int)cudaErrorInvalidValue;
 }
 
-long long flash_decode_smem_bytes(int G, int D, int tile) {
-  return (long long)sizeof(float) * smem_floats(G, D, tile);
-}
-
-long long flash_decode_paged_smem_bytes(int G, int D, int block_size,
-                                        int dtype) {
-  return dtype == 0 ? split_smem_bytes<float>(G, D, block_size)
-                    : split_smem_bytes<__nv_bfloat16>(G, D, block_size);
+long long flash_decode_split_smem_bytes(int G, int D, int tile, int dtype) {
+  return dtype == 0 ? split_smem_bytes<float>(G, D, tile)
+                    : split_smem_bytes<__nv_bfloat16>(G, D, tile);
 }
 
 const char* flash_decode_error_string(int code) {

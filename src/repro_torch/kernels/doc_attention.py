@@ -28,7 +28,13 @@ each with the reference's signature minus ``interpret``:
   cores and takes head dims that are a multiple of 16 (others raise);
 * :func:`flash_bwd_dq` -> dq, over the same q-block rows and tables;
 * :func:`flash_bwd_dkv` -> ``(dk, dv)``, over the reverse tables
-  (kv-block rows visited by q blocks), the GQA group summed in f32.
+  (kv-block rows visited by q blocks), the GQA group summed in f32.  In
+  bf16 it runs on the tensor cores, takes head dims that are a multiple
+  of 16 (others raise), and rounds Pᵀ and dSᵀ to bf16 as the operands of
+  its dV and dK products, which the reference does not; a KV block row
+  is split into key parts and the GQA group into slices
+  (:func:`dkv_split_plan`), the slices summed in f32 in a fixed order
+  (:func:`flash_bwd_dkv_split_plain` is that split's plain form).
 
 A wrapper given CPU tensors runs its twin (``flash_fwd_plain``,
 ``flash_bwd_dq_plain``, ``flash_bwd_dkv_plain``): plain PyTorch that
@@ -48,13 +54,15 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.device import sm_count
 from repro_torch.table_layout import GRID_TABLE_HALF
 
 __all__ = [
     "BlockTables", "build_block_tables", "build_work_queue",
     "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
     "flash_fwd_plain", "flash_bwd_dq_plain", "flash_bwd_dkv_plain",
-    "run_starts", "DEFAULT_BLOCK_Q", "DEFAULT_BLOCK_K",
+    "flash_bwd_dkv_split_plain", "dkv_split_plan", "run_starts",
+    "DEFAULT_BLOCK_Q", "DEFAULT_BLOCK_K",
     "FLAG_FIRST", "FLAG_LAST", "FLAG_VALID", "NEG",
 ]
 
@@ -520,7 +528,9 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, q_doc, q_pos, kv_doc,
                         block_k: int = DEFAULT_BLOCK_K, grid: str = "rect"):
     """Twin of :func:`flash_bwd_dkv`: per kv-block row, over the reverse
     tables, dV += Pᵀ·dO and dK += dSᵀ·Q summed over the GQA group, all
-    in f32 (nothing rounded before the products)."""
+    in f32 (nothing rounded before the products, as the reference
+    defines it; the bf16 kernel rounds Pᵀ and dSᵀ to bf16, and the
+    gates' bf16 tolerance covers that)."""
     tables = _check_grid(grid, tables)
     B, Hq, Tq, D = q.shape
     _, Hkv, Tk, _ = k.shape
@@ -558,6 +568,38 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, q_doc, q_pos, kv_doc,
             dv.reshape(B, Hkv, Tk, D).to(v.dtype))
 
 
+def flash_bwd_dkv_split_plain(q, k, v, do, lse, delta, q_doc, q_pos, kv_doc,
+                              kv_pos, tables, *, scale: float,
+                              group_slices: int,
+                              block_q: int = DEFAULT_BLOCK_Q,
+                              block_k: int = DEFAULT_BLOCK_K,
+                              grid: str = "rect"):
+    """Plain form of the bf16 dK/dV kernel's group split: slice s holds
+    heads [s * gps, (s + 1) * gps) of every GQA group (gps = ceil(G /
+    group_slices); a slice past G is empty), each slice's f32 dK, dV is
+    the twin's sum over its heads, and the slices are summed in order
+    before the cast.  Key parts change nothing here: each key's sums are
+    its own."""
+    B, Hq, Tq, D = q.shape
+    Hkv = k.shape[1]
+    G = Hq // Hkv
+    gps = -(-G // group_slices)
+    dk = dv = None
+    for s in range(group_slices):
+        heads = [h * G + g for h in range(Hkv)
+                 for g in range(s * gps, min(G, (s + 1) * gps))]
+        if not heads:
+            continue
+        hi = torch.tensor(heads, device=q.device)
+        sk, sv = flash_bwd_dkv_plain(
+            q[:, hi], k.float(), v.float(), do[:, hi], lse[:, hi],
+            delta[:, hi], q_doc, q_pos, kv_doc, kv_pos, tables, scale=scale,
+            block_q=block_q, block_k=block_k, grid=grid)
+        dk = sk if dk is None else dk + sk
+        dv = sv if dv is None else dv + sv
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
 # ===================================================================== #
 # kernel wrappers
 # ===================================================================== #
@@ -567,6 +609,27 @@ _KINDS = {"fwd": 0, "dq": 1, "dkv": 2}
 _SMEM_LIMIT = 232_448
 #: keys per sub-tile of the CUDA kernels: block_k must be a multiple
 KEY_TILE = 32
+#: the bf16 dK/dV kernel's split of a KV block row into key parts (16
+#: keys per warp), and the CTAs per SM that its group slices aim for
+#: (chosen by scripts/paged_split_sweep.py)
+DKV_KEY_PARTS = 1
+DKV_CTAS_PER_SM = 4
+
+
+def dkv_split_plan(B: int, Hkv: int, rows: int, G: int, block_k: int,
+                   sms: int = 132) -> tuple[int, int]:
+    """``(key_parts, group_slices)`` of the bf16 dK/dV kernel, from
+    shapes only (never from the tables: no host sync).  A block row's
+    keys split into DKV_KEY_PARTS parts where block_k allows it; the GQA
+    group splits into the fewest slices (a divisor of G) that give
+    B * Hkv * rows * parts * slices >= DKV_CTAS_PER_SM * sms CTAs, so
+    that one row with many visits does not set the kernel's time
+    alone."""
+    parts = DKV_KEY_PARTS if block_k % (16 * DKV_KEY_PARTS) == 0 else 1
+    ctas = B * Hkv * rows * parts
+    slices = next((d for d in range(1, G + 1)
+                   if G % d == 0 and ctas * d >= DKV_CTAS_PER_SM * sms), G)
+    return parts, slices
 
 
 def _on_cpu(*tensors) -> bool:
@@ -621,9 +684,10 @@ def _check_kernel_inputs(kind, q, k, v, metas, tables, grid, block_q,
     if D > 128 or (D * esize) % 16:
         raise ValueError(f"head dim {D} unsupported: at most 128 and a "
                          "multiple of 16 bytes")
-    if kind == "fwd" and q.dtype == torch.bfloat16 and D % 16:
+    if kind in ("fwd", "dkv") and q.dtype == torch.bfloat16 and D % 16:
         raise ValueError(f"head dim {D} unsupported by the bf16 tensor-core "
-                         "forward: a multiple of 16")
+                         f"{'forward' if kind == 'fwd' else 'dK/dV'}: a "
+                         "multiple of 16")
     if not (16 <= block_q <= 128 and block_q % 16 == 0):
         raise ValueError(f"block_q {block_q} unsupported: a multiple of 16 "
                          "up to 128")
@@ -671,6 +735,9 @@ def _check_kernel_inputs(kind, q, k, v, metas, tables, grid, block_q,
 def _launch(kind: str, name: str, q, k, v, q_doc, q_pos, kv_doc, kv_pos,
             tables, grid, block_q, block_k, scale, outs, do=None, lse=None,
             delta=None):
+    """Check the inputs and launch one entry of the library; dK/dV in
+    bf16 also gets its split plan and, for more than one group slice,
+    its f32 slice workspace."""
     from ._build import doc_attention_lib
 
     extra = () if do is None else (do, lse, delta)
@@ -700,6 +767,15 @@ def _launch(kind: str, name: str, q, k, v, q_doc, q_pos, kv_doc, kv_pos,
                 B, Hq, Hkv, Tq, Tk, D, block_q, block_k, rows, width,
                 int(grid == "flat"), float(scale), _DTYPE_CODE[q.dtype],
                 ctypes.c_void_p(stream)]
+        if kind == "dkv":
+            parts, slices, ws = 1, 1, None
+            if q.dtype == torch.bfloat16:
+                parts, slices = dkv_split_plan(B, Hkv, rows, Hq // Hkv,
+                                               block_k, sm_count(q.device))
+            if slices > 1:
+                ws = torch.empty((2, slices, B, Hkv, Tk, D),
+                                 dtype=torch.float32, device=q.device)
+            args += [parts, slices, ptr(ws)]
         code = getattr(lib, f"doc_attn_{kind}")(*args)
     if code != 0:
         msg = lib.doc_attn_error_string(code).decode()

@@ -12,7 +12,12 @@ Wrappers and the kernels behind them (``csrc/flash_decode.cu``, built by
 * :func:`flash_decode` — dense cache.  ``partial=False`` gives the
   normalized output (B, Hq, D); ``partial=True`` the merge-ready fp32
   ``(o, m, l)`` that :func:`repro_torch.core.merge.merge_partials`
-  combines.
+  combines.  On the card it is split-KV flash decoding over tiles of
+  ``DENSE_TILE`` positions of each stripe: one block per (b, kv head,
+  split of ``pages_per_split`` tiles) writes an f32 partial, and a
+  combine kernel merges them into either output
+  (:func:`dense_split_plan` picks the split; :func:`decode_split_plain`
+  is its plain form).
 * :func:`flash_decode_sharded` — the cache's S axis split into shards,
   one partial each, merged on the online-LSE substrate.
 * :func:`flash_decode_paged` — the KV lives in a global block pool
@@ -32,25 +37,28 @@ raises.  Each kernel wrapper counts its launches in ``.launches``.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from repro_torch.core.merge import NEG, finalize_partial, merge_partials
+from repro_torch.device import sm_count
 
 __all__ = ["flash_decode", "flash_decode_sharded", "flash_decode_paged",
            "decode_reference", "decode_partial_reference",
            "paged_decode_reference", "paged_decode_split_plain",
-           "paged_split_plan", "gather_paged_kv", "DENSE_TILE"]
+           "paged_split_plan", "dense_split_plan", "decode_split_plain",
+           "gather_paged_kv", "DENSE_TILE"]
 
-#: KV positions per tile of the dense kernel; any S works (ragged edge
-#: masked), so unlike the TPU kernel the tile never shrinks to divide S
-DENSE_TILE = 32
+#: KV positions per tile of the dense split kernel; any S works (the
+#: ragged last tile is masked), so unlike the TPU kernel the tile never
+#: shrinks to divide S
+DENSE_TILE = 16
 #: shared memory one block may use on Hopper
 _SMEM_LIMIT = 232_448
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: the paged kernel's split: at least this many positions per split, and
-#: about this many blocks per SM (chosen by scripts/paged_split_sweep.py)
+#: the split of both split-KV kernels: at least this many positions per
+#: split, and about this many blocks per SM (chosen by
+#: scripts/paged_split_sweep.py)
 SPLIT_MIN_POSITIONS = 32
 SPLIT_BLOCKS_PER_SM = 4
 
@@ -130,24 +138,44 @@ def paged_split_plan(B: int, Hkv: int, nk: int, block_size: int,
     return pps, -(-nk // pps)
 
 
+def dense_split_plan(B: int, Hkv: int, S: int,
+                     sms: int = 132) -> tuple[int, int]:
+    """``(pages_per_split, n_split)`` of the dense split-KV kernel over
+    tiles of DENSE_TILE positions (the last one ragged): the paged rule
+    on a stripe of ceil(S / DENSE_TILE) tiles."""
+    return paged_split_plan(B, Hkv, -(-S // DENSE_TILE), DENSE_TILE, sms)
+
+
+def decode_split_plain(q, k, v, lengths, *, tile: int, pages_per_split: int,
+                       scale=None, partial: bool = False):
+    """Plain form of the dense split-KV kernel: per split of
+    ``pages_per_split`` tiles of ``tile`` positions (the last split
+    ragged), the partial ``(o, m, l)`` against the split's local length
+    (clamped; a split wholly past the length is the merge identity),
+    merged with ``merge_partials``.  Returns the merged partial, or the
+    normalized output in q's dtype."""
+    S = k.shape[2]
+    span = tile * pages_per_split
+    parts = []
+    for lo in range(0, S, span):
+        hi = min(lo + span, S)
+        local = torch.clamp(lengths - lo, -1, hi - lo - 1).to(torch.int32)
+        parts.append(decode_partial_reference(q, k[:, :, lo:hi],
+                                              v[:, :, lo:hi], local,
+                                              scale=scale))
+    merged = merge_partials(parts)
+    return merged if partial else finalize_partial(merged, q.dtype)
+
+
 def paged_decode_split_plain(q, k_pool, v_pool, lengths, tables, *,
                              block_size: int, pages_per_split: int,
                              scale=None):
-    """Plain form of the split-KV paged kernel: per split of
-    ``pages_per_split`` logical pages, the partial ``(o, m, l)`` against
-    the split's local length (clamped; a split wholly past the length
-    is the merge identity), merged with ``merge_partials`` and
-    normalized."""
-    nk = tables.shape[1]
-    parts = []
-    for kb in range(0, nk, pages_per_split):
-        t = tables[:, kb:kb + pages_per_split]
-        local = torch.clamp(lengths - kb * block_size, -1,
-                            t.shape[1] * block_size - 1).to(torch.int32)
-        k = gather_paged_kv(k_pool, t, block_size)
-        v = gather_paged_kv(v_pool, t, block_size)
-        parts.append(decode_partial_reference(q, k, v, local, scale=scale))
-    return finalize_partial(merge_partials(parts), q.dtype)
+    """Plain form of the split-KV paged kernel: the dense split twin
+    over each request's gathered logical view, a tile per page."""
+    k = gather_paged_kv(k_pool, tables, block_size)
+    v = gather_paged_kv(v_pool, tables, block_size)
+    return decode_split_plain(q, k, v, lengths, tile=block_size,
+                              pages_per_split=pages_per_split, scale=scale)
 
 
 # --------------------------------------------------------------------- #
@@ -194,22 +222,30 @@ def _check_aligned(D: int, *tensors) -> None:
                              f"(strides {t.stride()})")
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _raise_on_error(lib, code: int, name: str) -> None:
     if code != 0:
         msg = lib.flash_decode_error_string(code).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({code})")
 
 
-def _check_smem(lib, G, D, tile):
-    need = lib.flash_decode_smem_bytes(G, D, tile)
+def _check_split(lib, G, D, tile, dtype):
+    """What the split kernel cannot take: a head dim past its P V layout,
+    or a block that needs more shared memory than an SM has."""
+    if D > 512:
+        raise ValueError(f"head dim {D} unsupported: at most 512")
+    need = lib.flash_decode_split_smem_bytes(G, D, tile, _DTYPE_CODE[dtype])
     if need > _SMEM_LIMIT:
         raise ValueError(f"G={G}, D={D}, tile={tile} needs {need} bytes of "
                          f"shared memory (limit {_SMEM_LIMIT})")
+
+
+def _split_workspace(B, Hkv, n_split, G, D, device):
+    """The f32 partials (o, m, l) of every split, written by the split
+    kernel and read by the combine kernel."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.empty((B, Hkv, n_split, G, D), **f32),
+            torch.empty((B, Hkv, n_split, G), **f32),
+            torch.empty((B, Hkv, n_split, G), **f32))
 
 
 def flash_decode(q, k, v, lengths, *, scale=None, partial: bool = False):
@@ -242,7 +278,8 @@ def flash_decode(q, k, v, lengths, *, scale=None, partial: bool = False):
     _check_aligned(D, k, v)
     G = Hq // Hkv
     lib = flash_decode_lib()
-    _check_smem(lib, G, D, DENSE_TILE)
+    _check_split(lib, G, D, DENSE_TILE, q.dtype)
+    pps, n_split = dense_split_plan(B, Hkv, S, sm_count(q.device))
     if partial:
         out = torch.empty((B, Hq, D), dtype=torch.float32, device=q.device)
         om = torch.empty((B, Hq), dtype=torch.float32, device=q.device)
@@ -250,15 +287,18 @@ def flash_decode(q, k, v, lengths, *, scale=None, partial: bool = False):
     else:
         out = torch.empty_like(q)
         om = ol = None
+    part_o, part_m, part_l = _split_workspace(B, Hkv, n_split, G, D,
+                                              q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = lib.flash_decode_dense(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
             out.data_ptr(), None if om is None else om.data_ptr(),
             None if ol is None else ol.data_ptr(),
+            part_o.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
             B, Hkv, G, S, D, DENSE_TILE,
             k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-            float(scale), _DTYPE_CODE[q.dtype], int(partial),
+            pps, n_split, float(scale), _DTYPE_CODE[q.dtype], int(partial),
             ctypes.c_void_p(stream))
     _raise_on_error(lib, code, "flash_decode")
     flash_decode.launches += 1
@@ -320,23 +360,15 @@ def flash_decode_paged(q, k_pool, v_pool, lengths, tables, *,
             or tables.shape[0] != B or not tables.is_contiguous():
         raise ValueError("tables must be a contiguous int32 (B, nk) tensor")
     _check_aligned(D, k_pool, v_pool)
-    if D > 512:
-        raise ValueError(f"head dim {D} unsupported: at most 512")
     G = Hq // Hkv
     nk = tables.shape[1]
     lib = flash_decode_lib()
-    dtype = _DTYPE_CODE[q.dtype]
-    need = lib.flash_decode_paged_smem_bytes(G, D, block_size, dtype)
-    if need > _SMEM_LIMIT:
-        raise ValueError(f"G={G}, D={D}, block_size={block_size} needs "
-                         f"{need} bytes of shared memory (limit {_SMEM_LIMIT})")
+    _check_split(lib, G, D, block_size, q.dtype)
     pps, n_split = paged_split_plan(B, Hkv, nk, block_size,
-                                    _sm_count(q.device))
+                                    sm_count(q.device))
     out = torch.empty_like(q)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    part_o = torch.empty((B, Hkv, n_split, G, D), **f32)
-    part_m = torch.empty((B, Hkv, n_split, G), **f32)
-    part_l = torch.empty((B, Hkv, n_split, G), **f32)
+    part_o, part_m, part_l = _split_workspace(B, Hkv, n_split, G, D,
+                                              q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = lib.flash_decode_paged(
@@ -344,7 +376,7 @@ def flash_decode_paged(q, k_pool, v_pool, lengths, tables, *,
             lengths.data_ptr(), tables.data_ptr(), out.data_ptr(),
             part_o.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
             B, Hkv, G, nbtok, block_size, nk, D, pps, n_split, float(scale),
-            dtype, ctypes.c_void_p(stream))
+            _DTYPE_CODE[q.dtype], ctypes.c_void_p(stream))
     _raise_on_error(lib, code, "flash_decode_paged")
     flash_decode_paged.launches += 1
     return out

@@ -227,6 +227,58 @@ def test_kernel_twins_match_pallas(case, grid):
         assert np.all(tdq.numpy()[:, :, -20:] == 0)
 
 
+@pytest.mark.parametrize("case,slices", [("G2_bq_ne_bk", 2),
+                                         ("G2_bq_ne_bk", 3), ("G3", 2),
+                                         ("G3", 3), ("bf16", 2)])
+@pytest.mark.parametrize("grid", ["flat", "rect"])
+def test_dkv_split_plain_matches_pallas(case, slices, grid):
+    """The bf16 dK/dV kernel's group split in plain form (each slice's
+    f32 partial over its heads, the slices summed in order) against the
+    Pallas flash_bwd_dkv: uneven slices (G 3 in 2), an empty slice (G 2
+    in 3) and one head per slice.  Tolerances as the twins': f32 5e-4,
+    bf16 3e-2."""
+    meta, (q, k, v, do), tabs, bq, bk, _, tol_b = _kernel_inputs(case)
+    jm = tuple(jnp.asarray(a) for a in meta)
+    tm = tuple(_t(a) for a in meta)
+    tq, tk, tv, tdo = map(_to_torch, (q, k, v, do))
+    kw = dict(scale=q.shape[-1] ** -0.5, block_q=bq, block_k=bk, grid=grid)
+    jf, _ = _tables(tabs, grid, "fwd")
+    jr, tr = _tables(tabs, grid, "rev")
+    jo, jl = jda.flash_fwd(q, k, v, *jm, jf, interpret=True, **kw)
+    delta = jnp.sum(do.astype(jnp.float32) * jo.astype(jnp.float32), -1)
+    jdk, jdv = jda.flash_bwd_dkv(q, k, v, do, jl, delta, *jm, jr,
+                                 interpret=True, **kw)
+    tdk, tdv = tda.flash_bwd_dkv_split_plain(
+        tq, tk, tv, tdo, _t(jl), _t(delta), *tm, tr, group_slices=slices,
+        **kw)
+    assert tdk.dtype == tk.dtype and tdv.dtype == tv.dtype
+    np.testing.assert_allclose(_f32(tdk), _f32(jdk), atol=tol_b, rtol=0)
+    np.testing.assert_allclose(_f32(tdv), _f32(jdv), atol=tol_b, rtol=0)
+
+
+@pytest.mark.parametrize("B,Hkv,rows,G,bk", [(1, 2, 64, 12, 128),
+                                             (2, 2, 8, 3, 64),
+                                             (8, 8, 64, 4, 128),
+                                             (1, 1, 4, 1, 32),
+                                             (1, 2, 6, 12, 96)])
+def test_dkv_split_plan_divides_rows_and_group(B, Hkv, rows, G, bk):
+    """Key parts of 16-key warps that divide block_k; group slices a
+    divisor of G, the fewest that give DKV_CTAS_PER_SM CTAs per SM (or
+    G).  At the training shape (one 8192-token row, Hkv 2, G 12, blocks
+    128) the group splits 6 ways."""
+    parts, slices = tda.dkv_split_plan(B, Hkv, rows, G, bk, sms=132)
+    assert parts >= 1 and bk % (16 * parts) == 0
+    assert slices >= 1 and G % slices == 0
+    target = tda.DKV_CTAS_PER_SM * 132
+    ctas = B * Hkv * rows * parts
+    assert ctas * slices >= target or slices == G
+    smaller = [d for d in range(1, slices) if G % d == 0]
+    assert all(ctas * d < target for d in smaller)
+    if (B, Hkv, rows, G, bk) == (1, 2, 64, 12, 128) \
+            and tda.DKV_KEY_PARTS == 1 and tda.DKV_CTAS_PER_SM == 4:
+        assert (parts, slices) == (1, 6)
+
+
 def test_wrappers_raise_on_mixed_devices_and_bad_grid():
     meta, (q, k, v, _), tabs, bq, bk, _, _ = _kernel_inputs("G1")
     tm = tuple(_t(a) for a in meta)

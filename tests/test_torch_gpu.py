@@ -5,14 +5,15 @@ machine with one (the H100 the port targets):
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
-Shapes sweep what ``chip_smoke.py`` does not.  Decode kernels: MHA (G 1)
-and wide groups (G 8, 12), head dims 64 and 128, cache lengths that are
-not a multiple of the tile, shard slices (strided views), block sizes 8
-and 32, and the inputs the kernels refuse; tolerances f32 1e-5 (the same
-arithmetic in another summation order), bf16 2e-2 on the normalized
+Shapes sweep what ``chip_smoke.py`` does not.  Decode kernels (both
+split-KV): MHA (G 1) and wide groups (G 8, 12, 48), head dims 64 and
+128, cache lengths that are not a multiple of the tile, shard slices
+(strided views), block sizes 8 and 32, against the oracles and the
+split twins, and the inputs the kernels refuse; tolerances f32 1e-5 (the
+same arithmetic in another summation order), bf16 2e-2 on the normalized
 output (bf16 rounding of the output and of p before PV).  Doc-attention
 training kernels (flash_fwd, flash_bwd_dq, flash_bwd_dkv) against their
-twins: G 1/3/12, D 64/128, blocks 64/128, flat and rect, padded
+twins: G 1/2/3/12, D 64/128, blocks 48/64/128, flat and rect, padded
 documents and all-empty rows; tolerances in ``DOC_TOL``.
 """
 
@@ -45,28 +46,57 @@ def _lengths(S, B, gen):
     return ln.to(torch.int32)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("Hq,Hkv,D,S", [(4, 4, 64, 77), (16, 2, 128, 300),
-                                        (24, 2, 128, 1056), (8, 1, 64, 33)])
-def test_dense_kernel_matches_plain(gen, dtype, Hq, Hkv, D, S):
-    B = 5
-    q = _randn(gen, (B, Hq, D), dtype)
-    k = _randn(gen, (B, Hkv, S, D), dtype)
-    v = _randn(gen, (B, Hkv, S, D), dtype)
-    ln = _lengths(S, B, gen)
+def _check_dense(q, k, v, ln, tol):
+    """The dense split-KV kernel in both modes against the oracles and
+    the split twin at the wrapper's split; row 0 has length -1."""
     out = fd.flash_decode(q, k, v, ln)
     o, m, l = fd.flash_decode(q, k, v, ln, partial=True)
     torch.cuda.synchronize()
     ref = fd.decode_reference(q, k, v, ln).float()
     _, pm, pl = fd.decode_partial_reference(q, k, v, ln)
-    tol = TOL[dtype]
+    B, Hkv, S = k.shape[:3]
+    pps, _ = fd.dense_split_plan(B, Hkv, S, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    twin = fd.decode_split_plain(q, k, v, ln, tile=fd.DENSE_TILE,
+                                 pages_per_split=pps, partial=True)
+    fin = finalize_partial((o, m, l), torch.float32)
     assert (out.float() - ref).abs().max().item() <= tol
-    assert (finalize_partial((o, m, l), torch.float32) - ref).abs().max() \
+    assert (fin - ref).abs().max().item() <= tol
+    assert (fin - finalize_partial(twin, torch.float32)).abs().max() \
         .item() <= tol
     assert torch.allclose(m[1:], pm[1:], atol=1e-5, rtol=0)
+    assert torch.allclose(m, twin[1], atol=1e-5, rtol=0)
     assert torch.allclose(l[1:], pl[1:], atol=0, rtol=1e-5)
+    assert torch.allclose(l[1:], twin[2][1:], atol=0, rtol=1e-5)
     assert bool((out[0] == 0).all() and (o[0] == 0).all()
                 and (l[0] == 0).all() and (m[0] == -1e30).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv,D,S", [(4, 4, 64, 77), (16, 2, 128, 300),
+                                        (24, 2, 128, 1056), (8, 1, 64, 33),
+                                        (12, 1, 128, 300), (48, 1, 128, 77)])
+def test_dense_kernel_matches_plain(gen, dtype, Hq, Hkv, D, S):
+    """G 1, 8, 12 and 48 (MQA), S a multiple of the tile or not."""
+    B = 5
+    q = _randn(gen, (B, Hq, D), dtype)
+    k = _randn(gen, (B, Hkv, S, D), dtype)
+    v = _randn(gen, (B, Hkv, S, D), dtype)
+    _check_dense(q, k, v, _lengths(S, B, gen), TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_kernel_on_shard_slices(gen, dtype):
+    """A shard of the cache is a strided view (batch and head strides of
+    the whole cache): the split kernel reads it in both modes."""
+    B, Hq, Hkv, D, S = 4, 8, 2, 64, 512
+    k = _randn(gen, (B, Hkv, S, D), dtype)
+    v = _randn(gen, (B, Hkv, S, D), dtype)
+    q = _randn(gen, (B, Hq, D), dtype)
+    ln = torch.tensor([-1, 100, 200, 255], dtype=torch.int32, device="cuda")
+    ks, vs = k[:, :, 256:], v[:, :, 256:]
+    assert not ks.is_contiguous()
+    _check_dense(q, ks, vs, ln, TOL[dtype])
 
 
 @pytest.mark.parametrize("shards", [2, 4])
@@ -211,6 +241,7 @@ def _maxerr(a, b):
     (24, 2, 128, 128, 128, 1024, 0),     # G 12, the training geometry
     (12, 1, 64, 64, 128, 512, 100),      # G 12, block_q != block_k
     (4, 1, 128, 128, 64, 384, 384),      # all rows empty
+    (4, 2, 64, 48, 64, 384, 20),         # block_q 48: 16-row dK/dV units
 ])
 def test_doc_kernels_match_twins(gen, grid, dtype, Hq, Hkv, D, bq, bk, T,
                                  pad):
@@ -267,6 +298,28 @@ def test_doc_kernels_count_launches_and_refuse_what_they_cannot_take(gen):
     with pytest.raises(ValueError):                    # mixed devices
         da.flash_fwd(q.cpu(), k, v, *meta, fwd_t, **kw)
     assert da.flash_fwd.launches == before + 1
+
+
+def test_bf16_dkv_refuses_head_dims_off_the_tensor_cores(gen):
+    """The bf16 dK/dV runs only on the tensor cores: a head dim that is
+    not a multiple of 16 raises, and launches nothing; the same shape in
+    f32 runs the scalar kernel."""
+    from repro_torch.kernels import doc_attention as da
+    q, k, v, do, meta, tabs = _doc_case(gen, 1, 4, 2, 256, 24, 64, 64,
+                                        torch.bfloat16, 0)
+    _, rev_t = _halves(tabs, "flat")
+    kw = dict(scale=24 ** -0.5, block_q=64, block_k=64, grid="flat")
+    lse = torch.zeros((1, 4, 256), dtype=torch.float32, device="cuda")
+    delta = torch.zeros_like(lse)
+    before = da.flash_bwd_dkv.launches
+    with pytest.raises(ValueError, match="multiple of 16"):
+        da.flash_bwd_dkv(q, k, v, do, lse, delta, *meta, rev_t, **kw)
+    assert da.flash_bwd_dkv.launches == before
+    dk, dv = da.flash_bwd_dkv(q.float(), k.float(), v.float(), do.float(),
+                              lse, delta, *meta, rev_t, **kw)
+    torch.cuda.synchronize()
+    assert da.flash_bwd_dkv.launches == before + 1
+    assert dk.dtype == dv.dtype == torch.float32
 
 
 def test_bf16_forward_refuses_head_dims_off_the_tensor_cores(gen):

@@ -88,6 +88,53 @@ def test_flash_decode_sharded_matches_jax(shards):
     np.testing.assert_allclose(out.numpy(), _np(ref), atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("partial", [False, True])
+@pytest.mark.parametrize("tile,pages_per_split", [(6, 1), (6, 2), (6, 3),
+                                                  (6, 7), (16, 1), (16, 2)])
+def test_dense_split_plain_matches_jax(tile, pages_per_split, partial):
+    """The dense split-KV twin (per-split partials over tiles of the
+    stripe, merged) against the Pallas flash_decode in both modes: tile 6
+    leaves a ragged last tile of 4 positions (16: of 8), lengths -1, 0,
+    S-1 and mid-cache values leave splits wholly past a length, and 7
+    tiles of 6 in one split is one split per request."""
+    q, k, v = _qkv(len(LENGTHS), 8, 2, S, 16, seed=30 + tile)
+    args = tuple(jnp.asarray(x) for x in (q, k, v, LENGTHS))
+    out = tfd.decode_split_plain(_t(q), _t(k), _t(v), _t(LENGTHS),
+                                 tile=tile, pages_per_split=pages_per_split,
+                                 partial=partial)
+    if not partial:
+        ref = jfd.flash_decode(*args, interpret=True)
+        np.testing.assert_allclose(out.numpy(), _np(ref), atol=ATOL, rtol=0)
+        assert np.all(out.numpy()[0] == 0)
+        return
+    jo, jm, jl = jfd.flash_decode(*args, interpret=True, partial=True)
+    o, m, l = out
+    np.testing.assert_allclose(o.numpy(), _np(jo), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(m.numpy(), _np(jm), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(l.numpy(), _np(jl), atol=ATOL, rtol=1e-6)
+    # the empty row is exactly the merge identity
+    assert np.all(o.numpy()[0] == 0) and np.all(l.numpy()[0] == 0)
+    assert np.all(m.numpy()[0] == np.float32(NEG))
+
+
+@pytest.mark.parametrize("B,Hkv,S", [(6, 2, 1056), (1, 1, 33), (5, 2, 300),
+                                     (64, 8, 4096), (3, 2, 77)])
+def test_dense_split_plan_covers_the_stripe(B, Hkv, S):
+    """Every tile of the stripe (the last one ragged) lies in exactly one
+    split; splits are at least SPLIT_MIN_POSITIONS long unless the
+    stripe is shorter; a small batch gets about SPLIT_BLOCKS_PER_SM
+    blocks per SM.  At the serving shape (B 6, Hkv 2, S 1056) that is
+    the paged kernel's 33 splits of 2 tiles of 16."""
+    pps, n_split = tfd.dense_split_plan(B, Hkv, S, sms=132)
+    nk = -(-S // tfd.DENSE_TILE)
+    assert 1 <= pps <= nk and (n_split - 1) * pps < nk <= n_split * pps
+    assert pps * tfd.DENSE_TILE >= min(tfd.SPLIT_MIN_POSITIONS, S)
+    if B * Hkv * nk >= tfd.SPLIT_BLOCKS_PER_SM * 132 * pps:
+        assert B * Hkv * n_split >= 132
+    if (B, Hkv, S) == (6, 2, 1056):
+        assert (tfd.DENSE_TILE, pps, n_split) == (16, 2, 33)
+
+
 def _paged_case(seed=0):
     """A pool of 12 blocks of 4 tokens; five requests whose tables are a
     permutation of pool blocks, one block shared by two rows, unwritten
