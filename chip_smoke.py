@@ -43,6 +43,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -689,11 +690,15 @@ def train(args, params=None):
 
 # device-time categories of a profile, by kernel name
 CATEGORIES = (("doc_attention", ("fwd_kernel", "fwd_mma_kernel", "dq_kernel",
-                                  "dkv_kernel", "dkv_mma_kernel",
-                                  "dkv_sum_kernel")),
+                                  "dq_mma_kernel", "dkv_kernel",
+                                  "dkv_mma_kernel", "dkv_sum_kernel")),
               ("flash_decode", ("decode_split_kernel",
                                 "decode_combine_kernel")),
               ("gemm", ("nvjet", "gemm", "cutlass", "sm90_xmma")))
+
+
+# the scalar f32 doc kernels: a bf16 step must launch none of them
+SCALAR_DOC = re.compile(r"(?<![a-z_])(fwd|dq|dkv)_kernel(?![a-z_])")
 
 
 def device_busy(prof, steps: int = 1):
@@ -736,12 +741,18 @@ def profile_train_step(torch, res) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     total, by_cat, top = device_busy(prof)
+    from torch.autograd import DeviceType
+    scalar = sorted({ev.key[:80] for ev in prof.key_averages()
+                     if ev.device_type == DeviceType.CUDA
+                     and SCALAR_DOC.search(ev.key)})
     out = {"wall_ms": wall * 1e3, "device_busy_ms": total,
            "busy_ms_by_category": by_cat,
            "idle_share": None if not total else max(0.0, 1 - total
                                                     / (wall * 1e3)),
-           "top": top}
+           "top": top, "scalar_doc_kernels": scalar}
     emit("profile_train_step", **out)
+    if scalar:
+        raise AssertionError(f"the bf16 step ran scalar kernels: {scalar}")
     return out
 
 

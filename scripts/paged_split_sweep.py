@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the port's split kernels on one NVIDIA GPU over their split
-settings, at ``chip_smoke.py``'s shapes in bf16, with ``chip_smoke.py``'s
-timer (L2 flushed, median of 25; 20 for dK/dV).  Each setting is checked
+and sub-tile settings, at ``chip_smoke.py``'s shapes in bf16, with
+``chip_smoke.py``'s timer (L2 flushed, median of 25; 20 for dK/dV and
+dQ).  Each setting is checked
 against a plain version first.  Prints one JSON line per setting, then
 the time of ``chip_smoke.py``'s library yardstick.
 
@@ -11,9 +12,12 @@ the time of ``chip_smoke.py``'s library yardstick.
   ``SPLIT_MIN_POSITIONS`` x ``SPLIT_BLOCKS_PER_SM`` (dense oracle; SDPA);
 * ``dkv``: ``flash_bwd_dkv`` on the step-0 training batch over the key
   parts x group slices of ``dkv_split_plan`` (the twin, at
+  ``chip_smoke.DOC_TOL``; SDPA's backward);
+* ``dq``: ``flash_bwd_dq`` on the same batch at each keys-per-sub-tile
+  width the bf16 kernel is built with (``DQ_KEY_TILE``; the twin, at
   ``chip_smoke.DOC_TOL``; SDPA's backward).
 
-    python3 scripts/paged_split_sweep.py [paged|dense|dkv ...]
+    python3 scripts/paged_split_sweep.py [paged|dense|dkv|dq ...]
 """
 
 import json
@@ -94,10 +98,10 @@ def sweep_dense(torch, timer, gen, sms) -> None:
             q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)))
 
 
-def sweep_dkv(torch, timer, gen, sms) -> None:
-    import torch.nn.functional as F
+def doc_case(torch, gen):
+    """``chip_smoke.py``'s timing inputs of the doc kernels: the step-0
+    batch, its flat tables, bf16 q, k, v, dO, and lse, delta."""
     from repro_torch.kernels import doc_attention as da
-    from repro_torch.kernels.ref import doc_mask
 
     batch = cs.doc_batch()
     meta = [batch[k] for k in ("doc", "pos", "doc", "pos")]
@@ -107,8 +111,28 @@ def sweep_dkv(torch, timer, gen, sms) -> None:
               grid="flat")
     o, lse = da.flash_fwd(q, k, v, *meta, fwd_t, **kw)
     delta = (do.float() * o.float()).sum(-1)
-    pdk, pdv = da.flash_bwd_dkv_plain(q, k, v, do, lse, delta, *meta, rev_t,
-                                      **kw)
+    return batch, meta, fwd_t, rev_t, (q, k, v, do, lse, delta), kw
+
+
+def sdpa_backward_ms(torch, timer, batch, q, k, v, do) -> float:
+    """SDPA's whole backward (dq, dk, dv) under the batch's doc mask."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.ref import doc_mask
+
+    mask = doc_mask(batch["doc"], batch["pos"], batch["doc"],
+                    batch["pos"])[:, None]
+    qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                         enable_gqa=True)
+    return timer(lambda: torch.autograd.grad(out, (qg, kg, vg), do,
+                                             retain_graph=True), reps=20)
+
+
+def sweep_dkv(torch, timer, gen, sms) -> None:
+    from repro_torch.kernels import doc_attention as da
+
+    batch, meta, _, rev_t, args, kw = doc_case(torch, gen)
+    pdk, pdv = da.flash_bwd_dkv_plain(*args, *meta, rev_t, **kw)
     tol = cs.DOC_TOL["bfloat16"]
     rows, G = cs.SEQ // cs.T_BLOCK, cs.T_HQ // cs.T_HKV
     plan = da.dkv_split_plan
@@ -116,30 +140,54 @@ def sweep_dkv(torch, timer, gen, sms) -> None:
     for parts in (1, 2):
         for slices in (1, 2, 3, 4, 6, 12):
             da.dkv_split_plan = lambda *_a, _s=(parts, slices), **_kw: _s
-            dk, dv = da.flash_bwd_dkv(q, k, v, do, lse, delta, *meta, rev_t,
-                                      **kw)
+            dk, dv = da.flash_bwd_dkv(*args, *meta, rev_t, **kw)
             rel = max(cs._err(dk, pdk) / pdk.float().abs().max().item(),
                       cs._err(dv, pdv) / pdv.float().abs().max().item())
             if rel > tol:
                 raise AssertionError(f"{parts} {slices}: error {rel}")
-            ms = timer(lambda: da.flash_bwd_dkv(q, k, v, do, lse, delta,
-                                                *meta, rev_t, **kw), reps=20)
+            ms = timer(lambda: da.flash_bwd_dkv(*args, *meta, rev_t, **kw),
+                       reps=20)
             emit(kernel="flash_bwd_dkv", key_parts=parts,
                  group_slices=slices, ctas=rows * cs.T_HKV * parts * slices,
                  chosen=(parts, slices) == chosen, ms=ms, max_rel_err=rel,
                  visits=cs.visits_of(batch))
     da.dkv_split_plan = plan
-    mask = doc_mask(batch["doc"], batch["pos"], batch["doc"],
-                    batch["pos"])[:, None]
-    qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
-    out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
-                                         enable_gqa=True)
-    emit(kernel="flash_bwd_dkv", library_ms=timer(
-        lambda: torch.autograd.grad(out, (qg, kg, vg), do,
-                                    retain_graph=True), reps=20))
+    emit(kernel="flash_bwd_dkv", library_ms=sdpa_backward_ms(
+        torch, timer, batch, *args[:4]))
 
 
-SWEEPS = {"paged": sweep_paged, "dense": sweep_dense, "dkv": sweep_dkv}
+#: keys per sub-tile that the bf16 dQ kernel is built with
+DQ_TILES = (32, 64)
+
+
+def sweep_dq(torch, timer, gen, sms) -> None:
+    from repro_torch.kernels import doc_attention as da
+
+    batch, meta, fwd_t, _, args, kw = doc_case(torch, gen)
+    pdq = da.flash_bwd_dq_plain(*args, *meta, fwd_t, **kw)
+    tol = cs.DOC_TOL["bfloat16"]
+    visits = cs.visits_of(batch)
+    flops = visits * cs.T_HQ * cs.MATMULS["flash_bwd_dq"] * 2 \
+        * cs.T_BLOCK * cs.T_BLOCK * cs.T_D
+    chosen = da.DQ_KEY_TILE
+    for tile in DQ_TILES:
+        da.DQ_KEY_TILE = tile
+        dq = da.flash_bwd_dq(*args, *meta, fwd_t, **kw)
+        rel = cs._err(dq, pdq) / pdq.float().abs().max().item()
+        if rel > tol:
+            raise AssertionError(f"key tile {tile}: error {rel}")
+        ms = timer(lambda: da.flash_bwd_dq(*args, *meta, fwd_t, **kw),
+                   reps=20)
+        emit(kernel="flash_bwd_dq", key_tile=tile, chosen=tile == chosen,
+             ms=ms, tflops_per_s=flops / ms / 1e9, max_rel_err=rel,
+             visits=visits)
+    da.DQ_KEY_TILE = chosen
+    emit(kernel="flash_bwd_dq", library_ms=sdpa_backward_ms(
+        torch, timer, batch, *args[:4]))
+
+
+SWEEPS = {"paged": sweep_paged, "dense": sweep_dense, "dkv": sweep_dkv,
+          "dq": sweep_dq}
 
 
 def main() -> int:

@@ -119,8 +119,8 @@ def flash_decode_lib() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def doc_attention_lib() -> ctypes.CDLL:
     """The doc-attention training kernels, built on first call, argtypes
-    bound.  The three entries share one argument list; dK/dV adds its
-    split."""
+    bound.  The three entries share one argument list; dQ adds its
+    sub-tile, dK/dV its split."""
     path, _ = build("doc_attention.cu")
     lib = ctypes.CDLL(str(path))
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -135,10 +135,12 @@ def doc_attention_lib() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = i32
-    # dK/dV also takes the bf16 kernel's split: key parts, group slices,
-    # f32 slice workspace
+    # dQ also takes the bf16 kernel's keys per sub-tile; dK/dV its split:
+    # key parts, group slices, f32 slice workspace
+    lib.doc_attn_dq.argtypes = args + [i32]
     lib.doc_attn_dkv.argtypes = args + [i32, i32, vp]
-    lib.doc_attn_smem_bytes.argtypes = [i32, i32, i32]
+    # kind dtype bq bk D parts key_tile
+    lib.doc_attn_smem_bytes.argtypes = [i32] * 7
     lib.doc_attn_smem_bytes.restype = ctypes.c_longlong
     lib.doc_attn_error_string.argtypes = [i32]
     lib.doc_attn_error_string.restype = ctypes.c_char_p

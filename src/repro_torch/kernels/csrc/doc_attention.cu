@@ -6,8 +6,9 @@
 //   * fwd_mma_kernel<FLAT, KT>  <- ::flash_fwd in bf16, and
 //     fwd_kernel<float, FLAT>   <- ::flash_fwd in f32 (_fwd_kernel /
 //     _fwd_kernel_flat over _fwd_init, _fwd_visit, _fwd_finalize);
-//   * dq_kernel<T, FLAT>   <- ::flash_bwd_dq (_dq_kernel / _dq_kernel_flat
-//     over _dq_visit);
+//   * dq_mma_kernel<FLAT, KT>   <- ::flash_bwd_dq in bf16, and
+//     dq_kernel<float, FLAT>    <- ::flash_bwd_dq in f32 (_dq_kernel /
+//     _dq_kernel_flat over _dq_visit);
 //   * dkv_mma_kernel<FLAT, QC> (+ dkv_sum_kernel) <- ::flash_bwd_dkv in
 //     bf16, and dkv_kernel<float, FLAT> <- ::flash_bwd_dkv in f32
 //     (_dkv_kernel / _dkv_kernel_flat over _dkv_visit).
@@ -32,17 +33,21 @@
 //     P becomes the A fragment of P V in registers.  Two barriers per
 //     sub-tile.  It takes D % 16 == 0 (D <= 128) and a positive scale;
 //     the wrapper refuses other bf16 inputs.
+//   * dq_mma_kernel (bf16) runs its three products on the tensor cores on
+//     the forward's streaming design, with dO held beside Q and dS as the
+//     A fragment of dS K in registers; its design is described above the
+//     kernel.  It takes D % 16 == 0 (D <= 128), any scale.
 //   * dkv_mma_kernel (bf16) runs all four dK/dV products on the tensor
 //     cores with the CTA's keys as the M dimension, so P^T and dS^T feed
 //     the dV and dK products from registers; its design is described
 //     above the kernel.
-//   * fwd_kernel and dkv_kernel (f32, the parity references on the card)
-//     and dq_kernel run scalar f32 FMA (no mma, wgmma or TMA), so the f32
-//     CUDA-core rate is their practical ceiling.  They keep the whole
-//     working set of a visit in shared memory and registers: the owned
-//     tile (q, or q and dO, staged once per CTA) as f32, 32-key sub-tiles
-//     of K and V, and per-thread 8x2 (scores) and 8x8 (accumulator)
-//     register micro-tiles read with 16-byte shared loads.
+//   * fwd_kernel, dq_kernel and dkv_kernel (f32 only: the parity
+//     references on the card) run scalar f32 FMA (no mma, wgmma or TMA),
+//     so the f32 CUDA-core rate is their practical ceiling.  They keep the
+//     whole working set of a visit in shared memory and registers: the
+//     owned tile (q, or q and dO, staged once per CTA) as f32, 32-key
+//     sub-tiles of K and V, and per-thread 8x2 (scores) and 8x8
+//     (accumulator) register micro-tiles read with 16-byte shared loads.
 //
 // Ordering.  A Pallas grid walks the visits of a row in order and carries
 // the accumulator in VMEM; a GPU grid has no order.  So one CTA owns one
@@ -64,7 +69,8 @@
 //     these once per 32- or 64-key sub-tile (the same softmax, rescaled in
 //     other steps);
 //   * dQ: P = exp(S - lse_safe) with lse_safe = 0 where lse is -inf,
-//     dS = P (dO.V^T - delta) scale, rounded to K's dtype before dS.K;
+//     dS = P (dO.V^T - delta) scale, rounded to K's dtype before dS.K
+//     (dq_mma_kernel rounds there and nowhere else);
 //   * dK/dV: the same P and dS; dV += P^T dO and dK += dS^T Q summed over
 //     the GQA group in f32.  f32 (dkv_kernel): nothing rounded, and a
 //     128-key KV row is split over CTAs by 32-key sub-tile, all walking
@@ -94,18 +100,11 @@ constexpr int STATIC_SMEM_LIMIT = 48 * 1024;
 constexpr int FLAG_LAST = 2, FLAG_VALID = 4;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // round through T and back: the reference's x.astype(T) before a product
 template <typename T>
@@ -133,6 +132,7 @@ struct Params {
   float* ws;              // bf16 dkv with slices > 1: f32 (2, slices, B, Hkv, Tk, D)
   int B, Hq, Hkv, G, Tq, Tk, D, bq, bk, R, W;
   int parts, slices;      // bf16 dkv: key parts per block row, group slices
+  int key_tile;           // bf16 dq: keys per sub-tile asked for (32, 64)
   float scale;
 };
 
@@ -571,6 +571,102 @@ __host__ __device__ inline long long mma_smem_bytes(int bq, int D, int KT) {
   return bq * row + 2 * (2 * KT * row + 2LL * KT * 4);
 }
 
+// copy `rows` bf16 rows of D (16-byte aligned) into a padded tile
+__device__ __forceinline__ void cp_async_rows(__nv_bfloat16* dst,
+                                              const __nv_bfloat16* src,
+                                              int rows, int D, int tid,
+                                              int nthreads) {
+  const int vecs = D / 8, DP = mma_pitch(D);   // 16-byte chunks per row
+  for (int i = tid; i < rows * vecs; i += nthreads) {
+    const int r = i / vecs, col = (i - r * vecs) * 8;
+    cp_async16(dst + r * DP + col, src + (long long)r * D + col);
+  }
+}
+
+// copy sub-tile (c.col, c.kt) of K and V (kv0: the head's first key) and
+// its keys' doc / pos into ring slot `slot`: the ring holds 2 x {K, V}
+// (KT x pitch each), `meta` 2 x {doc, pos} (KT words each)
+template <int KT>
+__device__ __forceinline__ void copy_kv(const Params& p, int b,
+                                        long long kv0, __nv_bfloat16* ring,
+                                        int* meta, const Cursor& c, int slot,
+                                        int tid, int nthreads) {
+  using bf16 = __nv_bfloat16;
+  const int D = p.D, DP = mma_pitch(D), vecs = D / 8;
+  const bf16* kg = static_cast<const bf16*>(p.k);
+  const bf16* vg = static_cast<const bf16*>(p.v);
+  const long long key0 = (long long)c.col * p.bk + c.kt;
+  bf16* ks = ring + slot * 2 * KT * DP;
+  bf16* vs = ks + KT * DP;
+  for (int i = tid; i < KT * vecs; i += nthreads) {
+    const int r = i / vecs, col = (i - r * vecs) * 8;
+    cp_async16(ks + r * DP + col, kg + (kv0 + key0 + r) * D + col);
+    cp_async16(vs + r * DP + col, vg + (kv0 + key0 + r) * D + col);
+  }
+  int* ms = meta + slot * 2 * KT;
+  const long long t0 = (long long)b * p.Tk + key0;
+  for (int i = tid; i < 2 * KT; i += nthreads)
+    cp_async4(ms + i, (i < KT ? p.kv_doc + t0 + i : p.kv_pos + t0 + i - KT));
+}
+
+// this warp's 16 rows of a (rows x D) bf16 tile (pitch DP) as the A
+// fragments of NK 16-wide k-steps
+__device__ __forceinline__ void load_a(unsigned (&f)[MMA_MAX_D / 16][4],
+                                       const __nv_bfloat16* tile, int NK,
+                                       int DP, int warp, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < MMA_MAX_D / 16; ++kk)
+    if (kk < NK)
+      ldsm_x4(f[kk], tile + (warp * 16 + (lane & 15)) * DP + kk * 16 +
+                         (lane >> 4) * 8);
+}
+
+// c = A B^T over D: A this warp's 16 rows (fragments a), B the KT rows of
+// `bt` (pitch DP); n-tiles j, j + 1 of B's rows per ldmatrix.x4
+template <int KT>
+__device__ __forceinline__ void mma_abt(float (&c)[KT / 8][4],
+                                        const unsigned (&a)[MMA_MAX_D / 16][4],
+                                        const __nv_bfloat16* bt, int NK,
+                                        int DP, int lane) {
+#pragma unroll
+  for (int j = 0; j < KT / 8; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < MMA_MAX_D / 16; ++kk) {
+    if (kk < NK) {
+#pragma unroll
+      for (int j = 0; j < KT / 8; j += 2) {
+        unsigned f[4];
+        ldsm_x4(f, bt + (8 * j + (lane & 7) + (lane >> 4) * 8) * DP +
+                       kk * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(c[j], a[kk], f[0], f[1]);
+        mma_bf16(c[j + 1], a[kk], f[2], f[3]);
+      }
+    }
+  }
+}
+
+// c += A B over KT: A as bf16 fragments of 16-key chunks (a), B the
+// (KT x D) tile `bm` (pitch DP) by ldmatrix.trans; n-tiles n, n + 1 of D
+template <int KT>
+__device__ __forceinline__ void mma_ab(float (&c)[MMA_MAX_D / 8][4],
+                                       const unsigned (&a)[KT / 16][4],
+                                       const __nv_bfloat16* bm, int ND,
+                                       int DP, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < KT / 16; ++kk) {
+#pragma unroll
+    for (int n = 0; n < MMA_MAX_D / 8; n += 2) {
+      if (n < ND) {
+        unsigned f[4];
+        ldsm_x4_t(f, bm + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                              DP + 8 * n + (lane >> 4) * 8);
+        mma_bf16(c[n], a[kk], f[0], f[1]);
+        mma_bf16(c[n + 1], a[kk], f[2], f[3]);
+      }
+    }
+  }
+}
+
 template <bool FLAT, int KT>
 __global__ void __launch_bounds__(256, 1) fwd_mma_kernel(Params p) {
   using bf16 = __nv_bfloat16;
@@ -594,25 +690,6 @@ __global__ void __launch_bounds__(256, 1) fwd_mma_kernel(Params p) {
 
   const long long q0 = ((long long)b * p.Hq + h) * p.Tq + (long long)row * BQ;
   const long long kv0 = ((long long)b * p.Hkv + hkv) * p.Tk;
-  const bf16* kg = static_cast<const bf16*>(p.k);
-  const bf16* vg = static_cast<const bf16*>(p.v);
-  const int vecs = D / 8;                    // 16-byte chunks per row
-
-  // copy sub-tile (col, kt) of K, V and its key doc / pos into ring slot
-  auto issue = [&](const Cursor& c, int slot) {
-    const long long key0 = (long long)c.col * p.bk + c.kt;
-    bf16* ks = ring + slot * 2 * KT * DP;
-    bf16* vs = ks + KT * DP;
-    for (int i = tid; i < KT * vecs; i += nthreads) {
-      const int r = i / vecs, col = (i - r * vecs) * 8;
-      cp_async16(ks + r * DP + col, kg + (kv0 + key0 + r) * D + col);
-      cp_async16(vs + r * DP + col, vg + (kv0 + key0 + r) * D + col);
-    }
-    int* ms = meta + slot * 2 * KT;
-    const long long t0 = (long long)b * p.Tk + key0;
-    for (int i = tid; i < 2 * KT; i += nthreads)
-      cp_async4(ms + i, (i < KT ? p.kv_doc + t0 + i : p.kv_pos + t0 + i - KT));
-  };
 
   // this thread's two q rows (fragment rows g and g + 8 of its warp)
   const int g = lane >> 2, tq = lane & 3;
@@ -631,12 +708,9 @@ __global__ void __launch_bounds__(256, 1) fwd_mma_kernel(Params p) {
   const float c2 = p.scale * 1.4426950408889634f;   // scale * log2(e)
 
   if (have) {
-    const bf16* qg = static_cast<const bf16*>(p.q) + q0 * D;
-    for (int i = tid; i < BQ * vecs; i += nthreads) {
-      const int r = i / vecs, col = (i - r * vecs) * 8;
-      cp_async16(q_s + r * DP + col, qg + (long long)r * D + col);
-    }
-    issue(cur, 0);
+    cp_async_rows(q_s, static_cast<const bf16*>(p.q) + q0 * D, BQ, D, tid,
+                  nthreads);
+    copy_kv<KT>(p, b, kv0, ring, meta, cur, 0, tid, nthreads);
     cp_async_commit();
   }
   unsigned qf[MAXK][4];          // this warp's Q rows as A fragments
@@ -645,16 +719,14 @@ __global__ void __launch_bounds__(256, 1) fwd_mma_kernel(Params p) {
   while (have) {
     Cursor nxt = cur;
     const bool more = advance<FLAT, KT>(p, b, row, s0, nxt);
-    if (more) issue(nxt, slot ^ 1);   // slot ^ 1 was freed by the last barrier
+    // slot ^ 1 was freed by the last barrier
+    if (more)
+      copy_kv<KT>(p, b, kv0, ring, meta, nxt, slot ^ 1, tid, nthreads);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
     if (first) {
-#pragma unroll
-      for (int kk = 0; kk < MAXK; ++kk)
-        if (kk < NK)
-          ldsm_x4(qf[kk], q_s + (warp * 16 + (lane & 15)) * DP + kk * 16 +
-                              (lane >> 4) * 8);
+      load_a(qf, q_s, NK, DP, warp, lane);
       first = false;
     }
     const bf16* ks = ring + slot * 2 * KT * DP;
@@ -662,23 +734,8 @@ __global__ void __launch_bounds__(256, 1) fwd_mma_kernel(Params p) {
     const int* kd_s = meta + slot * 2 * KT;
     const int* kp_s = kd_s + KT;
 
-    // S = Q K^T: n-tiles j, j + 1 of keys per ldmatrix.x4
-    float s[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < MAXK; ++kk) {
-      if (kk < NK) {
-#pragma unroll
-        for (int j = 0; j < NT; j += 2) {
-          unsigned kf[4];
-          ldsm_x4(kf, ks + (8 * j + (lane & 7) + (lane >> 4) * 8) * DP +
-                          kk * 16 + ((lane >> 3) & 1) * 8);
-          mma_bf16(s[j], qf[kk], kf[0], kf[1]);
-          mma_bf16(s[j + 1], qf[kk], kf[2], kf[3]);
-        }
-      }
-    }
+    float s[NT][4];                // S = Q K^T
+    mma_abt<KT>(s, qf, ks, NK, DP, lane);
 
     // mask, online softmax in f32 (rows r0: s[.][0..1], r1: s[.][2..3]) on
     // unscaled scores: scale > 0 commutes with the max, and folds with
@@ -727,20 +784,7 @@ __global__ void __launch_bounds__(256, 1) fwd_mma_kernel(Params p) {
       o[n][3] *= a1;
     }
 
-    // O += P V: V^T fragments by ldmatrix.trans, n-tiles n, n + 1 of D
-#pragma unroll
-    for (int kk = 0; kk < NT / 2; ++kk) {
-#pragma unroll
-      for (int n = 0; n < MAXN; n += 2) {
-        if (n < ND) {
-          unsigned vf[4];
-          ldsm_x4_t(vf, vs + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                 DP + 8 * n + (lane >> 4) * 8);
-          mma_bf16(o[n], pf[kk], vf[0], vf[1]);
-          mma_bf16(o[n + 1], pf[kk], vf[2], vf[3]);
-        }
-      }
-    }
+    mma_ab<KT>(o, pf, vs, ND, DP, lane);   // O += P V
     __syncthreads();               // the slot is free for the next copy
     cur = nxt;
     have = more;
@@ -769,6 +813,163 @@ __global__ void __launch_bounds__(256, 1) fwd_mma_kernel(Params p) {
                  ((long long)b * p.Hq + h) * p.Tq + (long long)row * BQ;
     lse[r0] = lt0 > 0.f ? m0 * p.scale + logf(lt0) : -INFINITY;
     lse[r1] = lt1 > 0.f ? m1 * p.scale + logf(lt1) : -INFINITY;
+  }
+}
+
+// ------------------------------------------------------------------------
+// bf16 dQ on the tensor cores: CTA = (q-block row, b, hq), as
+// fwd_mma_kernel, with bq / 16 warps of 16 q rows each.  Replaces
+// flash_bwd_dq (doc_attention.py:802, _dq_kernel / _dq_kernel_flat over
+// _dq_visit) for bf16.  Bound: operations; S = Q K^T, dP = dO V^T and
+// dQ += dS K run as mma.sync m16n8k16 (bf16 in, f32 accumulate).
+//
+// The forward's streaming design with a second held operand: the Q and
+// dO tiles are copied once and held in registers as A fragments, each
+// thread keeps its two rows' lse_safe log2(e) and delta, and K, V and
+// their keys' doc and pos stream in KT-key sub-tiles through the
+// forward's 2-stage cp.async ring (copy_kv), the walk's next table step
+// loaded one visit ahead.  Per sub-tile, P = 2^(S scale log2(e) -
+// lse_safe log2(e)) where visible (else 0), and dS = P (dP - delta) scale
+// is packed to bf16 as the A fragment of dS K in registers: it never
+// goes through shared memory.  K's B fragments for dS K come from the
+// same ring slot by ldmatrix.trans.  dQ stays f32 in registers for the
+// whole walk and is written once in bf16; a row with no visit writes
+// zeros.  There is no online max, so any scale works.
+//
+// Rounding: exactly where the reference rounds.  Q, K, dO and V enter the
+// products as bf16, which the reference casts to f32 exactly, and dS is
+// rounded to K's dtype before dS K, as the reference does.
+// ------------------------------------------------------------------------
+
+// bytes of shared memory of one dq_mma_kernel CTA: the forward's, plus
+// the dO tile
+__host__ __device__ inline long long dq_mma_smem_bytes(int bq, int D,
+                                                       int KT) {
+  return mma_smem_bytes(bq, D, KT) + bq * 2LL * mma_pitch(D);
+}
+
+template <bool FLAT, int KT>
+__global__ void __launch_bounds__(256, 1) dq_mma_kernel(Params p) {
+  using bf16 = __nv_bfloat16;
+  constexpr int NT = KT / 8;                 // 8-key n-tiles of S and dP
+  constexpr int MAXK = MMA_MAX_D / 16;       // 16-wide k-steps of Q K^T
+  constexpr int MAXN = MMA_MAX_D / 8;        // 8-wide n-tiles of dQ
+  constexpr float LOG2E = 1.4426950408889634f;
+  extern __shared__ float4 smem4[];
+  const int D = p.D, DP = mma_pitch(D), BQ = p.bq;
+  const int NK = D / 16, ND = D / 8;
+  bf16* q_s = reinterpret_cast<bf16*>(smem4);          // BQ x DP
+  bf16* do_s = q_s + BQ * DP;                          // BQ x DP
+  bf16* ring = do_s + BQ * DP;                         // 2 x {K, V}: KT x DP
+  int* meta = reinterpret_cast<int*>(ring + 4 * KT * DP);   // 2 x {doc, pos}
+
+  int rest;
+  const int i_row = cta_row(p.B * p.Hq, &rest);
+  const int b = rest / p.Hq, h = rest - b * p.Hq, hkv = h / p.G;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nthreads = BQ * 2;
+  int s0, row;
+  if (!walk_begin<FLAT>(p, b, i_row, &s0, &row)) return;
+
+  const long long q0 = ((long long)b * p.Hq + h) * p.Tq + (long long)row * BQ;
+  const long long kv0 = ((long long)b * p.Hkv + hkv) * p.Tk;
+
+  // this thread's two q rows (fragment rows g and g + 8 of its warp): doc,
+  // pos, lse_safe log2(e) (lse_safe = 0 where lse is -inf) and delta
+  const int g = lane >> 2, tq = lane & 3;
+  const int r0 = warp * 16 + g, r1 = r0 + 8;
+  const long long tok = (long long)b * p.Tq + (long long)row * BQ;
+  const int qd0 = p.q_doc[tok + r0], qp0 = p.q_pos[tok + r0];
+  const int qd1 = p.q_doc[tok + r1], qp1 = p.q_pos[tok + r1];
+  const float x0 = p.lse[q0 + r0], x1 = p.lse[q0 + r1];
+  const float l0 = isfinite(x0) ? x0 * LOG2E : 0.f;
+  const float l1 = isfinite(x1) ? x1 * LOG2E : 0.f;
+  const float dl0 = p.delta[q0 + r0], dl1 = p.delta[q0 + r1];
+
+  Cursor cur = walk_start<FLAT>(p, b, row, s0);
+  bool have = advance<FLAT, KT>(p, b, row, s0, cur);
+  float dq[MAXN][4];
+#pragma unroll
+  for (int n = 0; n < MAXN; ++n)
+    dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+  const float c2 = p.scale * LOG2E;          // scale * log2(e)
+
+  if (have) {
+    cp_async_rows(q_s, static_cast<const bf16*>(p.q) + q0 * D, BQ, D, tid,
+                  nthreads);
+    cp_async_rows(do_s, static_cast<const bf16*>(p.dout) + q0 * D, BQ, D,
+                  tid, nthreads);
+    copy_kv<KT>(p, b, kv0, ring, meta, cur, 0, tid, nthreads);
+    cp_async_commit();
+  }
+  unsigned qf[MAXK][4], of[MAXK][4];   // this warp's Q and dO rows
+  bool first = true;
+  int slot = 0;
+  while (have) {
+    Cursor nxt = cur;
+    const bool more = advance<FLAT, KT>(p, b, row, s0, nxt);
+    // slot ^ 1 was freed by the last barrier
+    if (more)
+      copy_kv<KT>(p, b, kv0, ring, meta, nxt, slot ^ 1, tid, nthreads);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (first) {
+      load_a(qf, q_s, NK, DP, warp, lane);
+      load_a(of, do_s, NK, DP, warp, lane);
+      first = false;
+    }
+    const bf16* ks = ring + slot * 2 * KT * DP;
+    const bf16* vs = ks + KT * DP;
+    const int* kd_s = meta + slot * 2 * KT;
+    const int* kp_s = kd_s + KT;
+
+    float s[NT][4], dp[NT][4];
+    mma_abt<KT>(s, qf, ks, NK, DP, lane);    // S = Q K^T
+    mma_abt<KT>(dp, of, vs, NK, DP, lane);   // dP = dO V^T
+
+    // P where visible, dS = P (dP - delta) scale as bf16 A fragments
+    // (rows r0: [.][0..1], r1: [.][2..3]; keys 8 j + 2 tq, + 1)
+    unsigned df[NT / 2][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int key = 8 * j + 2 * tq;
+      const int2 kd = *reinterpret_cast<const int2*>(kd_s + key);
+      const int2 kp = *reinterpret_cast<const int2*>(kp_s + key);
+      const float p0 =
+          visible(qd0, qp0, kd.x, kp.x) ? ex2(fmaf(s[j][0], c2, -l0)) : 0.f;
+      const float p1 =
+          visible(qd0, qp0, kd.y, kp.y) ? ex2(fmaf(s[j][1], c2, -l0)) : 0.f;
+      const float p2 =
+          visible(qd1, qp1, kd.x, kp.x) ? ex2(fmaf(s[j][2], c2, -l1)) : 0.f;
+      const float p3 =
+          visible(qd1, qp1, kd.y, kp.y) ? ex2(fmaf(s[j][3], c2, -l1)) : 0.f;
+      df[j / 2][(j & 1) * 2] = pack_bf16(p0 * (dp[j][0] - dl0) * p.scale,
+                                         p1 * (dp[j][1] - dl0) * p.scale);
+      df[j / 2][(j & 1) * 2 + 1] =
+          pack_bf16(p2 * (dp[j][2] - dl1) * p.scale,
+                    p3 * (dp[j][3] - dl1) * p.scale);
+    }
+    mma_ab<KT>(dq, df, ks, ND, DP, lane);    // dQ += dS K
+    __syncthreads();               // the slot is free for the next copy
+    cur = nxt;
+    have = more;
+    slot ^= 1;
+  }
+  cp_async_wait<0>();
+
+  // rows r0, r1 of the q block, columns 8 n + 2 tq, + 1 (zeros for a row
+  // with no visit)
+  bf16* dqg = static_cast<bf16*>(p.out0) + q0 * D;
+#pragma unroll
+  for (int n = 0; n < MAXN; ++n) {
+    if (n < ND) {
+      const int c = 8 * n + 2 * tq;
+      *reinterpret_cast<__nv_bfloat162*>(dqg + (long long)r0 * D + c) =
+          __floats2bfloat162_rn(dq[n][0], dq[n][1]);
+      *reinterpret_cast<__nv_bfloat162*>(dqg + (long long)r1 * D + c) =
+          __floats2bfloat162_rn(dq[n][2], dq[n][3]);
+    }
   }
 }
 
@@ -1333,23 +1534,6 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// shared-memory bytes of one CTA; kind 0 = fwd, 1 = dq, 2 = dkv
-long long smem_bytes(int kind, int bq, int D) {
-  const long long DP = D + 4;
-  long long floats, ints;
-  if (kind == 0) {
-    floats = bq * DP + 2LL * KT * DP + (long long)bq * PP;
-    ints = 2LL * bq + 2LL * KT;
-  } else if (kind == 1) {
-    floats = 2LL * bq * DP + 2LL * KT * DP + (long long)bq * PP + 2LL * bq;
-    ints = 2LL * bq + 2LL * KT;
-  } else {
-    floats = 2LL * bq * DP + 2LL * KT * DP + 2LL * bq * PP + 2LL * bq;
-    ints = 2LL * bq;
-  }
-  return 4 * (floats + ints);
-}
-
 template <typename K>
 int launch(K kernel, const Params& p, long long blocks, int threads,
            size_t smem, cudaStream_t stream) {
@@ -1377,39 +1561,78 @@ Params make_params(const void* q, const void* k, const void* v,
   p.B = B; p.Hq = Hq; p.Hkv = Hkv; p.G = Hkv > 0 ? Hq / Hkv : 0;
   p.Tq = Tq; p.Tk = Tk; p.D = D; p.bq = bq; p.bk = bk;
   p.R = rows; p.W = width; p.scale = scale;
-  p.parts = 1; p.slices = 1; p.ws = nullptr;
+  p.parts = 1; p.slices = 1; p.ws = nullptr; p.key_tile = 32;
   return p;
 }
 
 using Kernel = void (*)(Params);
 
-// the bf16 forward: 64-key sub-tiles where block_k allows, else 32
+// keys per sub-tile of the bf16 forward (64 where block_k allows, else
+// 32) and of the bf16 dQ (p.key_tile where block_k allows, else 32)
+int fwd_key_tile(const Params& p) { return p.bk % 64 == 0 ? 64 : 32; }
+int dq_key_tile(const Params& p) {
+  return p.key_tile == 64 && p.bk % 64 == 0 ? 64 : 32;
+}
+// q rows per unit of the bf16 dK, dV: 32 where block_q allows, else 16
+int dkv_rows(const Params& p) { return p.bq % 32 == 0 ? 32 : 16; }
+
+// shared-memory bytes of the CTA that dispatch() launches for (kind,
+// dtype): kind 0 = fwd, 1 = dq, 2 = dkv; dtype 0 = f32 (the scalar
+// kernels), 1 = bf16 (the tensor-core kernels)
+long long smem_bytes(const Params& p, int kind, int dtype) {
+  if (dtype == 1) {
+    if (kind == 0) return mma_smem_bytes(p.bq, p.D, fwd_key_tile(p));
+    if (kind == 1) return dq_mma_smem_bytes(p.bq, p.D, dq_key_tile(p));
+    return dkv_mma_smem_bytes(p.bk / std::max(p.parts, 1), p.D, dkv_rows(p));
+  }
+  const long long DP = p.D + 4, bq = p.bq;
+  long long floats, ints;
+  if (kind == 0) {
+    floats = bq * DP + 2LL * KT * DP + bq * PP;
+    ints = 2LL * bq + 2LL * KT;
+  } else if (kind == 1) {
+    floats = 2LL * bq * DP + 2LL * KT * DP + bq * PP + 2LL * bq;
+    ints = 2LL * bq + 2LL * KT;
+  } else {
+    floats = 2LL * bq * DP + 2LL * KT * DP + 2LL * bq * PP + 2LL * bq;
+    ints = 2LL * bq;
+  }
+  return 4 * (floats + ints);
+}
+
+// the bf16 forward
 int launch_fwd_mma(const Params& p, long long blocks, int flat,
                    cudaStream_t s) {
   if (p.D % 16 || p.D > MMA_MAX_D || !(p.scale > 0.f))
     return (int)cudaErrorInvalidValue;
-  const bool k64 = p.bk % 64 == 0;
+  const bool k64 = fwd_key_tile(p) == 64;
   Kernel k = k64 ? (flat ? fwd_mma_kernel<true, 64> : fwd_mma_kernel<false, 64>)
                  : (flat ? fwd_mma_kernel<true, 32> : fwd_mma_kernel<false, 32>);
-  return launch(k, p, blocks, 2 * p.bq,
-                (size_t)mma_smem_bytes(p.bq, p.D, k64 ? 64 : 32), s);
+  return launch(k, p, blocks, 2 * p.bq, (size_t)smem_bytes(p, 0, 1), s);
 }
 
-// the bf16 dK, dV: 32-row units where block_q allows, else 16; then, with
-// more than one group slice, the slice sum
+// the bf16 dQ
+int launch_dq_mma(const Params& p, long long blocks, int flat,
+                  cudaStream_t s) {
+  if (p.D % 16 || p.D > MMA_MAX_D) return (int)cudaErrorInvalidValue;
+  const bool k64 = dq_key_tile(p) == 64;
+  Kernel k = k64 ? (flat ? dq_mma_kernel<true, 64> : dq_mma_kernel<false, 64>)
+                 : (flat ? dq_mma_kernel<true, 32> : dq_mma_kernel<false, 32>);
+  return launch(k, p, blocks, 2 * p.bq, (size_t)smem_bytes(p, 1, 1), s);
+}
+
+// the bf16 dK, dV; then, with more than one group slice, the slice sum
 int launch_dkv_mma(const Params& p, int flat, cudaStream_t s) {
   if (p.D % 16 || p.D > MMA_MAX_D || p.parts <= 0 ||
       p.bk % (16 * p.parts) || p.slices <= 0 ||
       (p.slices > 1 && p.ws == nullptr))
     return (int)cudaErrorInvalidValue;
   const int keys = p.bk / p.parts;
-  const bool q32 = p.bq % 32 == 0;
+  const bool q32 = dkv_rows(p) == 32;
   Kernel k = q32 ? (flat ? dkv_mma_kernel<true, 32> : dkv_mma_kernel<false, 32>)
                  : (flat ? dkv_mma_kernel<true, 16> : dkv_mma_kernel<false, 16>);
   const long long blocks = (long long)p.R * p.B * p.Hkv * p.slices * p.parts;
-  const int e = launch(k, p, blocks, 2 * keys,
-                       (size_t)dkv_mma_smem_bytes(keys, p.D, q32 ? 32 : 16),
-                       s);
+  const int e = launch(k, p, blocks, 2 * keys, (size_t)smem_bytes(p, 2, 1), s);
   if (e != 0 || p.slices == 1) return e;
   const long long n4 = (long long)p.B * p.Hkv * p.Tk * p.D / 4;
   const long long grid = std::min<long long>((2 * n4 + 255) / 256, 132 * 8);
@@ -1420,25 +1643,25 @@ int launch_dkv_mma(const Params& p, int flat, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-// f32: fwd_kernel, dq_kernel, dkv_kernel (the scalar parity references);
-// bf16: fwd_mma_kernel, dq_kernel, dkv_mma_kernel
+// bf16: fwd_mma_kernel, dq_mma_kernel, dkv_mma_kernel; f32: fwd_kernel,
+// dq_kernel, dkv_kernel (the scalar parity references)
 int dispatch(const Params& p, int kind, long long blocks, int flat, int dtype,
              cudaStream_t s) {
-  if (kind == 0 && dtype == 1) return launch_fwd_mma(p, blocks, flat, s);
-  if (kind == 2 && dtype == 1) return launch_dkv_mma(p, flat, s);
+  if (dtype == 1) {
+    if (kind == 0) return launch_fwd_mma(p, blocks, flat, s);
+    if (kind == 1) return launch_dq_mma(p, blocks, flat, s);
+    if (kind == 2) return launch_dkv_mma(p, flat, s);
+    return (int)cudaErrorInvalidValue;
+  }
   Kernel k = nullptr;
   if (kind == 0 && dtype == 0)
     k = flat ? fwd_kernel<float, true> : fwd_kernel<float, false>;
   else if (kind == 1 && dtype == 0)
     k = flat ? dq_kernel<float, true> : dq_kernel<float, false>;
-  else if (kind == 1 && dtype == 1)
-    k = flat ? dq_kernel<__nv_bfloat16, true>
-             : dq_kernel<__nv_bfloat16, false>;
   else if (kind == 2 && dtype == 0)
     k = flat ? dkv_kernel<float, true> : dkv_kernel<float, false>;
   if (k == nullptr) return (int)cudaErrorInvalidValue;
-  return launch(k, p, blocks, THREADS, (size_t)smem_bytes(kind, p.bq, p.D),
-                s);
+  return launch(k, p, blocks, THREADS, (size_t)smem_bytes(p, kind, dtype), s);
 }
 
 bool shapes_ok(int Hq, int Hkv, int D, int bq, int bk) {
@@ -1473,9 +1696,12 @@ int doc_attn_fwd(DOC_ATTN_ARGS) {
                           static_cast<cudaStream_t>(stream));
 }
 
-int doc_attn_dq(DOC_ATTN_ARGS) {
+// key_tile: the bf16 kernel's keys per sub-tile (32, or 64 where block_k
+// allows); the f32 kernel ignores it
+int doc_attn_dq(DOC_ATTN_ARGS, int key_tile) {
   if (!shapes_ok(Hq, Hkv, D, bq, bk)) return (int)cudaErrorInvalidValue;
-  const Params p = DOC_ATTN_PARAMS;
+  Params p = DOC_ATTN_PARAMS;
+  p.key_tile = key_tile;
   return dispatch(p, 1, (long long)rows * B * Hq, flat, dtype,
                          static_cast<cudaStream_t>(stream));
 }
@@ -1493,8 +1719,13 @@ int doc_attn_dkv(DOC_ATTN_ARGS, int parts, int slices, float* ws) {
                           dtype, static_cast<cudaStream_t>(stream));
 }
 
-long long doc_attn_smem_bytes(int kind, int bq, int D) {
-  return smem_bytes(kind, bq, D);
+// shared-memory bytes of the CTA that the entry of `kind` launches for
+// these arguments (parts: dK/dV's key parts; key_tile: dQ's sub-tile)
+long long doc_attn_smem_bytes(int kind, int dtype, int bq, int bk, int D,
+                              int parts, int key_tile) {
+  Params p{};
+  p.bq = bq; p.bk = bk; p.D = D; p.parts = parts; p.key_tile = key_tile;
+  return smem_bytes(p, kind, dtype);
 }
 
 const char* doc_attn_error_string(int code) {

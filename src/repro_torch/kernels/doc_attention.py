@@ -26,7 +26,10 @@ each with the reference's signature minus ``interpret``:
 * :func:`flash_fwd` -> ``(o, lse)``: o in q's dtype, lse f32 (-inf on
   rows that see nothing; their o is 0).  In bf16 it runs on the tensor
   cores and takes head dims that are a multiple of 16 (others raise);
-* :func:`flash_bwd_dq` -> dq, over the same q-block rows and tables;
+* :func:`flash_bwd_dq` -> dq, over the same q-block rows and tables.
+  In bf16 it runs on the tensor cores, takes head dims that are a
+  multiple of 16 (others raise), and rounds only where the reference
+  does (dS to k's dtype before dS·K);
 * :func:`flash_bwd_dkv` -> ``(dk, dv)``, over the reverse tables
   (kv-block rows visited by q blocks), the GQA group summed in f32.  In
   bf16 it runs on the tensor cores, takes head dims that are a multiple
@@ -609,6 +612,9 @@ _KINDS = {"fwd": 0, "dq": 1, "dkv": 2}
 _SMEM_LIMIT = 232_448
 #: keys per sub-tile of the CUDA kernels: block_k must be a multiple
 KEY_TILE = 32
+#: keys per sub-tile of the bf16 dQ kernel where block_k allows it, else
+#: KEY_TILE (32 or 64; chosen by scripts/paged_split_sweep.py)
+DQ_KEY_TILE = 64
 #: the bf16 dK/dV kernel's split of a KV block row into key parts (16
 #: keys per warp), and the CTAs per SM that its group slices aim for
 #: (chosen by scripts/paged_split_sweep.py)
@@ -684,10 +690,10 @@ def _check_kernel_inputs(kind, q, k, v, metas, tables, grid, block_q,
     if D > 128 or (D * esize) % 16:
         raise ValueError(f"head dim {D} unsupported: at most 128 and a "
                          "multiple of 16 bytes")
-    if kind in ("fwd", "dkv") and q.dtype == torch.bfloat16 and D % 16:
+    if q.dtype == torch.bfloat16 and D % 16:
+        what = {"fwd": "forward", "dq": "dQ", "dkv": "dK/dV"}[kind]
         raise ValueError(f"head dim {D} unsupported by the bf16 tensor-core "
-                         f"{'forward' if kind == 'fwd' else 'dK/dV'}: a "
-                         "multiple of 16")
+                         f"{what}: a multiple of 16")
     if not (16 <= block_q <= 128 and block_q % 16 == 0):
         raise ValueError(f"block_q {block_q} unsupported: a multiple of 16 "
                          "up to 128")
@@ -735,9 +741,9 @@ def _check_kernel_inputs(kind, q, k, v, metas, tables, grid, block_q,
 def _launch(kind: str, name: str, q, k, v, q_doc, q_pos, kv_doc, kv_pos,
             tables, grid, block_q, block_k, scale, outs, do=None, lse=None,
             delta=None):
-    """Check the inputs and launch one entry of the library; dK/dV in
-    bf16 also gets its split plan and, for more than one group slice,
-    its f32 slice workspace."""
+    """Check the inputs and launch one entry of the library; dQ also gets
+    its sub-tile, dK/dV in bf16 its split plan and, for more than one
+    group slice, its f32 slice workspace."""
     from ._build import doc_attention_lib
 
     extra = () if do is None else (do, lse, delta)
@@ -745,7 +751,12 @@ def _launch(kind: str, name: str, q, k, v, q_doc, q_pos, kv_doc, kv_pos,
         kind, q, k, v, (q_doc, q_pos, kv_doc, kv_pos), tables, grid,
         block_q, block_k, extra)
     lib = doc_attention_lib()
-    need = lib.doc_attn_smem_bytes(_KINDS[kind], block_q, D)
+    parts, slices = 1, 1
+    if kind == "dkv" and q.dtype == torch.bfloat16:
+        parts, slices = dkv_split_plan(B, Hkv, rows, Hq // Hkv, block_k,
+                                       sm_count(q.device))
+    need = lib.doc_attn_smem_bytes(_KINDS[kind], _DTYPE_CODE[q.dtype],
+                                   block_q, block_k, D, parts, DQ_KEY_TILE)
     if need > _SMEM_LIMIT:
         raise ValueError(f"{name}: block_q {block_q}, D {D} need {need} "
                          f"bytes of shared memory (limit {_SMEM_LIMIT})")
@@ -767,11 +778,10 @@ def _launch(kind: str, name: str, q, k, v, q_doc, q_pos, kv_doc, kv_pos,
                 B, Hq, Hkv, Tq, Tk, D, block_q, block_k, rows, width,
                 int(grid == "flat"), float(scale), _DTYPE_CODE[q.dtype],
                 ctypes.c_void_p(stream)]
-        if kind == "dkv":
-            parts, slices, ws = 1, 1, None
-            if q.dtype == torch.bfloat16:
-                parts, slices = dkv_split_plan(B, Hkv, rows, Hq // Hkv,
-                                               block_k, sm_count(q.device))
+        if kind == "dq":
+            args.append(DQ_KEY_TILE)
+        elif kind == "dkv":
+            ws = None
             if slices > 1:
                 ws = torch.empty((2, slices, B, Hkv, Tk, D),
                                  dtype=torch.float32, device=q.device)

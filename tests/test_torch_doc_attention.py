@@ -293,6 +293,32 @@ def test_wrappers_raise_on_mixed_devices_and_bad_grid():
                       grid="rect")
 
 
+@pytest.mark.parametrize("D", [24, 64])
+def test_bf16_dq_inputs_take_only_tensor_core_head_dims(D):
+    """The dQ wrapper's input check, which runs before any launch: in
+    bf16 a head dim that is not a multiple of 16 is refused (the kernel
+    runs only on the tensor cores), one that is passes."""
+    rng = np.random.default_rng(7)
+    doc, pos, _, _ = _layout(1, 256, 256, 3)
+    tabs = tda.build_block_tables(doc, pos, doc, pos, block_q=64,
+                                  block_k=64)
+    fwd_t = tabs.flat_as_torch("cpu")[:3]
+    meta = tuple(_t(a) for a in (doc, pos, doc, pos))
+    q, do = (torch.from_numpy(rng.standard_normal((1, 4, 256, D)))
+             .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((1, 2, 256, D)))
+            .to(torch.bfloat16) for _ in range(2))
+    lse = torch.zeros((1, 4, 256), dtype=torch.float32)
+    args = ("dq", q, k, v, meta, fwd_t, "flat", 64, 64,
+            (do, lse, torch.zeros_like(lse)))
+    if D % 16:
+        with pytest.raises(ValueError, match="multiple of 16"):
+            tda._check_kernel_inputs(*args)
+    else:
+        assert tda._check_kernel_inputs(*args) == (
+            1, 4, 2, 256, 256, D, 4, fwd_t[0].shape[1])
+
+
 def test_run_starts_finds_every_row_in_queue_order():
     meta, _, tabs, *_ = _kernel_inputs("empty_rows")
     flags = _t(tabs.fq_flags)
