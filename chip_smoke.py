@@ -24,12 +24,22 @@ launch count set to 0 just before and read just after:
   finite losses and on 30 x (2, 1, 1) launches per step; one step with
   the kernels vs the plain attention from the same parameters and batch;
   and a small f32 model trained 3 steps on the card and on the CPU (the
-  kernels' twins) must agree.
+  kernels' twins) must agree;
+* context parallelism, on one 32768-token wlb_llm sequence: the doc
+  kernels at a CP hop's shape (``doc_hop_shapes``, with the kernel
+  parity); the CP islands at N = 4 (flashcp chunked and monolithic,
+  llama3, ring_zigzag) and N = 2 (flashcp), f32 and bf16, each rank's
+  outputs and gradients against the one-rank path (``cp_islands``); and
+  4 CP ranks training full-width starcoder2_3b cut to 4 layers for 3
+  steps, step 0 against one rank (``cp_train``).  The ranks are spawned
+  after the build; where they share a card they use gloo, whose
+  exchange goes through host memory, else NCCL with one rank per card.
 
 Run from the repository root:
 
     python3 chip_smoke.py            # everything (one GPU)
     python3 chip_smoke.py --quick    # build + parity of all five kernels
+                                     # (and the doc kernels at a hop shape)
 
 Prints one JSON line per phase, the card's name and power limit, the
 kernel table, and as its last line
@@ -81,6 +91,9 @@ T_HQ, T_HKV, T_D, T_BLOCK = 24, 2, 128, 128
 # the outputs and of p / dS.  Gradients are held relative to their
 # largest entry.
 DOC_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# the bf16 dK/dV rounds only its outputs (Pᵀ and dSᵀ enter its products as
+# hi + lo bf16 pairs), so it has its own, tighter bound
+DKV_BF16_TOL = 1e-2
 # matrix products per visited (q block, kv block) pair and head
 MATMULS = {"flash_fwd": 2, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}
 # full-width flash vs plain step (bf16): relative bounds on loss and
@@ -88,6 +101,34 @@ MATMULS = {"flash_fwd": 2, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}
 STEP_LOSS_TOL, STEP_GNORM_TOL = 5e-3, 5e-2
 # f32 smoke model, 3 steps, card kernels vs CPU twins
 SMOKE_TRAIN_TOL = 1e-4
+
+# context parallelism: full-width starcoder2_3b attention on one
+# 32768-token wlb_llm sequence.  The island and hop checks take the batch
+# of pipeline step 6, whose Eq.-5 bucket at N = 4 (4096) is half of
+# t_loc (8192), so a hop's keys are not shaped like its queries (at
+# steps 0 and 1 one rank's tokens are all non-last and the bucket is the
+# whole t_loc).
+CP_SEQ, CP_STEP = 32768, 6
+CP_ISLANDS = ((4, "flashcp", "chunked"), (4, "flashcp", "none"),
+              (4, "llama3", "chunked"), (4, "ring_zigzag", "chunked"),
+              (2, "flashcp", "chunked"))
+# islands vs the one-rank path, relative to the largest entry: the same
+# kernels over other KV subsets, merged by online LSE in another order
+CP_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# CP training: depth cut to 4 layers (N replicas share the card), 3 steps;
+# step 0's loss and grad norm vs the one-rank step, relative
+CP_TRAIN_WORLD, CP_TRAIN_LAYERS, CP_TRAIN_STEPS = 4, 4, 3
+CP_TRAIN_TOL = 1e-2
+# ... and every step-0 gradient leaf within CP_TRAIN_TOL (relative norm of
+# the difference) but the embedding table's: its backward scatter-adds
+# each token's row gradient into a bf16 table, one rounding per add, so a
+# frequent token's row stops growing once it is large, and one rank (4x
+# the adds per row of a CP rank) loses more.  Printed, not gated here; in
+# f32 every leaf, this one too, agrees (scripts/cp_grad_check.py, and
+# test_cp_train_step_matches_jax on the CPU).
+EMBED_LEAF = "embed/e"
+# a rank group that outlives this is killed and the phase fails
+RANK_TIMEOUT = 300
 
 
 def emit(phase: str, **kw) -> None:
@@ -598,19 +639,23 @@ def doc_kernel_phase(torch, timer, quick: bool) -> dict:
         grads = {"dq": (dq, pdq), "dk": (dk, pdk), "dv": (dv, pdv)}
         rel = {n: _err(a, b) / max(b.float().abs().max().item(), 1e-30)
                for n, (a, b) in grads.items()}
+        dkv_tol = DKV_BF16_TOL if name == "bfloat16" else tol
         emit("doc_kernel_parity", dtype=name, grid=grid, pad_tokens=pad,
-             tol=tol, o_err=e_o, lse_err=e_lse,
+             tol=tol, dkv_tol=dkv_tol, o_err=e_o, lse_err=e_lse,
              grad_rel_err=rel, grad_abs_err={n: _err(a, b) for n, (a, b)
                                              in grads.items()},
              empty_rows=int(empty.sum()), empty_rows_exact=empty_ok,
              visits=visits_of(batch) if grid == "flat" else None)
-        if max(e_o, e_lse, *rel.values()) > tol or not empty_ok:
+        if max(e_o, e_lse, rel["dq"]) > tol or not empty_ok \
+                or max(rel["dk"], rel["dv"]) > dkv_tol:
             raise AssertionError(f"doc kernel parity failed: {name} {grid}")
         err["flash_fwd"] = max(err["flash_fwd"], e_o)
         err["flash_bwd_dq"] = max(err["flash_bwd_dq"], _err(dq, pdq))
         err["flash_bwd_dkv"] = max(err["flash_bwd_dkv"], _err(dk, pdk),
                                    _err(dv, pdv))
         del q, k, v, do, o, po, dq, dk, dv, pdq, pdk, pdv, grads
+    for name, e in doc_hop_phase(torch, gen).items():
+        err[name] = max(err[name], e)
     if quick:
         return {"err": err}
 
@@ -675,6 +720,501 @@ def doc_kernel_phase(torch, timer, quick: bool) -> dict:
     return {"err": err, "times": times}
 
 
+def cp_batch(cp: int, strategy: str = "flashcp", overlap: str = "chunked",
+             step: int = CP_STEP):
+    """A 32768-token wlb_llm batch planned for ``cp`` ranks, with the
+    flat visit tables of (strategy, overlap); numpy, ``perm`` kept."""
+    from repro_torch.data.pipeline import PipelineConfig, make_batch
+    pipe = PipelineConfig(dataset="wlb_llm", context_len=CP_SEQ,
+                          batch_per_host=1, cp_size=cp, strategy=strategy,
+                          vocab_size=49152, align=T_BLOCK, emit_tables=True,
+                          table_overlap=overlap, table_grid="flat")
+    return make_batch(pipe, step)
+
+
+def doc_hop_phase(torch, gen) -> dict:
+    """The doc kernels at one CP hop's shape, f32 and bf16: rank 0's
+    t_loc queries against the Eq.-5 buffer of hop 0 (rank 3's: buf_len
+    keys with their own doc/pos) of a real N = 4 batch, at the training
+    heads, through the partial (o, lse) op with a nonzero lse cotangent;
+    against the twins with dlse folded into delta as the op folds it."""
+    from repro_torch.core.merge import NEG
+    from repro_torch.kernels import doc_attention as da
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.steps import batch_to_device
+    from repro_torch.table_layout import table_keys
+
+    N, r, h = 4, 0, 0
+    batch = batch_to_device(cp_batch(N), "cuda")
+    t_loc = batch["doc"].shape[1] // N
+    buf = batch["send_idx"].shape[-1]
+    src = (r - 1 - h) % N
+    meta = [batch["doc"][:, :t_loc].contiguous(),
+            batch["pos"][:, :t_loc].contiguous(),
+            batch["gath_doc"][:, src * buf:(src + 1) * buf].contiguous(),
+            batch["gath_pos"][:, src * buf:(src + 1) * buf].contiguous()]
+    tabs = tuple(batch[k][:, r, h].contiguous()
+                 for k in table_keys("tab_hop_", "flat"))
+    kw = dict(scale=T_D ** -0.5, block_q=T_BLOCK, block_k=T_BLOCK,
+              grid="flat")
+    err = {n: 0.0 for n in DOC_KERNELS}
+    for name in ("float32", "bfloat16"):
+        dtype = getattr(torch, name)
+        q, do = (torch.randn((1, T_HQ, t_loc, T_D), generator=gen,
+                             device="cuda").to(dtype) for _ in range(2))
+        k, v = (torch.randn((1, T_HKV, buf, T_D), generator=gen,
+                            device="cuda").to(dtype) for _ in range(2))
+        dlse = torch.randn((1, T_HQ, t_loc), generator=gen, device="cuda")
+        qg, kg, vg = (x.clone().requires_grad_(True) for x in (q, k, v))
+        o, lse = kops.doc_flash_attention(qg, kg, vg, *meta, tabs,
+                                          partial=True, **kw)
+        m = torch.clamp(lse, min=NEG)
+        dq, dk, dv = torch.autograd.grad(
+            (o.float() * do.float()).sum() + (m * dlse).sum(), (qg, kg, vg))
+        torch.cuda.synchronize()
+        po, plse = da.flash_fwd_plain(q, k, v, *meta, tabs[:3], **kw)
+        empty = torch.isinf(plse)
+        delta = (do.float() * po.float()).sum(-1) \
+            - torch.where(empty, 0.0, dlse)
+        pdq = da.flash_bwd_dq_plain(q, k, v, do, plse, delta, *meta,
+                                    tabs[:3], **kw)
+        pdk, pdv = da.flash_bwd_dkv_plain(q, k, v, do, plse, delta, *meta,
+                                          tabs[3:], **kw)
+        fin = ~empty
+        e_o = _err(o, po)
+        e_lse = (lse[fin] - plse[fin]).abs().max().item()
+        empty_ok = bool(torch.equal(torch.isinf(lse), empty))
+        grads = {"dq": (dq, pdq), "dk": (dk, pdk), "dv": (dv, pdv)}
+        rel = {n: _err(a, b) / max(b.float().abs().max().item(), 1e-30)
+               for n, (a, b) in grads.items()}
+        tol = DOC_TOL[name]
+        dkv_tol = DKV_BF16_TOL if name == "bfloat16" else tol
+        emit("doc_hop_shapes", dtype=name, tq=t_loc, tk=buf, hop=h,
+             rank=r, src_rank=src, heads=[T_HQ, T_HKV, T_D], tol=tol,
+             dkv_tol=dkv_tol, o_err=e_o, lse_err=e_lse, grad_rel_err=rel,
+             empty_rows=int(empty.sum()), empty_rows_exact=empty_ok,
+             visits=int(((tabs[2] & 4) != 0).sum()))
+        if max(e_o, e_lse, rel["dq"]) > tol or not empty_ok \
+                or max(rel["dk"], rel["dv"]) > dkv_tol or t_loc == buf:
+            raise AssertionError(f"doc kernels at the hop shape: {name}")
+        err["flash_fwd"] = max(err["flash_fwd"], e_o)
+        err["flash_bwd_dq"] = max(err["flash_bwd_dq"], _err(dq, pdq))
+        err["flash_bwd_dkv"] = max(err["flash_bwd_dkv"], _err(dk, pdk),
+                                   _err(dv, pdv))
+    return err
+
+
+# ----------------------------------------------------------------------- #
+# context parallelism: the CP islands and the CP training step
+# ----------------------------------------------------------------------- #
+def cp_backend(torch, world: int) -> str:
+    """NCCL with one rank per card; gloo where ranks share a card (NCCL
+    refuses two ranks on one device), its exchange through host memory."""
+    return "nccl" if torch.cuda.device_count() >= world else "gloo"
+
+
+def cp_inputs(torch):
+    """q, k, v and the output cotangent w of the island checks, packed
+    order, f32 on the CPU, from a seed."""
+    gen = torch.Generator().manual_seed(77)
+    shape_q, shape_k = (1, T_HQ, CP_SEQ, T_D), (1, T_HKV, CP_SEQ, T_D)
+    return [torch.randn(s, generator=gen)
+            for s in (shape_q, shape_k, shape_k, shape_q)]
+
+
+def plan_order(torch, x, perm):
+    """Packed order -> the plan positions ``perm`` (1-D; -1 is padding,
+    0 there) along the token axis."""
+    p = torch.from_numpy(perm)
+    out = x[:, :, p.clamp(min=0)]
+    return out * (p >= 0)[None, None, :, None].to(x.dtype)
+
+
+def island_run(torch, batch, q, k, v, w, strategy, overlap, comm):
+    """One rank's island forward and backward on the card: (o, dq, dk,
+    dv) of this rank's token slice, and the seconds it took."""
+    from repro_torch.core.cp_attention import make_cp_context
+    from repro_torch.data.pipeline import exec_style_of
+    from repro_torch.launch.steps import batch_to_device
+
+    arrays = batch_to_device({k_: v_ for k_, v_ in batch.items()
+                              if k_ not in ("tokens", "labels")}, "cuda")
+    ctx = make_cp_context(arrays, strategy=exec_style_of(strategy),
+                          impl="flash", head_dim=T_D, overlap=overlap,
+                          block_q=T_BLOCK, block_k=T_BLOCK, grid="flat",
+                          comm=comm)
+    q, k, v = (x.clone().requires_grad_(True) for x in (q, k, v))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    o = ctx.attn(q, k, v)
+    grads = torch.autograd.grad(o, (q, k, v), w)
+    torch.cuda.synchronize()
+    return [o.detach(), *grads], time.perf_counter() - t0
+
+
+def cp_reference(torch, path: str) -> None:
+    """The one-rank path on the card over the same sequence, per dtype:
+    o, dq, dk, dv in packed order, saved to ``path`` for the ranks."""
+    q0, k0, v0, w0 = cp_inputs(torch)
+    batch = cp_batch(1)
+    perm = batch["perm"]
+    ref = {}
+    for name in ("float32", "bfloat16"):
+        dtype = getattr(torch, name)
+        xs = [plan_order(torch, x, perm[0]).to("cuda", dtype)
+              for x in (q0, k0, v0, w0)]
+        outs, _ = island_run(torch, batch, *xs, "flashcp", "chunked", None)
+        p = torch.from_numpy(perm[0]).to("cuda")
+        ok = p >= 0
+        for n, x in zip(("o", "dq", "dk", "dv"), outs):
+            packed = torch.zeros((*x.shape[:2], CP_SEQ, T_D),
+                                 dtype=torch.float32, device="cuda")
+            packed[:, :, p[ok]] = x.float()[:, :, ok]
+            ref[f"{name}/{n}"] = packed.cpu()
+        del xs, outs
+    torch.save(ref, path)
+
+
+def cp_island_rank(rank, world, backend, store, out_dir, ref_path, cases):
+    """One rank of the island checks: each case in f32 and bf16 on this
+    rank's token slice, its outputs and gradients held against the
+    one-rank path at the same packed positions."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.ranks import init_rank
+
+    comm, _ = init_rank(rank, world, backend, store, "cuda")
+    try:
+        ref = torch.load(ref_path)
+        q0, k0, v0, w0 = cp_inputs(torch)
+        out = []
+        for strategy, overlap in cases:
+            batch = cp_batch(world, strategy, overlap)
+            perm = batch["perm"]
+            t_loc = perm.shape[1] // world
+            my = slice(rank * t_loc, (rank + 1) * t_loc)
+            pm = torch.from_numpy(perm[0, my])
+            ok = pm >= 0
+            hop = batch.get("tab_hop_fq_flags")
+            info = {"strategy": strategy, "overlap": overlap, "rank": rank,
+                    "t_loc": t_loc, "tokens": int(ok.sum()),
+                    "buf_len": batch["send_idx"].shape[-1],
+                    "comm_tokens": int((batch["send_idx"][0, rank]
+                                        >= 0).sum()),
+                    "visits_per_hop": None if hop is None else
+                    [int(x) for x in ((hop[0, rank] & 4) != 0).sum(-1)]}
+            for name in ("float32", "bfloat16"):
+                dtype = getattr(torch, name)
+                xs = [plan_order(torch, x, perm[0, my]).to("cuda", dtype)
+                      for x in (q0, k0, v0, w0)]
+                reset_counts()
+                outs, sec = island_run(torch, batch, *xs, strategy,
+                                       overlap, comm)
+                rel = {}
+                for n, x in zip(("o", "dq", "dk", "dv"), outs):
+                    want = ref[f"{name}/{n}"]
+                    got = x.float()[:, :, ok.to("cuda")].cpu()
+                    rel[n] = (got - want[:, :, pm[ok]]).abs().max().item() \
+                        / max(want.abs().max().item(), 1e-30)
+                out.append({**info, "dtype": name, "rel_err": rel,
+                            "seconds": sec, "launches": read_counts()})
+                del xs, outs
+        with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(torch, fn, world: int, *args) -> list:
+    """Spawn ``world`` ranks of ``fn`` on this host (the kernels are
+    built already); their JSON results, by rank."""
+    import tempfile
+    from repro_torch.launch.ranks import spawn_ranks
+
+    backend = cp_backend(torch, world)
+    with tempfile.TemporaryDirectory() as tmp:
+        spawn_ranks(fn, world, args=(world, backend, f"{tmp}/store", tmp,
+                                     *args), timeout=RANK_TIMEOUT)
+        out = []
+        for r in range(world):
+            with open(Path(tmp) / f"rank{r}.json") as f:
+                out.append(json.load(f))
+    return out
+
+
+def island_launches(world: int, overlap: str) -> dict:
+    """Each doc kernel's launches on one rank for one island forward and
+    backward: once on the local KV and once per hop (chunked), or once
+    over the whole gathered KV (none)."""
+    n = world if overlap == "chunked" else 1
+    return {name: n for name in DOC_KERNELS}
+
+
+def cp_islands_phase(torch) -> None:
+    """The CP islands at full-width starcoder2_3b attention (Hq 24, Hkv 2,
+    D 128, flat tables, the CUDA kernels in partial mode) on one 32768-
+    token sequence, f32 and bf16, each case against the one-rank path;
+    per rank its tokens, Eq.-5 bucket, sent tokens and visits per hop,
+    and the K/V bytes the exchange moves (flashcp: the Eq.-5 buckets)
+    against a full-KV all-gather's."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = f"{tmp}/ref.pt"
+        t0 = time.perf_counter()
+        cp_reference(torch, ref)
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit("cp_reference", seq=CP_SEQ, step=CP_STEP,
+             seconds=time.perf_counter() - t0)
+        for world in sorted({w for w, _, _ in CP_ISLANDS}, reverse=True):
+            cases = [(s, o) for w, s, o in CP_ISLANDS if w == world]
+            t0 = time.perf_counter()
+            results = [x for rank in run_ranks(torch, cp_island_rank, world,
+                                               ref, cases) for x in rank]
+            backend = cp_backend(torch, world)
+            for strategy, overlap in cases:
+                for name in ("float32", "bfloat16"):
+                    rows = [x for x in results if x["strategy"] == strategy
+                            and x["overlap"] == overlap
+                            and x["dtype"] == name]
+                    err = {n: max(x["rel_err"][n] for x in rows)
+                           for n in ("o", "dq", "dk", "dv")}
+                    buf, t_loc = rows[0]["buf_len"], rows[0]["t_loc"]
+                    esize = 4 if name == "float32" else 2
+                    kv = 2 * T_HKV * T_D * esize      # K and V of one token
+                    # a hop carries the Eq.-5 bucket (flashcp) or the
+                    # whole local KV (llama3, ring)
+                    seg = buf if strategy == "flashcp" else t_loc
+                    emit("cp_islands", world=world, backend=backend,
+                         exchange=("gloo through host memory, not NVLink"
+                                   if backend == "gloo" else "nccl"),
+                         strategy=strategy, overlap=overlap, dtype=name,
+                         tol=CP_TOL[name], rel_err=err,
+                         wire_bytes=(world - 1) * world * seg * kv,
+                         allgather_bytes=(world - 1) * world * t_loc * kv,
+                         ranks=[{k: x[k] for k in (
+                             "rank", "tokens", "t_loc", "buf_len",
+                             "comm_tokens", "visits_per_hop", "seconds",
+                             "launches")} for x in rows])
+                    if max(err.values()) > CP_TOL[name]:
+                        raise AssertionError(
+                            f"CP island {strategy}/{overlap} at N={world} "
+                            f"({name}) disagrees with one rank: {err}")
+                    want = island_launches(world, overlap)
+                    if any(x["launches"][n] != want[n] for x in rows
+                           for n in want):
+                        raise AssertionError(
+                            f"CP island {strategy}/{overlap} at N={world} "
+                            f"launched {[x['launches'] for x in rows]}, "
+                            f"want {want} per rank")
+            emit("cp_islands_spawn", world=world, backend=backend,
+                 seconds=time.perf_counter() - t0)
+
+
+def cp_train_args(*extra):
+    return train_args("--arch", ARCH, "--layers", str(CP_TRAIN_LAYERS),
+                      "--seq-len", str(CP_SEQ), "--batch", "1",
+                      "--steps", str(CP_TRAIN_STEPS), "--device", "cuda",
+                      "--log-every", "100", *extra)
+
+
+def param_checksum(params) -> float:
+    from repro_torch.optim._slices import leaves
+    return float(sum(p.float().sum().item() for p in leaves(params)))
+
+
+def named(tree, prefix: str = "") -> list:
+    """(name, tensor) leaves in sorted-key order; a stacked layer leaf
+    is split into one entry per layer."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in named(tree[k], f"{prefix}/{k}" if prefix else k)]
+    if prefix.startswith("layers/"):
+        return [(f"{prefix}[{i}]", t) for i, t in enumerate(tree)]
+    return [(prefix, tree)]
+
+
+def _widen(tree):
+    if isinstance(tree, dict):
+        return {k: _widen(v) for k, v in tree.items()}
+    return tree.float()
+
+
+def step0_grads(dtype: str, cp: int, comm, device) -> tuple:
+    """Step 0's loss and gradients ({leaf: grad} on the host) of the CP
+    training run's model and stream, on one rank (``cp`` 1) or as this
+    rank of ``comm``; ``dtype`` float32 widens the bf16 parameters."""
+    import dataclasses
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.data.pipeline import PipelineConfig, make_batch
+    from repro_torch.launch.steps import batch_to_device, build_train_step
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=CP_TRAIN_LAYERS)
+    run = RunConfig(arch=ARCH, cp_strategy="flashcp", attention_impl="flash",
+                    kernel_grid="flat", seed=0)
+    pipe = PipelineConfig(
+        dataset="wlb_llm", context_len=CP_SEQ, batch_per_host=1, cp_size=cp,
+        strategy="flashcp", vocab_size=cfg.vocab_size, seed=0, align=128,
+        emit_tables=True, table_overlap=run.cp_overlap,
+        table_grid=run.kernel_grid)
+    params = init_params(cfg, seed=0, device=device)
+    if dtype == "float32":
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+        params = _widen(params)
+    step = build_train_step(cfg, run, q_chunk=128, device=device, comm=comm)
+    batch = batch_to_device(make_batch(pipe, 0), device)
+    (loss, _), grads = step.loss_and_grads(params, batch)
+    return float(loss), {n: g.detach().cpu() for n, g in named(grads)}
+
+
+def compare_grads(got: dict, want: dict) -> dict:
+    """``got`` against ``want`` ({leaf: grad}): global norms, the whole
+    gradient's relative error, and per leaf its relative error
+    ||got - want|| / ||want|| and its share of the squared-norm gap
+    (leaves by falling error)."""
+    rows, sq_got, sq_want, sq_diff = [], 0.0, 0.0, 0.0
+    for name, w in want.items():
+        g, w = got[name].double(), w.double()
+        nw, ng, nd = w.norm().item(), g.norm().item(), (g - w).norm().item()
+        sq_got, sq_want, sq_diff = (sq_got + ng ** 2, sq_want + nw ** 2,
+                                    sq_diff + nd ** 2)
+        rows.append({"leaf": name, "norm": nw, "rel_err": nd / max(nw, 1e-30),
+                     "norm_sq_gap": ng ** 2 - nw ** 2})
+    for r in rows:
+        r["norm_sq_gap"] /= sq_want
+    return {"gnorm": sq_got ** 0.5, "gnorm_ref": sq_want ** 0.5,
+            "gnorm_rel_diff": (sq_got / sq_want) ** 0.5 - 1.0,
+            "grad_rel_err": (sq_diff / sq_want) ** 0.5,
+            "leaves": sorted(rows, key=lambda r: -r["rel_err"])}
+
+
+def cp_train_rank(rank, world, backend, store, out_dir, grad_dir):
+    """One rank of the CP training run: step 0's gradients (rank 0 saves
+    them to ``grad_dir``), then ``train`` at ``--mesh 1xN``; the
+    parameters' checksum before and after."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.ranks import init_rank
+    from repro_torch.models import init_params
+
+    comm, dev = init_rank(rank, world, backend, store, "cuda")
+    try:
+        _, grads = step0_grads("bfloat16", world, comm, dev)
+        if rank == 0:
+            torch.save(grads, Path(grad_dir) / "grads.pt")
+        del grads
+        args = cp_train_args("--mesh", f"1x{world}", "--dist-backend",
+                             backend)
+        cfg = dataclasses.replace(get_config(ARCH),
+                                  num_layers=CP_TRAIN_LAYERS)
+        params = init_params(cfg, seed=0, device=dev)
+        checksum = param_checksum(params)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        res = train(args, params=params, comm=comm, device=dev)
+        launches = read_counts()
+        with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+            json.dump({"rank": rank, "losses": res["losses"],
+                       "grad_norms": res["grad_norms"],
+                       "step_s": res["step_s"], "tokens": res["tokens"],
+                       "peak_bytes": torch.cuda.max_memory_allocated(dev),
+                       "param_checksum": checksum,
+                       "final_param_checksum": param_checksum(res["params"]),
+                       "launches": launches}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def cp_train_phase(torch) -> dict:
+    """Full-width starcoder2_3b cut to CP_TRAIN_LAYERS layers, bf16 with
+    an fp32 master, flashcp over N ranks on one 32768-token sequence per
+    step: step 0's loss, grad norm and every gradient leaf but the
+    embedding table against the one-rank step on the same batch from the
+    same parameters; every loss finite; every rank's launches exactly
+    layers x steps x (1 + N-1 hops) x (2, 1, 1); the replicas equal
+    before the first step and after the last."""
+    import dataclasses
+    import math
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    world = CP_TRAIN_WORLD
+    _, g1 = step0_grads("bfloat16", 1, None, "cuda")
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=CP_TRAIN_LAYERS)
+    params = init_params(cfg, seed=0, device="cuda")
+    checksum = param_checksum(params)
+    # one rank, step 0 of the same stream from the same parameters
+    torch.cuda.reset_peak_memory_stats()
+    res1 = train(cp_train_args("--steps", "1"), params=params)
+    one = {"loss": res1["losses"][0], "grad_norm": res1["grad_norms"][0],
+           "step_s": res1["step_s"][0],
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    del params, res1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    backend = cp_backend(torch, world)
+    with tempfile.TemporaryDirectory() as grad_dir:
+        t0 = time.perf_counter()
+        ranks = run_ranks(torch, cp_train_rank, world, grad_dir)
+        wall = time.perf_counter() - t0
+        leaf = compare_grads(torch.load(Path(grad_dir) / "grads.pt"), g1)
+    del g1
+    r0 = ranks[0]
+    d_loss = abs(r0["losses"][0] - one["loss"]) / abs(one["loss"])
+    d_norm = abs(r0["grad_norms"][0] - one["grad_norm"]) / one["grad_norm"]
+    gated = [r for r in leaf["leaves"] if r["leaf"] != EMBED_LEAF]
+    embed = next(r for r in leaf["leaves"] if r["leaf"] == EMBED_LEAF)
+    want = {n: CP_TRAIN_LAYERS * CP_TRAIN_STEPS * world * k
+            for n, k in (("flash_fwd", 2), ("flash_bwd_dq", 1),
+                         ("flash_bwd_dkv", 1))}
+    per_rank = []
+    for x in ranks:
+        step_s = statistics.mean(x["step_s"][1:])
+        per_rank.append({"rank": x["rank"], "losses": x["losses"],
+                         "grad_norms": x["grad_norms"], "step_s": x["step_s"],
+                         "step_s_after_first": step_s,
+                         "tokens_per_s": CP_SEQ / step_s,
+                         "peak_bytes": x["peak_bytes"],
+                         "param_checksum": x["param_checksum"],
+                         "final_param_checksum": x["final_param_checksum"],
+                         "launches": x["launches"]})
+    emit("cp_train", arch=ARCH, layers=CP_TRAIN_LAYERS, world=world,
+         backend=backend,
+         exchange=("gloo through host memory, not NVLink"
+                   if backend == "gloo" else "nccl"),
+         seq_len=CP_SEQ, t_loc=CP_SEQ // world, steps=CP_TRAIN_STEPS,
+         one_rank_step0=one, loss_rel_diff=d_loss, grad_norm_rel_diff=d_norm, tol=CP_TRAIN_TOL,
+         grad_rel_err=leaf["grad_rel_err"], worst_leaves=gated[:6],
+         embed_leaf=embed, expected_launches=want, wall_s=wall,
+         one_rank_param_checksum=checksum, ranks=per_rank)
+    finite = all(math.isfinite(v) for x in ranks
+                 for v in x["losses"] + x["grad_norms"])
+    if not finite:
+        raise AssertionError("CP training produced non-finite losses")
+    if not (d_loss <= CP_TRAIN_TOL and d_norm <= CP_TRAIN_TOL):
+        raise AssertionError("CP and one-rank training steps disagree")
+    if gated[0]["rel_err"] > CP_TRAIN_TOL:
+        raise AssertionError(f"CP step-0 gradient of {gated[0]['leaf']} is "
+                             f"{gated[0]['rel_err']:.3g} from one rank's")
+    if any(x["param_checksum"] != checksum for x in ranks):
+        raise AssertionError("CP ranks started from other parameters")
+    if len({x["final_param_checksum"] for x in ranks}) != 1:
+        raise AssertionError("CP replicas differ after the last step")
+    if any(x["launches"][n] != want[n] for x in ranks for n in want):
+        raise AssertionError(f"CP training launches "
+                             f"{[x['launches'] for x in ranks]}, want {want} "
+                             "per rank")
+    return {"ranks": per_rank}
+
+
 # ----------------------------------------------------------------------- #
 # the training path
 # ----------------------------------------------------------------------- #
@@ -683,9 +1223,9 @@ def train_args(*extra):
     return build_parser().parse_args(list(extra))
 
 
-def train(args, params=None):
+def train(args, params=None, comm=None, device=None):
     from repro_torch.launch.train import train as run_train
-    return run_train(args, params)
+    return run_train(args, params, comm=comm, device=device)
 
 
 # device-time categories of a profile, by kernel name
@@ -933,6 +1473,10 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         smoke_train_phase(torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        cp_islands_phase(torch)
+        cp_train_phase(torch)
         errs = {**kern["err"], **doc["err"]}
         times = {**kern["times"], **doc["times"]}
         for name in REPLACES:

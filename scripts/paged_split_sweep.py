@@ -12,7 +12,7 @@ the time of ``chip_smoke.py``'s library yardstick.
   ``SPLIT_MIN_POSITIONS`` x ``SPLIT_BLOCKS_PER_SM`` (dense oracle; SDPA);
 * ``dkv``: ``flash_bwd_dkv`` on the step-0 training batch over the key
   parts x group slices of ``dkv_split_plan`` (the twin, at
-  ``chip_smoke.DOC_TOL``; SDPA's backward);
+  ``chip_smoke.DKV_BF16_TOL``; SDPA's backward);
 * ``dq``: ``flash_bwd_dq`` on the same batch at each keys-per-sub-tile
   width the bf16 kernel is built with (``DQ_KEY_TILE``; the twin, at
   ``chip_smoke.DOC_TOL``; SDPA's backward).
@@ -133,7 +133,7 @@ def sweep_dkv(torch, timer, gen, sms) -> None:
 
     batch, meta, _, rev_t, args, kw = doc_case(torch, gen)
     pdk, pdv = da.flash_bwd_dkv_plain(*args, *meta, rev_t, **kw)
-    tol = cs.DOC_TOL["bfloat16"]
+    tol = cs.DKV_BF16_TOL
     rows, G = cs.SEQ // cs.T_BLOCK, cs.T_HQ // cs.T_HKV
     plan = da.dkv_split_plan
     chosen = plan(1, cs.T_HKV, rows, G, cs.T_BLOCK, sms)

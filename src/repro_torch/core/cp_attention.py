@@ -1,20 +1,39 @@
-"""Context-parallel attention context, at one device (the port of the
-reference's ``repro.core.cp_attention``, N = 1 slice).
+"""Context-parallel attention islands on ``torch.distributed`` (the port
+of the reference's ``repro.core.cp_attention``).
 
 Every strategy runs on the partial-attention + online-LSE merge
 substrate (:mod:`repro_torch.core.merge`): attention against a KV subset
 yields a merge-ready partial ``(o, m, l)``, and the flash kernels' ``(o,
-lse)`` form is the triple ``(o, m=lse, l=1)``.  With ``overlap="chunked"``
-a rank attends its local KV first and then each of the N-1 arriving
-buffers; at N = 1 there are no hops, so the step is the local partial,
-finalized.
+lse)`` form is the triple ``(o, m=lse, l=1)``.  Strategies differ in
+which KV subsets exist and how they move between the N ranks of the CP
+group (:mod:`repro_torch.core.comm`):
 
-``impl`` picks the kernel: ``"flash"`` runs the CUDA training kernels
-over the pipeline's ``tab_loc_*`` visit tables (the reference's
+* ``flashcp`` / ``contiguous`` — sharding-aware communication: only the
+  compacted non-last-shard KV buffer (Eq. 5) moves.  ``overlap="chunked"``
+  (default) moves it in N-1 ring hops: hop 1 is started before the
+  local-KV partial, and each arriving buffer is forwarded before it is
+  attended, so the next hop is in flight during this hop's attention.
+  ``overlap="none"`` all-gathers the buffers and attends ``[local |
+  gathered]`` once, with this rank's own gathered segment masked as doc
+  -2 (those keys are already local).
+* ``allgather`` (Llama3 and Per-Doc CP) — the full local KV is the
+  payload, hopped (chunked) or all-gathered (none).
+* ``ring`` — Ring Attention: chunked is the gather engine above;
+  ``overlap="none"`` is the plain rotation loop (the reference's seed
+  island), which has no kernel form, so ring + flash always runs chunked.
+
+Each rank holds its slice exactly as the reference's ``shard_map``
+specs give it: q/k/v and doc/pos split along tokens (worker j owns plan
+positions ``[j t_loc, (j+1) t_loc)``), ``send_idx`` and the per-rank
+visit tables split along their rank axis, ``gath_doc``/``gath_pos``
+replicated.  The backward is autograd through the hops and gathers:
+each hop sends its cotangent back along the inverse permutation, and
+the all-gather's backward is a reduce-scatter.
+
+``impl`` picks the kernel: ``"flash"`` runs the CUDA training kernels in
+partial mode over the pipeline's ``tab_*`` visit tables (the reference's
 ``"pallas"``); ``"plain"`` the chunked dense attention (its ``"xla"``).
-The CP islands on ``torch.distributed`` (N > 1) and the monolithic
-``overlap="none"`` islands are the next slice of the port and raise
-``NotImplementedError``.
+At N = 1 no communication happens and no process group is needed.
 """
 
 from __future__ import annotations
@@ -26,15 +45,15 @@ import torch
 
 from repro_torch.models.context import ExecContext
 from repro_torch.table_layout import table_keys
-from .merge import NEG, finalize_partial
+from .comm import CPComm, all_gather_tiled, hop_start, hop_wait
+from .merge import NEG, _merge_step, finalize_partial
 
 __all__ = ["make_cp_context", "resolve_overlap", "STRATEGIES"]
 
 #: execution strategies the step builders hand to the context
 STRATEGIES = ("flashcp", "contiguous", "allgather", "llama3", "per_doc",
               "ring", "ring_zigzag")
-_CP_SLICE = ("context parallelism over N > 1 ranks (the CP islands on "
-             "torch.distributed) is the next slice of the port")
+_FLASHCP = ("flashcp", "contiguous")
 
 
 def resolve_overlap(strategy: str, impl: str, overlap: str) -> str:
@@ -46,6 +65,17 @@ def resolve_overlap(strategy: str, impl: str, overlap: str) -> str:
     if strategy in ("ring", "ring_zigzag") and impl == "flash":
         return "chunked"
     return overlap
+
+
+# ===================================================================== #
+# attention against one KV set
+# ===================================================================== #
+def _take_tokens(x, idx):
+    """x (b, H, T, D); idx (b, S) with -1 padding -> (b, H, S, D), zeroed
+    at padding."""
+    b, H, _, D = x.shape
+    safe = idx.clamp(min=0).long()[:, None, :, None].expand(b, H, -1, D)
+    return torch.gather(x, 2, safe) * (idx >= 0)[:, None, :, None].to(x.dtype)
 
 
 def _partial_masked_attention(q, k, v, q_doc, q_pos, kv_doc, kv_pos, *,
@@ -88,18 +118,131 @@ def _masked_attention(q, k, v, q_doc, q_pos, kv_doc, kv_pos, *, impl,
                                     q_chunk=q_chunk)
 
 
+# ===================================================================== #
+# chunked exchange: attend each arriving buffer while the next one flies
+# ===================================================================== #
+def _run_hops(comm, init_fn, payload, n_hops, attend, hop_tables=None):
+    """Ring-rotate ``payload = (kc, vc, dc, pc)`` for ``n_hops`` hops,
+    merging ``attend(kc, vc, dc, pc, tables)`` partials onto
+    ``init_fn()`` (the local-KV partial).
+
+    Hop 1 is started before ``init_fn`` runs, so it flies under the local
+    partial; each arrived buffer is forwarded before it is attended, so
+    hop h+1 flies under hop h's attention.  The last buffer is attended
+    and not forwarded: ``n_hops`` buffer hops in all, the bytes of the
+    monolithic all-gather.  After hop h (from 1) a rank holds the payload
+    of rank (me - h) mod N, whose tables are ``hop_tables[:, h - 1]``."""
+    if n_hops <= 0:
+        return init_fn()
+    handle = hop_start(comm, payload)
+    acc = init_fn()
+    for h in range(n_hops):
+        cur = hop_wait(handle)
+        if h + 1 < n_hops:
+            handle = hop_start(comm, cur)
+        tabs = None if hop_tables is None else \
+            tuple(t[:, h].contiguous() for t in hop_tables)
+        acc = _merge_step(acc, attend(*cur, tabs))
+    return acc
+
+
+# ===================================================================== #
+# islands (one rank's view)
+# ===================================================================== #
+def _flashcp_island_chunked(q, k, v, doc, pos, sidx, gath_doc, gath_pos, *,
+                            comm, attend, loc_tables, hop_tables):
+    """The Eq.-5 buffer in N-1 hops.  The N-1 hops visit exactly the
+    other ranks, so no self-segment masking is needed."""
+    if comm is None:                 # one rank: the local partial alone
+        return finalize_partial(attend(k, v, doc, pos, loc_tables), q.dtype)
+    N, me, buf = comm.size, comm.rank, sidx.shape[-1]
+    payload = (_take_tokens(k, sidx), _take_tokens(v, sidx),
+               gath_doc[:, me * buf:(me + 1) * buf].contiguous(),
+               gath_pos[:, me * buf:(me + 1) * buf].contiguous())
+    part = _run_hops(
+        comm, lambda: attend(k, v, doc, pos, loc_tables), payload, N - 1,
+        attend, hop_tables)
+    return finalize_partial(part, q.dtype)
+
+
+def _flashcp_island(q, k, v, doc, pos, sidx, gath_doc, gath_pos, *, comm,
+                    masked, tables):
+    """The Eq.-5 buffers all-gathered, attended once beside the local KV;
+    this rank's own gathered segment is masked as doc -2."""
+    me = 0 if comm is None else comm.rank
+    buf = sidx.shape[-1]
+    ksel, vsel = _take_tokens(k, sidx), _take_tokens(v, sidx)
+    if comm is not None:
+        ksel = all_gather_tiled(ksel, comm, 2)
+        vsel = all_gather_tiled(vsel, comm, 2)
+    seg = torch.arange(gath_doc.shape[1], device=gath_doc.device) // buf
+    gdoc = torch.where((seg == me)[None, :], -2, gath_doc)
+    return masked(q, torch.cat([k, ksel], 2), torch.cat([v, vsel], 2),
+                  doc, pos, torch.cat([doc, gdoc], 1).contiguous(),
+                  torch.cat([pos, gath_pos], 1).contiguous(), tables=tables)
+
+
+def _allgather_island(q, k, v, doc, pos, *, comm, masked, tables):
+    """Full-KV all-gather (Eq. 4), attended once."""
+    if comm is not None:
+        k, v = all_gather_tiled(k, comm, 2), all_gather_tiled(v, comm, 2)
+        kd, kp = (all_gather_tiled(t, comm, 1) for t in (doc, pos))
+    else:
+        kd, kp = doc, pos
+    return masked(q, k, v, doc, pos, kd, kp, tables=tables)
+
+
+def _gather_island_chunked(q, k, v, doc, pos, *, comm, attend, loc_tables,
+                           hop_tables):
+    """Full local KV ring-rotated in N-1 hops on the merge substrate."""
+    N = 1 if comm is None else comm.size
+    part = _run_hops(comm, lambda: attend(k, v, doc, pos, loc_tables),
+                     (k, v, doc, pos), N - 1, attend, hop_tables)
+    return finalize_partial(part, q.dtype)
+
+
+def _ring_island(q, k, v, doc, pos, *, comm, q_chunk, scale):
+    """The plain Ring-Attention loop (``overlap="none"``): attend the
+    held KV, then pass it on, N times.  The reference rotates once more
+    after the last attention, which returns every buffer to its owner
+    and changes no result; that rotation is skipped."""
+    N = 1 if comm is None else comm.size
+    b, Hq, T, D = q.shape
+    acc = (torch.zeros((b, Hq, T, D), dtype=torch.float32, device=q.device),
+           torch.full((b, Hq, T), NEG, dtype=torch.float32, device=q.device),
+           torch.zeros((b, Hq, T), dtype=torch.float32, device=q.device))
+    cur = (k, v, doc, pos)
+    for step in range(N):
+        part = _partial_masked_attention(
+            q, cur[0], cur[1], doc, pos, cur[2], cur[3], impl="plain",
+            scale=scale, q_chunk=q_chunk)
+        acc = _merge_step(acc, part)
+        if step + 1 < N:
+            cur = hop_wait(hop_start(comm, cur))
+    return finalize_partial(acc, q.dtype)
+
+
+# ===================================================================== #
+# context factory
+# ===================================================================== #
 def make_cp_context(plan_arrays: dict[str, Any], *,
                     strategy: str = "flashcp", impl: str = "plain",
                     head_dim: int, q_chunk: int = 512,
                     overlap: str = "chunked", block_q: int = 128,
-                    block_k: int = 128, grid: str = "rect") -> ExecContext:
-    """The ExecContext of a training step.
+                    block_k: int = 128, grid: str = "rect",
+                    kv_comm_dtype: str = "native",
+                    comm: CPComm | None = None) -> ExecContext:
+    """The ExecContext of one rank's training step.
 
-    ``plan_arrays`` hold the batch's plan-order ``doc``/``pos`` (B, C), the
-    Eq.-5 send indices ``send_idx`` (B, N, buf) whose N is the CP size
-    (absent: one rank), and, for ``impl="flash"``, the per-rank visit
-    tables of ``grid`` (``tab_loc_*``/``tab_hop_*`` keys from
-    :func:`repro_torch.planner.encode.emit_visit_tables`).
+    ``plan_arrays`` are the batch's plan arrays in their global view: the
+    plan-order ``doc``/``pos`` (B, C), the Eq.-5 ``send_idx`` (B, N, buf)
+    whose N is the CP size (absent: one rank) and ``gath_doc``/
+    ``gath_pos`` (B, N buf), and, for ``impl="flash"``, the per-rank visit
+    tables of ``grid`` (``tab_*`` keys from
+    :func:`repro_torch.planner.encode.emit_visit_tables`).  ``comm`` is
+    this rank's CP group (required when N > 1); the context's
+    ``doc``/``pos`` and its ``attn(q, k, v)`` are this rank's token
+    slice.
     """
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown CP strategy {strategy!r}; have "
@@ -109,33 +252,77 @@ def make_cp_context(plan_arrays: dict[str, Any], *,
                          "'plain'")
     if grid not in ("rect", "flat"):
         raise ValueError(f"unknown kernel grid {grid!r}")
-    overlap = resolve_overlap(strategy, impl, overlap)
-    cp_size = plan_arrays["send_idx"].shape[1] \
-        if "send_idx" in plan_arrays else 1
-    if cp_size != 1:
-        raise NotImplementedError(f"CP size {cp_size}: {_CP_SLICE}")
-    if overlap != "chunked":
+    if kv_comm_dtype != "native":
         raise NotImplementedError(
-            f"overlap={overlap!r}: the monolithic islands come with {_CP_SLICE}")
+            f"kv_comm_dtype={kv_comm_dtype!r}: the int8 KV wire comes with "
+            "a later slice of the port (the quantized exchange)")
+    overlap = resolve_overlap(strategy, impl, overlap)
+    N = plan_arrays["send_idx"].shape[1] if "send_idx" in plan_arrays else 1
+    if N > 1 and comm is None:
+        raise ValueError(f"CP size {N} needs this rank's process group "
+                         "(comm=CPComm(...))")
+    if comm is not None and comm.size != N:
+        raise ValueError(f"process group of {comm.size} ranks for a plan "
+                         f"of {N}")
+    me = 0 if comm is None else comm.rank
+    if N == 1:
+        comm = None
+
     doc, pos = plan_arrays["doc"], plan_arrays["pos"]
-    loc = None
-    if impl == "flash":
-        keys = table_keys("tab_loc_", grid)
+    t_loc = doc.shape[1] // N
+    my = slice(me * t_loc, (me + 1) * t_loc)
+    doc_l, pos_l = doc[:, my].contiguous(), pos[:, my].contiguous()
+
+    def rank_tables(prefix):
+        """This rank's slice of one table family, or None."""
+        if impl != "flash":
+            return None
+        keys = table_keys(prefix, grid)
         if not all(k in plan_arrays for k in keys):
             raise ValueError(
-                f"flash attention with overlap='chunked' needs per-rank "
-                f"local grid={grid!r} visit tables (tab_loc_* plan arrays; "
-                "see repro_torch.planner.encode.emit_visit_tables)")
-        # strip the rank dim of the (B, N=1, ...) per-rank tables
-        loc = tuple(plan_arrays[k][:, 0].contiguous() for k in keys)
+                f"flash attention with overlap={overlap!r} needs per-rank "
+                f"grid={grid!r} visit tables ({prefix}* plan arrays; see "
+                "repro_torch.planner.encode.emit_visit_tables)")
+        return tuple(plan_arrays[k][:, me].contiguous() for k in keys)
 
-    attend = functools.partial(
-        _partial_masked_attention, impl=impl, scale=head_dim ** -0.5,
-        q_chunk=q_chunk, block_q=block_q, block_k=block_k, grid=grid)
+    scale = head_dim ** -0.5
+    kw = dict(impl=impl, q_chunk=q_chunk, block_q=block_q, block_k=block_k,
+              grid=grid)
+
+    if overlap == "chunked":
+        loc = rank_tables("tab_loc_")
+        hop = rank_tables("tab_hop_") if N > 1 else None
+        part_attn = functools.partial(_partial_masked_attention, scale=scale,
+                                      **kw)
+    else:
+        mono = rank_tables("tab_")
+        masked = functools.partial(_masked_attention, **kw)
+
+    flashcp = strategy in _FLASHCP
+    if flashcp:
+        sidx = plan_arrays["send_idx"][:, me].contiguous() \
+            if "send_idx" in plan_arrays else None
+        gd, gp = plan_arrays.get("gath_doc"), plan_arrays.get("gath_pos")
 
     def attn(q, k, v):
-        # the local-KV partial; at N = 1 no hop follows
-        part = attend(q, k, v, doc, pos, doc, pos, tables=loc)
-        return finalize_partial(part, q.dtype)
+        if overlap == "chunked":
+            def attend(kc, vc, dc, pc, tables):
+                return part_attn(q, kc, vc, doc_l, pos_l, dc, pc,
+                                 tables=tables)
+            if flashcp:
+                return _flashcp_island_chunked(
+                    q, k, v, doc_l, pos_l, sidx, gd, gp, comm=comm,
+                    attend=attend, loc_tables=loc, hop_tables=hop)
+            return _gather_island_chunked(q, k, v, doc_l, pos_l, comm=comm,
+                                          attend=attend, loc_tables=loc,
+                                          hop_tables=hop)
+        if flashcp:
+            return _flashcp_island(q, k, v, doc_l, pos_l, sidx, gd, gp,
+                                   comm=comm, masked=masked, tables=mono)
+        if strategy in ("ring", "ring_zigzag"):
+            return _ring_island(q, k, v, doc_l, pos_l, comm=comm,
+                                q_chunk=q_chunk, scale=scale)
+        return _allgather_island(q, k, v, doc_l, pos_l, comm=comm,
+                                 masked=masked, tables=mono)
 
-    return ExecContext(doc=doc, pos=pos, attn=attn)
+    return ExecContext(doc=doc_l, pos=pos_l, attn=attn)

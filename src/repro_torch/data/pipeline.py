@@ -1,41 +1,48 @@
-"""Deterministic training batches at one device (the port of the
-reference's ``repro.data.pipeline`` for ``cp_size == 1``).
+"""Deterministic, host-sharded training batches (the port of the
+reference's ``repro.data.pipeline``).
 
-Per batch, per packed sequence: draw document lengths from the dataset
-distribution, lay the tokens out in plan order, synthesize tokens and
-next-token labels, and (for the kernels) emit the visit tables.  At one
-CP rank every planner keeps the packed order, so the plan order is the
-identity and no KV is exchanged: ``doc``/``pos`` come straight from
-:func:`~repro_torch.data.packing.doc_ids_and_positions`, padded to
-``align``, and the Eq.-5 send buffers are empty.  The stream for
-(seed, dp_rank, step) draws from the same seeded ``PCG64`` as the
-reference, in the same order, so batches match it bit for bit.
+Per batch, per packed sequence:
+  1. draw document lengths from the dataset distribution (seeded);
+  2. resolve the configured CP planner through the
+     :mod:`repro_torch.planner` registry and plan, one sequence after
+     the other, through a :class:`~repro_torch.planner.cache.PlanCache`
+     at exact signatures;
+  3. encode the plans (permutation + Eq.-5 comm metadata,
+     :func:`~repro_torch.planner.encode.encode_plan_batch`);
+  4. synthesize tokens and next-token labels in *plan order*, and (for
+     the kernels) emit the per-rank visit tables.
 
-The planners, the plan cache, ``cp_size > 1``, a fixed Eq.-5 bucket,
-global dispatch and the background Prefetcher wait for the CP slice of
-the port.
+The stream for (seed, dp_rank, step) draws from the same seeded
+``PCG64`` as the reference, in the same order, and plans through copies
+of the same planners, so batches match it bit for bit at any CP size
+(the reference with its default planner settings and serial planning).
+The reference's planner knobs are constants here until a caller of the
+port needs another value: the Eq.-5 bucket is chosen per batch, the
+target imbalance is :data:`TARGET_IMBALANCE`, and the plan cache holds
+:data:`PLAN_CACHE_ENTRIES` exact signatures.  Global dispatch and the
+background Prefetcher wait for later slices of the port.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import numpy as np
 
 from repro_torch.core.cp_attention import resolve_overlap
-from repro_torch.planner.encode import emit_visit_tables, pick_buffer_bucket
+from repro_torch.planner import (PlanCache, emit_visit_tables,
+                                 encode_plan_batch, get_planner)
 from .distributions import make_rng
-from .packing import doc_ids_and_positions, pack_sequence
+from .packing import pack_sequence
 
-__all__ = ["PipelineConfig", "make_batch", "EXEC_STYLE"]
+__all__ = ["PipelineConfig", "make_batch", "exec_style_of"]
 
-#: execution style of each planner name (the reference's registry
-#: metadata ``PlannerInfo.exec_style``)
-EXEC_STYLE = {"flashcp": "flashcp", "bnb": "flashcp", "ilp": "flashcp",
-              "contiguous": "contiguous", "llama3": "allgather",
-              "per_doc": "allgather", "ring_zigzag": "ring",
-              "ring": "ring"}
+# the FlashCP heuristic's target max/mean load ratio (planners that take one)
+TARGET_IMBALANCE = 1.05
+# least-recently-used plans kept per pipeline configuration
+PLAN_CACHE_ENTRIES = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,15 +64,21 @@ class PipelineConfig:
 
 
 def exec_style_of(strategy: str) -> str:
-    try:
-        return EXEC_STYLE[strategy]
-    except KeyError:
-        raise KeyError(f"unknown CP strategy {strategy!r}; have "
-                       f"{sorted(EXEC_STYLE)}") from None
+    """The execution style the training steps run for a planner name
+    (its registry metadata); an unknown name raises ``KeyError`` listing
+    the available planners."""
+    return get_planner(strategy).info.exec_style
 
 
-def _aligned(x: int, align: int) -> int:
-    return ((x + align - 1) // align) * align if align > 1 else x
+@functools.lru_cache(maxsize=32)
+def _plan_cache(cfg: PipelineConfig) -> PlanCache:
+    """The plan cache of a config, made once."""
+    planner = get_planner(cfg.strategy)
+    kwargs = {}
+    if planner.info.supports_target_ratio:
+        kwargs["target_ratio"] = TARGET_IMBALANCE
+    return PlanCache(planner, cfg.cp_size, max_entries=PLAN_CACHE_ENTRIES,
+                     planner_kwargs=kwargs)
 
 
 def _synthesize_row(tokens_row, labels_row, lens, perm, rng,
@@ -106,28 +119,6 @@ def _synthesize_tokens(doc_lens_list, perm_stack, rng,
     return tokens, labels
 
 
-def _encode_single_rank(doc_lens_list, context_len: int,
-                        align: int) -> dict[str, np.ndarray]:
-    """The plan encoding at one rank: identity permutation, doc/pos in
-    packed order padded to ``align`` (doc -1, pos 0, perm -1), and empty
-    Eq.-5 send buffers of the smallest bucket."""
-    B = len(doc_lens_list)
-    t_loc = _aligned(context_len, align)
-    buf = pick_buffer_bucket(0, t_loc)
-    perm = np.full((B, t_loc), -1, np.int64)
-    doc = np.full((B, t_loc), -1, np.int32)
-    pos = np.zeros((B, t_loc), np.int32)
-    for b, lens in enumerate(doc_lens_list):
-        d, p = doc_ids_and_positions(lens)
-        perm[b, :len(d)] = np.arange(len(d))
-        doc[b, :len(d)] = d
-        pos[b, :len(d)] = p
-    return {"perm": perm, "doc": doc, "pos": pos,
-            "send_idx": np.full((B, 1, buf), -1, np.int32),
-            "gath_doc": np.full((B, buf), -1, np.int32),
-            "gath_pos": np.zeros((B, buf), np.int32)}
-
-
 def _emit_tables(cfg: PipelineConfig, stack: dict,
                  num_workers: int) -> dict[str, np.ndarray]:
     style = exec_style_of(cfg.strategy)
@@ -142,28 +133,33 @@ def _emit_tables(cfg: PipelineConfig, stack: dict,
         block_q=cfg.table_block_q, block_k=cfg.table_block_k)
 
 
+def _batch_stats(encs, doc_lens_list, cache: PlanCache) -> dict:
+    return {
+        "comm_tokens": max(e.comm_tokens for e in encs),
+        "buf_len": encs[0].buf_len,
+        "t_loc": encs[0].t_loc,
+        "imbalance": float(np.mean([e.imbalance for e in encs])),
+        "num_docs": float(np.mean([len(l) for l in doc_lens_list])),
+        "plan_cache_hit_rate": cache.stats.hit_rate,
+    }
+
+
 def make_batch(cfg: PipelineConfig, step: int,
                dp_rank: int = 0) -> dict[str, Any]:
     """Build one host-local batch for (step, dp_rank)."""
-    if cfg.cp_size != 1:
-        raise NotImplementedError(
-            f"cp_size={cfg.cp_size}: planning and encoding for context "
-            "parallelism over several ranks come with the CP slice of the "
-            "port")
-    exec_style_of(cfg.strategy)
+    exec_style_of(cfg.strategy)          # unknown strategies fail fast
     rng = make_rng(hash((cfg.seed, dp_rank, step)) % (2 ** 63))
     doc_lens_list = [pack_sequence(cfg.dataset, cfg.context_len, rng)
                      for _ in range(cfg.batch_per_host)]
-    stack = _encode_single_rank(doc_lens_list, cfg.context_len, cfg.align)
+    cache = _plan_cache(cfg)
+    plans = [cache.plan(lens) for lens in doc_lens_list]
+    stack, encs = encode_plan_batch(plans, align=cfg.align)
     tokens, labels = _synthesize_tokens(doc_lens_list, stack["perm"], rng,
                                         cfg.vocab_size)
     batch = dict(stack)
     if cfg.emit_tables:
-        batch.update(_emit_tables(cfg, stack, 1))
+        batch.update(_emit_tables(cfg, stack, cfg.cp_size))
     batch["tokens"] = tokens
     batch["labels"] = labels
-    batch["stats"] = {
-        "comm_tokens": 0, "buf_len": stack["gath_doc"].shape[1],
-        "t_loc": stack["doc"].shape[1], "imbalance": 1.0,
-        "num_docs": float(np.mean([len(l) for l in doc_lens_list]))}
+    batch["stats"] = _batch_stats(encs, doc_lens_list, cache)
     return batch

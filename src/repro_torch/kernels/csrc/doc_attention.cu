@@ -75,9 +75,10 @@
 //     the GQA group in f32.  f32 (dkv_kernel): nothing rounded, and a
 //     128-key KV row is split over CTAs by 32-key sub-tile, all walking
 //     the same visits, so a CTA's dK and dV accumulators fit in registers
-//     with no atomics.  bf16 (dkv_mma_kernel): P^T and dS^T are rounded
-//     to bf16 as the mma operands of dV and dK (the reference rounds
-//     neither), and the sums stay f32.
+//     with no atomics.  bf16 (dkv_mma_kernel): P^T and dS^T keep f32
+//     accuracy as the mma operands of dV and dK, each a hi + lo pair of
+//     bf16 fragments (two mma.sync per product), so, like the reference,
+//     it rounds neither; the sums stay f32.
 //
 // Plain C interface for ctypes; each entry returns cudaGetLastError() right
 // after its launch.
@@ -472,6 +473,15 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const unsigned*>(&x);
+}
+// (x0, x1) as a hi + lo pair of packed bf16: hi = bf16(x), lo = bf16(x -
+// hi), so hi + lo carries x to about 2^-16 relative
+__device__ __forceinline__ void pack_bf16_split(float x0, float x1,
+                                                unsigned& hi, unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const unsigned*>(&h);
+  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
 }
 
 // 2^x (ex2.approx: 2 ulp; 2^-inf is +0)
@@ -1258,8 +1268,12 @@ __global__ void __launch_bounds__(THREADS, 1) dkv_kernel(Params p) {
 // are numbered row ordinal outermost, so the flat queue's LPT order is
 // the launch order.
 //
-// Rounding: P^T and dS^T are rounded to bf16 as mma operands (the
-// reference rounds neither before these two products); the sums are f32.
+// Rounding: none beyond the reference's.  P^T and dS^T enter the dV and
+// dK products as a hi + lo pair of bf16 A fragments (hi = bf16(x), lo =
+// bf16(x - hi)), two mma.sync into one f32 accumulator; dO and Q are bf16
+// inputs and exact as B operands, so each product matches the reference's
+// f32 one to about 2^-16 relative.  The S^T and dP^T products are as in
+// the forward.
 // ------------------------------------------------------------------------
 constexpr int DKV_STAGES = 2;
 
@@ -1420,8 +1434,8 @@ __global__ void __launch_bounds__(256, 1) dkv_mma_kernel(Params p) {
 
     // P = exp(S scale - lse_safe) where visible, dS = P (dP - delta) scale
     // (keys g: [.][0..1], g + 8: [.][2..3]; queries 8 i + 2 tq, + 1), as
-    // bf16 A fragments of the dV and dK products
-    unsigned pf[KC][4], df[KC][4];
+    // hi + lo pairs of bf16 A fragments of the dV and dK products
+    unsigned pf[KC][4], pl[KC][4], df[KC][4], dl_f[KC][4];
 #pragma unroll
     for (int i = 0; i < NT; ++i) {
       const int qr = 8 * i + 2 * tq;
@@ -1439,13 +1453,15 @@ __global__ void __launch_bounds__(256, 1) dkv_mma_kernel(Params p) {
           visible(qd.x, qp.x, kd1, kp1) ? ex2(fmaf(s[i][2], c2, -l0)) : 0.f;
       const float p3 =
           visible(qd.y, qp.y, kd1, kp1) ? ex2(fmaf(s[i][3], c2, -l1)) : 0.f;
-      pf[i / 2][(i & 1) * 2] = pack_bf16(p0, p1);
-      pf[i / 2][(i & 1) * 2 + 1] = pack_bf16(p2, p3);
-      df[i / 2][(i & 1) * 2] = pack_bf16(p0 * (dp[i][0] - dl.x) * p.scale,
-                                         p1 * (dp[i][1] - dl.y) * p.scale);
-      df[i / 2][(i & 1) * 2 + 1] =
-          pack_bf16(p2 * (dp[i][2] - dl.x) * p.scale,
-                    p3 * (dp[i][3] - dl.y) * p.scale);
+      const int f = i / 2, e = (i & 1) * 2;
+      pack_bf16_split(p0, p1, pf[f][e], pl[f][e]);
+      pack_bf16_split(p2, p3, pf[f][e + 1], pl[f][e + 1]);
+      pack_bf16_split(p0 * (dp[i][0] - dl.x) * p.scale,
+                      p1 * (dp[i][1] - dl.y) * p.scale, df[f][e],
+                      dl_f[f][e]);
+      pack_bf16_split(p2 * (dp[i][2] - dl.x) * p.scale,
+                      p3 * (dp[i][3] - dl.y) * p.scale, df[f][e + 1],
+                      dl_f[f][e + 1]);
     }
 
     // dV += P^T dO, dK += dS^T Q: dO^T and Q^T fragments by
@@ -1462,9 +1478,13 @@ __global__ void __launch_bounds__(256, 1) dkv_mma_kernel(Params p) {
           ldsm_x4_t(of, os + t_off);
           ldsm_x4_t(qf, qs + t_off);
           mma_bf16(dv[n], pf[kc], of[0], of[1]);
+          mma_bf16(dv[n], pl[kc], of[0], of[1]);
           mma_bf16(dv[n + 1], pf[kc], of[2], of[3]);
+          mma_bf16(dv[n + 1], pl[kc], of[2], of[3]);
           mma_bf16(dk[n], df[kc], qf[0], qf[1]);
+          mma_bf16(dk[n], dl_f[kc], qf[0], qf[1]);
           mma_bf16(dk[n + 1], df[kc], qf[2], qf[3]);
+          mma_bf16(dk[n + 1], dl_f[kc], qf[2], qf[3]);
         }
       }
     }

@@ -33,8 +33,9 @@ each with the reference's signature minus ``interpret``:
 * :func:`flash_bwd_dkv` -> ``(dk, dv)``, over the reverse tables
   (kv-block rows visited by q blocks), the GQA group summed in f32.  In
   bf16 it runs on the tensor cores, takes head dims that are a multiple
-  of 16 (others raise), and rounds Pᵀ and dSᵀ to bf16 as the operands of
-  its dV and dK products, which the reference does not; a KV block row
+  of 16 (others raise), and, like the reference, rounds neither Pᵀ nor
+  dSᵀ: each enters its dV or dK product as a hi + lo pair of bf16
+  operands (two tensor-core products into one f32 sum); a KV block row
   is split into key parts and the GQA group into slices
   (:func:`dkv_split_plan`), the slices summed in f32 in a fixed order
   (:func:`flash_bwd_dkv_split_plain` is that split's plain form).
@@ -532,8 +533,8 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, q_doc, q_pos, kv_doc,
     """Twin of :func:`flash_bwd_dkv`: per kv-block row, over the reverse
     tables, dV += Pᵀ·dO and dK += dSᵀ·Q summed over the GQA group, all
     in f32 (nothing rounded before the products, as the reference
-    defines it; the bf16 kernel rounds Pᵀ and dSᵀ to bf16, and the
-    gates' bf16 tolerance covers that)."""
+    defines it; the bf16 kernel carries Pᵀ and dSᵀ as hi + lo bf16
+    pairs to the same effect)."""
     tables = _check_grid(grid, tables)
     B, Hq, Tq, D = q.shape
     _, Hkv, Tk, _ = k.shape

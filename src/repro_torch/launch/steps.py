@@ -1,5 +1,5 @@
-"""The single-device training step (the port of the reference's
-``repro.launch.steps.build_train_step``, without a mesh).
+"""The training step (the port of the reference's
+``repro.launch.steps.build_train_step``).
 
 One step is loss + gradients (autograd through the attention context and
 the rematerialized layers), global-norm clipping, the warmup-cosine LR
@@ -7,6 +7,18 @@ and an in-place AdamW update.  ``accum > 1`` splits the batch into
 micro-batches and token-weights their gradients, so the accumulated
 update equals the fused one on the same batch (the global masked CE mean
 is Σ ce_sum / Σ tokens either way).
+
+Context parallelism over N ranks (``comm`` given): the parameters are
+replicated over the CP group and every rank runs the model on its token
+slice of the batch (the plan order puts worker j's tokens at ``[j t_loc,
+(j+1) t_loc)``), its attention through the CP islands.  Each rank's loss
+is its masked-CE sum over the *global* count of valid labels (a sum over
+the group, without gradient), so the losses of the ranks add up to the
+reference's global masked-CE mean; after the backward the gradients are
+summed over the group, and clipping and AdamW then run on every rank
+alike, keeping the replicas equal.  Sharding the parameters and the
+optimizer state (ZeRO-3 / FSDP over a data axis) comes with a later
+slice of the port.
 """
 
 from __future__ import annotations
@@ -17,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.core.comm import CPComm, all_reduce_sum_
 from repro_torch.core.cp_attention import make_cp_context
 from repro_torch.data.pipeline import exec_style_of
 from repro_torch.device import resolve_device
@@ -53,16 +66,27 @@ def _unflatten(like, flat):
     return go(like)
 
 
+def _rank_slice(batch, comm: CPComm | None):
+    """This rank's token slice of the batch's tokens and labels."""
+    if comm is None:
+        return batch
+    t_loc = batch["labels"].shape[1] // comm.size
+    my = slice(comm.rank * t_loc, (comm.rank + 1) * t_loc)
+    return {k: batch[k][:, my] for k in ("tokens", "labels")}
+
+
 def build_train_step(cfg: ModelConfig, run: RunConfig, *, q_chunk: int = 512,
                      block_q: int = 128, block_k: int = 128, accum: int = 1,
-                     device="cuda"):
+                     device="cuda", comm: CPComm | None = None):
     """A callable ``train_step(params, opt_state, batch, step)`` that
     updates ``params`` and ``opt_state`` in place and returns the metrics
     dict (loss, ce, aux, grad_norm, lr, tokens) as 0-d tensors.
 
-    ``batch`` is a dict of tensors on ``device`` (:func:`batch_to_device`);
-    with ``attention_impl="flash"`` it carries the visit tables.  The
-    callable also exposes ``loss_and_grads(params, batch)``.
+    ``batch`` is a dict of tensors on ``device`` (:func:`batch_to_device`),
+    the whole batch on every rank; with ``attention_impl="flash"`` it
+    carries the visit tables.  ``comm`` is this rank's CP group when the
+    batch was planned for N > 1 ranks.  The callable also exposes
+    ``loss_and_grads(params, batch)``.
     """
     resolve_device(device)
     if run.grad_compression != "none":
@@ -76,18 +100,31 @@ def build_train_step(cfg: ModelConfig, run: RunConfig, *, q_chunk: int = 512,
             _plan_keys(batch), strategy=exec_strategy,
             impl=run.attention_impl, head_dim=cfg.resolved_head_dim,
             q_chunk=q_chunk, overlap=run.cp_overlap, block_q=block_q,
-            block_k=block_k, grid=run.kernel_grid)
+            block_k=block_k, grid=run.kernel_grid, comm=comm)
 
     def loss_and_grads(params, batch):
         """((loss, metrics), grads) of the global masked CE mean."""
         flat = leaves(params)
         for p in flat:
             p.requires_grad_(True)
-        loss, metrics = loss_fn(params, cfg, _ctx_of(batch), batch,
+        local = _rank_slice(batch, comm)
+        loss, metrics = loss_fn(params, cfg, _ctx_of(batch), local,
                                 remat=run.remat)
+        if comm is not None:
+            # local mean -> local sum over the global token count
+            n_loc = torch.sum(local["labels"] >= 0).float()
+            n_glob = n_loc.clone()
+            all_reduce_sum_([n_glob], comm)
+            weight = n_loc / torch.clamp(n_glob, min=1.0)
+            loss = loss * weight
+            metrics = {k: v * weight for k, v in metrics.items()}
         grads = torch.autograd.grad(loss, flat)
+        loss = loss.detach()
         metrics = {k: v.detach() for k, v in metrics.items()}
-        return (loss.detach(), metrics), _unflatten(params, grads)
+        if comm is not None:
+            loss = loss.clone()
+            all_reduce_sum_([loss, *metrics.values(), *grads], comm)
+        return (loss, metrics), _unflatten(params, grads)
 
     def _micro(batch, m):
         """Micro-batch m: rows [m B/accum, (m+1) B/accum)."""

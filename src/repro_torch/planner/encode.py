@@ -1,5 +1,15 @@
-"""Visit-table emission for batch-encoded plans (the port's own copy of
-the table part of the reference's ``repro.planner.encode``).
+"""Plan execution encoding (the port's own copy of the reference's
+``repro.planner.encode``): ShardingPlan -> static-shaped arrays, and the
+per-rank visit tables.
+
+:func:`encode_plan` lays one plan out in *plan order*: worker j's tokens
+occupy the contiguous slice ``[j*T_loc, (j+1)*T_loc)`` of every (B,
+C_pad) array, so splitting the token axis into N equal parts gives each
+rank its shard.  Worker j's *non-last* document shards form its compact
+Eq.-5 send buffer (``send_idx``, local indices, -1 padded to the pow2
+bucket ``buf_len``); ``gath_doc``/``gath_pos`` describe the gathered
+buffers of all ranks.  :func:`encode_plan_batch` encodes a batch with a
+common ``t_loc`` and ``buf_len``.
 
 A stacked plan-order batch (``doc``/``pos`` (B, C_pad), and for the
 flashcp styles the Eq.-5 buffer metadata ``gath_doc``/``gath_pos``
@@ -13,6 +23,7 @@ The function is numpy and generic over the CP size N.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 from collections import OrderedDict
 
@@ -21,7 +32,11 @@ import numpy as np
 from repro_torch.kernels.doc_attention import build_block_tables
 from repro_torch.table_layout import FLAT_TABLE_NAMES
 
-__all__ = ["emit_visit_tables", "visit_table_shapes", "pick_buffer_bucket"]
+from .plan import Shard, ShardArrays, ShardingPlan
+
+__all__ = ["PlanEncoding", "encode_plan", "encode_plan_batch",
+           "emit_visit_tables", "visit_table_shapes",
+           "pick_buffer_bucket", "plan_shape_hints", "trivial_plan"]
 
 
 def _next_pow2(x: int, floor: int = 128) -> int:
@@ -35,6 +50,205 @@ def pick_buffer_bucket(comm_tokens: int, t_loc: int, floor: int = 128) -> int:
     """Static Eq.5 buffer size: pow2 bucket, at most the full local KV."""
     return min(_next_pow2(max(comm_tokens, 1), floor),
                _next_pow2(t_loc, floor))
+
+
+def _aligned(x: int, align: int) -> int:
+    return ((x + align - 1) // align) * align if align > 1 else x
+
+
+@dataclasses.dataclass
+class PlanEncoding:
+    """Device-facing encoding of one packed sequence's sharding plan."""
+
+    perm: np.ndarray        # (C_pad,) plan-order -> packed position (-1 pad)
+    doc: np.ndarray         # (C_pad,) int32 doc id per plan-order token
+    pos: np.ndarray         # (C_pad,) int32 intra-doc position
+    send_idx: np.ndarray    # (N, buf_len) int32 local indices, -1 pad
+    gath_doc: np.ndarray    # (N * buf_len,) int32, -1 pad
+    gath_pos: np.ndarray    # (N * buf_len,) int32
+    t_loc: int              # tokens per worker (C_pad // N)
+    buf_len: int            # Eq. 5 bucket
+    comm_tokens: int        # actual max_j non-last tokens (pre-bucket)
+    imbalance: float
+
+
+def trivial_plan(context_len: int) -> ShardingPlan:
+    """Single-worker plan (smoke tests / local mode)."""
+    return ShardingPlan(
+        doc_lens=np.asarray([context_len], dtype=np.int64),
+        shards=[Shard(0, 0, context_len, 0)],
+        num_workers=1, comm_style="flashcp")
+
+
+def _exec_order(plan: ShardingPlan) -> ShardArrays:
+    """Shards in execution order: by worker, then (doc_id, start)."""
+    a = plan.arrays
+    return a._take(np.lexsort((a.start, a.doc_id, a.worker)))
+
+
+def encode_plan(
+    plan: ShardingPlan,
+    *,
+    buf_len: int | None = None,
+    t_loc: int | None = None,
+    align: int = 1,
+    _out: dict[str, np.ndarray] | None = None,
+) -> PlanEncoding:
+    """Encode one plan.  ``_out`` optionally supplies preallocated,
+    correctly-shaped destination arrays (one row of a batch stack) — the
+    batch encoder uses this to write every sample straight into the
+    stacked pipeline output with no per-sample allocation or copy."""
+    N = plan.num_workers
+    doc_starts = np.concatenate([[0], np.cumsum(plan.doc_lens)])[:-1]
+
+    a = _exec_order(plan)
+    m = len(a)
+    tokens_per_worker = np.bincount(a.worker, weights=a.length,
+                                    minlength=N).astype(np.int64)
+    need_t = int(tokens_per_worker.max()) if m else 0
+    if t_loc is None:
+        t_loc = _aligned(need_t, align)
+    assert t_loc >= need_t, (t_loc, need_t)
+
+    C_pad = N * t_loc
+    if _out is None:
+        perm = np.empty(C_pad, np.int64)
+        doc = np.empty(C_pad, np.int32)
+        pos = np.empty(C_pad, np.int32)
+    else:
+        perm, doc, pos = _out["perm"], _out["doc"], _out["pos"]
+
+    # ---- one repeat/cumsum expansion builds every per-token array ------ #
+    # In exec order, tokens are already laid out contiguously per worker;
+    # each worker's run is then *copied* (not scattered) into its
+    # [j*t_loc, ...) slice of the padded arrays.  int32 intermediates:
+    # context lengths are far below 2**31 and int32 halves the allocator
+    # and bandwidth cost of the per-token expansion.
+    total = int(a.length.sum())
+    len32 = a.length.astype(np.int32)
+    excl = np.cumsum(a.length) - a.length          # global exclusive cumsum
+    ar = np.arange(total, dtype=np.int32)
+    tok_doc = np.repeat(a.doc_id.astype(np.int32), len32)
+    tok_pos = ar + np.repeat((a.start - excl).astype(np.int32), len32)
+    packed = ar + np.repeat(
+        (doc_starts[a.doc_id] + a.start - excl).astype(np.int64), len32)
+
+    # worker runs are copied into their slices; only the (small) per-worker
+    # padding tails are filled — never the full C_pad arrays.
+    wseg = np.concatenate([[0], np.cumsum(tokens_per_worker)]).astype(np.int64)
+    for j in range(N):
+        lo, hi = int(wseg[j]), int(wseg[j + 1])
+        o = j * t_loc
+        run = hi - lo
+        if run:
+            perm[o: o + run] = packed[lo:hi]
+            doc[o: o + run] = tok_doc[lo:hi]
+            pos[o: o + run] = tok_pos[lo:hi]
+        if run < t_loc:
+            perm[o + run: o + t_loc] = -1
+            doc[o + run: o + t_loc] = -1
+            pos[o + run: o + t_loc] = 0
+
+    # ---- compact per-worker send buffers (non-last shards only) -------- #
+    # expanded over non-last shards alone, so the send-side cost scales
+    # with the Eq. 5 communication volume, not the context length.
+    nl = a.end < plan.doc_lens[a.doc_id]
+    nl_len = len32[nl]
+    nl_total = int(nl_len.sum())
+    nl_excl = np.cumsum(nl_len) - nl_len
+    # local (within-worker) start of each shard in plan-order layout
+    nl_local = (excl - wseg[a.worker])[nl].astype(np.int32)
+    ar_nl = ar[:nl_total]
+    send_worker = np.repeat(a.worker[nl].astype(np.int32), nl_len)
+    send_count = np.bincount(send_worker, minlength=N).astype(np.int64)
+    max_send = int(send_count.max()) if N else 0
+    if buf_len is None:
+        buf_len = pick_buffer_bucket(max_send, t_loc)
+    assert buf_len >= max_send, (
+        f"Eq.5 bucket {buf_len} < required send volume {max_send}")
+
+    if _out is None:
+        send_idx = np.empty((N, buf_len), np.int32)
+        gath_doc = np.empty(N * buf_len, np.int32)
+        gath_pos = np.empty(N * buf_len, np.int32)
+    else:
+        send_idx = _out["send_idx"]
+        gath_doc, gath_pos = _out["gath_doc"], _out["gath_pos"]
+    if nl_total:
+        # rank of each sent token within its worker's buffer: send tokens
+        # appear in exec order, so worker groups are contiguous.  Sent
+        # prefixes are copied per worker; only padding tails get filled.
+        send_local = ar_nl + np.repeat(nl_local - nl_excl, nl_len)
+        gd = np.repeat(a.doc_id[nl].astype(np.int32), nl_len)
+        gp = ar_nl + np.repeat((a.start[nl].astype(np.int32) - nl_excl),
+                               nl_len)
+        send_excl = np.cumsum(send_count) - send_count
+        sflat = send_idx.reshape(-1)
+        for j in range(N):
+            lo, cnt = int(send_excl[j]), int(send_count[j])
+            o = j * buf_len
+            if cnt:
+                sflat[o: o + cnt] = send_local[lo: lo + cnt]
+                gath_doc[o: o + cnt] = gd[lo: lo + cnt]
+                gath_pos[o: o + cnt] = gp[lo: lo + cnt]
+            if cnt < buf_len:
+                sflat[o + cnt: o + buf_len] = -1
+                gath_doc[o + cnt: o + buf_len] = -1
+                gath_pos[o + cnt: o + buf_len] = 0
+    else:
+        send_idx.fill(-1)
+        gath_doc.fill(-1)
+        gath_pos.fill(0)
+
+    return PlanEncoding(
+        perm=perm, doc=doc, pos=pos, send_idx=send_idx,
+        gath_doc=gath_doc, gath_pos=gath_pos, t_loc=t_loc, buf_len=buf_len,
+        comm_tokens=max_send, imbalance=plan.imbalance_ratio())
+
+
+def plan_shape_hints(plan: ShardingPlan, *, align: int = 1
+                     ) -> tuple[int, int]:
+    """(t_loc, buf_len) this plan would pick standalone — computed from the
+    plan's accounting arrays without materializing an encoding."""
+    t = plan.tokens_per_worker()
+    t_loc = _aligned(int(t.max()) if len(t) else 0, align)
+    max_send = int(plan.nonlast_tokens_per_worker().max())
+    return t_loc, pick_buffer_bucket(max_send, t_loc)
+
+
+def encode_plan_batch(
+    plans: list[ShardingPlan],
+    *,
+    align: int = 1,
+) -> tuple[dict[str, np.ndarray], list[PlanEncoding]]:
+    """Encode a batch of per-sample plans with a common bucket.
+
+    Returns (stacked arrays dict, per-sample encodings).  All samples share
+    ``t_loc`` (max over batch, aligned) and ``buf_len`` (bucketed max),
+    derived from the plans' accounting arrays; the samples are encoded one
+    after the other, each straight into its row of the stacked output.
+    """
+    N = plans[0].num_workers
+    assert all(p.num_workers == N for p in plans)
+
+    hints = [plan_shape_hints(p, align=align) for p in plans]
+    t_loc = max(h[0] for h in hints)
+    buf_len = max(h[1] for h in hints)
+
+    B = len(plans)
+    C_pad = N * t_loc
+    stack = {
+        "perm": np.empty((B, C_pad), np.int64),
+        "doc": np.empty((B, C_pad), np.int32),
+        "pos": np.empty((B, C_pad), np.int32),
+        "send_idx": np.empty((B, N, buf_len), np.int32),
+        "gath_doc": np.empty((B, N * buf_len), np.int32),
+        "gath_pos": np.empty((B, N * buf_len), np.int32),
+    }
+    encs = [encode_plan(plans[b], buf_len=buf_len, t_loc=t_loc,
+                        _out={k: v[b] for k, v in stack.items()})
+            for b in range(B)]
+    return stack, encs
 
 
 def _table_style(strategy: str) -> str:

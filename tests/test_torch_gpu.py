@@ -15,8 +15,9 @@ output (bf16 rounding of the output and of p before PV).  Doc-attention
 training kernels (flash_fwd, flash_bwd_dq, flash_bwd_dkv) against their
 twins: G 1/2/3/12, D 64/128, blocks 32/48/64/128, flat and rect, padded
 documents and all-empty rows; tolerances in ``DOC_TOL`` and, for the
-bf16 dQ, ``DQ_BF16_TOL``; and the bf16 head dims the tensor-core
-kernels refuse.
+bf16 dQ and dK/dV, ``DQ_BF16_TOL`` and ``DKV_BF16_TOL``; one CP hop's
+shape (Tq != Tk, the keys' own doc/pos, the partial op with an lse
+cotangent); and the bf16 head dims the tensor-core kernels refuse.
 """
 
 import pytest
@@ -198,6 +199,10 @@ DOC_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # output): what is left is the summation order, ex2.approx against exp,
 # and the few dS that round to the other side of a bf16 tie
 DQ_BF16_TOL = 1e-2
+# the bf16 dK/dV kernel rounds only its outputs (Pᵀ and dSᵀ enter their
+# products as hi + lo bf16 pairs): what is left is the summation order,
+# ex2.approx against exp and the outputs' rounding
+DKV_BF16_TOL = 1e-2
 
 
 def _doc_layout(B, T, n_docs, pad, seed):
@@ -281,10 +286,85 @@ def test_doc_kernels_match_twins(gen, grid, dtype, Hq, Hkv, D, bq, bk, T,
         return _maxerr(got, want) / max(want.float().abs().max().item(), 1.0)
 
     assert rel(dq, pdq) <= (DQ_BF16_TOL if dtype == torch.bfloat16 else tol)
-    assert rel(dk, pdk) <= tol
-    assert rel(dv, pdv) <= tol
+    dkv_tol = DKV_BF16_TOL if dtype == torch.bfloat16 else tol
+    assert rel(dk, pdk) <= dkv_tol
+    assert rel(dv, pdv) <= dkv_tol
     if pad == T:
         assert not dq.any() and not dk.any() and not dv.any()
+
+
+def _hop_layout(Tq, Tk, n_docs, seed):
+    """A CP hop's metadata: t_loc queries (documents' tails, positions
+    starting past 0) against a gathered buffer of documents' heads
+    (its own doc/pos, sorted, padding -1 at its end)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    q_doc, q_pos = _doc_layout(1, Tq, n_docs, 0, seed)
+    q_pos = q_pos + rng.integers(0, 300, n_docs)[q_doc].astype(np.int32)
+    n_kv = Tk - Tk // 5
+    # doc 0's queries see no key: empty rows
+    kv_doc = np.sort(rng.integers(1, n_docs + 2, n_kv)).astype(np.int32)
+    kv_pos = np.zeros_like(kv_doc)
+    for d in np.unique(kv_doc):
+        m = kv_doc == d
+        kv_pos[m] = np.arange(m.sum())
+    kv_doc = np.concatenate([kv_doc, np.full(Tk - n_kv, -1, np.int32)])
+    kv_pos = np.concatenate([kv_pos, np.zeros(Tk - n_kv, np.int32)])
+    return q_doc, q_pos, kv_doc[None], kv_pos[None]
+
+
+@pytest.mark.parametrize("grid", ["flat", "rect"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv,D,Tq,Tk,blk", [
+    (24, 2, 128, 1024, 384, 128),        # the training heads, Tk < Tq
+    (8, 2, 64, 256, 512, 64),            # Tk > Tq
+])
+def test_doc_kernels_at_a_hop_shape_in_partial_mode(gen, grid, dtype, Hq,
+                                                    Hkv, D, Tq, Tk, blk):
+    """One CP hop: Tq = t_loc queries against a gathered buffer of Tk
+    keys with their own doc/pos, through the partial (o, lse) op with a
+    nonzero lse cotangent, against the twins with dlse folded into
+    delta as the op folds it."""
+    from repro_torch.core.merge import NEG
+    from repro_torch.kernels import doc_attention as da
+    from repro_torch.kernels import ops as kops
+    qd, qp, kd, kp = _hop_layout(Tq, Tk, 6, seed=Tq + Tk)
+    tabs = da.build_block_tables(qd, qp, kd, kp, block_q=blk, block_k=blk)
+    meta = [torch.from_numpy(a).cuda() for a in (qd, qp, kd, kp)]
+    q = _randn(gen, (1, Hq, Tq, D), dtype).requires_grad_(True)
+    k = _randn(gen, (1, Hkv, Tk, D), dtype).requires_grad_(True)
+    v = _randn(gen, (1, Hkv, Tk, D), dtype).requires_grad_(True)
+    do = _randn(gen, (1, Hq, Tq, D), dtype)
+    dlse = _randn(gen, (1, Hq, Tq), torch.float32)
+    o, lse = kops.doc_flash_attention(q, k, v, *meta, tabs, scale=D ** -0.5,
+                                      grid=grid, partial=True)
+    m = torch.clamp(lse, min=NEG)
+    dq, dk, dv = torch.autograd.grad((o.float() * do.float()).sum()
+                                     + (m * dlse).sum(), (q, k, v))
+    torch.cuda.synchronize()
+    fwd_t, rev_t = _halves(tabs, grid)
+    kw = dict(scale=D ** -0.5, block_q=blk, block_k=blk, grid=grid)
+    q, k, v = q.detach(), k.detach(), v.detach()
+    po, plse = da.flash_fwd_plain(q, k, v, *meta, fwd_t, **kw)
+    empty = torch.isinf(plse)
+    assert 0 < int(empty.sum()) < empty.numel()
+    delta = (do.float() * po.float()).sum(-1) \
+        - torch.where(empty, 0.0, dlse)
+    pdq = da.flash_bwd_dq_plain(q, k, v, do, plse, delta, *meta, fwd_t, **kw)
+    pdk, pdv = da.flash_bwd_dkv_plain(q, k, v, do, plse, delta, *meta,
+                                      rev_t, **kw)
+    tol = DOC_TOL[dtype]
+    bf16 = dtype == torch.bfloat16
+
+    def rel(got, want):
+        return _maxerr(got, want) / max(want.float().abs().max().item(), 1.0)
+
+    assert _maxerr(o, po) <= tol
+    assert torch.equal(torch.isinf(lse), empty)
+    assert (lse[~empty] - plse[~empty]).abs().max().item() <= tol
+    assert rel(dq, pdq) <= (DQ_BF16_TOL if bf16 else tol)
+    assert rel(dk, pdk) <= (DKV_BF16_TOL if bf16 else tol)
+    assert rel(dv, pdv) <= (DKV_BF16_TOL if bf16 else tol)
 
 
 def test_doc_kernels_count_launches_and_refuse_what_they_cannot_take(gen):

@@ -107,6 +107,7 @@ def test_distribution_and_packing_copies_match(dataset):
         np.testing.assert_array_equal(x, y)
 
 
+@pytest.mark.parametrize("cp", [1, 2, 4, 8])
 @pytest.mark.parametrize("strategy,dataset,grid,C,align", [
     ("flashcp", "wlb_llm", "flat", 4096, 128),
     ("flashcp", "pile", "rect", 1000, 128),
@@ -114,13 +115,17 @@ def test_distribution_and_packing_copies_match(dataset):
     ("ring", "wlb_llm", "rect", 1024, 64),
     ("flashcp", "pile", "flat", 776, 1),
 ])
-def test_make_batch_bit_identical(strategy, dataset, grid, C, align):
-    kw = dict(dataset=dataset, context_len=C, batch_per_host=2, cp_size=1,
+def test_make_batch_bit_identical(strategy, dataset, grid, C, align, cp):
+    kw = dict(dataset=dataset, context_len=C, batch_per_host=2, cp_size=cp,
               strategy=strategy, vocab_size=512, seed=3, align=align,
               emit_tables=align > 1, table_grid=grid, table_block_q=align,
               table_block_k=align)
     for step in (0, 7):
-        a, b = jbatch(JPipe(**kw), step), tbatch(TPipe(**kw), step)
+        # the reference plans serially, as the port does: with its thread
+        # pool, which of two equal sequences plans first (and so the
+        # cache's hit count) is a race
+        a = jbatch(JPipe(**kw, planner_workers=1), step)
+        b = tbatch(TPipe(**kw), step)
         assert sorted(set(a) - {"stats"}) == sorted(set(b) - {"stats"})
         assert any(k.startswith("tab_") for k in b) == (align > 1)
         for k in set(a) - {"stats"}:
@@ -131,9 +136,9 @@ def test_make_batch_bit_identical(strategy, dataset, grid, C, align):
 
 
 def test_make_batch_refuses_cp_and_unknown_strategy():
-    with pytest.raises(NotImplementedError, match="CP slice"):
-        tbatch(TPipe(cp_size=2, context_len=256), 0)
-    with pytest.raises(KeyError):
+    # CP sizes > 1 are planned now (test_make_batch_bit_identical); an
+    # unknown strategy still fails fast, naming the available planners
+    with pytest.raises(KeyError, match="available"):
         tbatch(TPipe(strategy="nope", context_len=256), 0)
 
 
@@ -327,10 +332,108 @@ def test_train_step_refuses_what_waits_for_later_slices():
         build_train_step(cfg, tcfgs.RunConfig(grad_compression="int8"),
                          device="cpu")
     from repro_torch.core.cp_attention import make_cp_context
+    from repro_torch.launch.train import parse_mesh
     arrs = {"doc": torch.zeros((1, 8), dtype=torch.int32),
             "pos": torch.zeros((1, 8), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="next slice"):
+    with pytest.raises(NotImplementedError, match="int8 KV wire"):
+        make_cp_context(arrs, head_dim=16, kv_comm_dtype="int8")
+    with pytest.raises(NotImplementedError, match="data axis"):
+        parse_mesh("2x4")
+    with pytest.raises(NotImplementedError, match="data axis"):
+        train(build_parser().parse_args(["--smoke", "--device", "cpu",
+                                          "--mesh", "2x1"]))
+    assert parse_mesh("1x4") == (1, 4)
+    # N > 1 needs this rank's process group
+    with pytest.raises(ValueError, match="process group"):
         make_cp_context({**arrs, "send_idx": torch.full((1, 2, 128), -1)},
                         head_dim=16)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        make_cp_context(arrs, head_dim=16, overlap="none")
+
+
+def test_train_cli_mesh_runs_cp_ranks(capfd):
+    """``--mesh 1x2 --dist-backend gloo`` spawns two CPU ranks that log
+    the same losses as one rank on the same seed; a CP mesh without a
+    backend is refused."""
+    from repro_torch.launch.train import main
+    argv = ["--smoke", "--device", "cpu", "--steps", "2", "--seq-len", "256",
+            "--batch", "1", "--q-chunk", "64"]
+    main(argv)
+    one = capfd.readouterr().out
+    main(argv + ["--mesh", "1x2", "--dist-backend", "gloo"])
+    two = capfd.readouterr().out
+
+    def losses(out):
+        return [float(line.split()[4]) for line in out.splitlines()
+                if line.startswith("[train] step")]
+
+    assert len(losses(one)) == 2
+    np.testing.assert_allclose(losses(two), losses(one), rtol=1e-4)
+    assert "comm_tok 0 " in one and "comm_tok 0 " not in two
+    with pytest.raises(SystemExit):
+        main(argv + ["--mesh", "1x2"])
+
+
+# --------------------------------------------------------------------- #
+# the CP train step over N gloo ranks
+# --------------------------------------------------------------------- #
+JOIN_TIMEOUT = 240
+
+
+@pytest.mark.parametrize("cp", [2, 4])
+def test_cp_train_step_matches_jax(cp, tmp_path):
+    """The port's CP step at N ranks (gloo, CPU) on the CP batch of step 0
+    against the JAX step on the same logical batch (its N = 1 batch: the
+    same documents and tokens in packed order), from the reference's own
+    parameters: loss 1e-5 relative, every gradient 1e-4 of its leaf's
+    largest entry, and after one step the metrics and parameters at the
+    bounds of test_two_train_steps_match_jax.  Plain and flash attention
+    (the twins, flat tables) run in one spawn."""
+    import _torch_cp_ranks as ranks
+    from repro_torch.launch.ranks import spawn_ranks
+
+    jc, _, jp, _ = _models("starcoder2_3b", seed=1)
+    np.savez(tmp_path / "params.npz", **_flat(_np_tree(jp)))
+    run_kw = dict(lr=1e-3, warmup_steps=1, total_steps=4)
+    impls = ("plain", "flash")
+    pipe_kw = {}
+    for impl in impls:
+        kw = _pipe_kw(jc, impl == "flash")
+        pipe_kw[impl] = {k: v for k, v in kw.items()
+                         if k not in ("cp_size", "vocab_size")}
+    spawn_ranks(ranks.train_rank, cp,
+                args=(cp, str(tmp_path / "store"), str(tmp_path),
+                      str(tmp_path / "params.npz"), pipe_kw, run_kw, impls),
+                timeout=JOIN_TIMEOUT)
+    got = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(cp)]
+    for impl in impls:
+        flash = impl == "flash"
+        batch = jbatch(JPipe(**_pipe_kw(jc, flash)), 0)
+        jb = {k: jnp.asarray(batch[k]) for k in ("tokens", "labels")}
+        ctx = jctx(jnp.asarray(batch["doc"]), jnp.asarray(batch["pos"]),
+                   attention_impl="xla", q_chunk=64)
+        (jl, jm), jg = jax.value_and_grad(
+            lambda p: jloss(p, jc, ctx, jb, remat=True), has_aux=True)(jp)
+        jgrads = _flat(_np_tree(jg))
+        jparams, _, jmetrics = _jax_steps(
+            jc, jp, "pallas" if flash else "xla", 1, [batch], run_kw)
+        jparams = _flat(_np_tree(jparams))
+        for r, res in enumerate(got):
+            tag = f"{impl} cp{cp} rank {r}"
+            np.testing.assert_allclose(res[f"{impl}/loss"], float(jl),
+                                       rtol=1e-5, err_msg=tag)
+            np.testing.assert_allclose(res[f"{impl}/ce"], float(jm["ce"]),
+                                       rtol=1e-5, err_msg=tag)
+            for name, want in jgrads.items():
+                scale = max(float(np.abs(want).max()), 1e-6)
+                np.testing.assert_allclose(
+                    res[f"{impl}/grad/{name}"], want, atol=1e-4 * scale,
+                    rtol=0, err_msg=f"{tag} grad {name}")
+            for k in ("loss", "ce", "grad_norm"):
+                np.testing.assert_allclose(res[f"{impl}/step/{k}"],
+                                           jmetrics[0][k], rtol=1e-5,
+                                           err_msg=f"{tag} step {k}")
+            assert int(res[f"{impl}/step/tokens"]) == \
+                int(jmetrics[0]["tokens"])
+            for name, want in jparams.items():
+                np.testing.assert_allclose(res[f"{impl}/param/{name}"], want,
+                                           atol=5e-5, rtol=0,
+                                           err_msg=f"{tag} param {name}")
