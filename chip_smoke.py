@@ -30,10 +30,17 @@ launch count set to 0 just before and read just after:
   parity); the CP islands at N = 4 (flashcp chunked and monolithic,
   llama3, ring_zigzag) and N = 2 (flashcp), f32 and bf16, each rank's
   outputs and gradients against the one-rank path (``cp_islands``); and
-  4 CP ranks training full-width starcoder2_3b cut to 4 layers for 3
-  steps, step 0 against one rank (``cp_train``).  The ranks are spawned
-  after the build; where they share a card they use gloo, whose
-  exchange goes through host memory, else NCCL with one rank per card.
+  4 CP ranks (a 1x4 mesh, ZeRO-3) training full-width starcoder2_3b cut
+  to 4 layers for 3 steps, step 0 against one rank (``cp_train``);
+* the distributed training loop: a 2x2 mesh (rows over ``data``, tokens
+  over ``model``, parameters and optimizer state sharded over both)
+  training the same 4-layer model on 2 rows of 16384 tokens for 3 steps
+  against one rank, then the f32 smoke model checkpointed on 2x2 and
+  resumed on 1x4 (``dp_train``); and all 30 layers on a 2x1 mesh for one
+  step against one rank (``dp_full``).  Every rank checks that it holds
+  exactly its ZeRO-3 shards.  The ranks are spawned after the build;
+  where they share a card they use gloo, whose exchange goes through
+  host memory, else NCCL with one rank per card.
 
 Run from the repository root:
 
@@ -115,18 +122,39 @@ CP_ISLANDS = ((4, "flashcp", "chunked"), (4, "flashcp", "none"),
 # islands vs the one-rank path, relative to the largest entry: the same
 # kernels over other KV subsets, merged by online LSE in another order
 CP_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
-# CP training: depth cut to 4 layers (N replicas share the card), 3 steps;
-# step 0's loss and grad norm vs the one-rank step, relative
+# CP training: depth cut to 4 layers, 3 steps; step 0's loss and grad
+# norm vs the one-rank step, relative
 CP_TRAIN_WORLD, CP_TRAIN_LAYERS, CP_TRAIN_STEPS = 4, 4, 3
 CP_TRAIN_TOL = 1e-2
 # ... and every step-0 gradient leaf within CP_TRAIN_TOL (relative norm of
 # the difference) but the embedding table's: its backward scatter-adds
 # each token's row gradient into a bf16 table, one rounding per add, so a
 # frequent token's row stops growing once it is large, and one rank (4x
-# the adds per row of a CP rank) loses more.  Printed, not gated here; in
-# f32 every leaf, this one too, agrees (scripts/cp_grad_check.py, and
-# test_cp_train_step_matches_jax on the CPU).
+# the adds per row of a CP rank) loses more.  Printed, not gated; in f32
+# every leaf, this one too, agrees (test_cp_train_step_matches_jax on the
+# CPU).
 EMBED_LEAF = "embed/e"
+F2 = ("not a fault of the port: the reference rounds the same way on the "
+      "CPU (tests/test_torch_zero.py::test_bf16_embedding_grad_matches_"
+      "reference_bit_for_bit); what its TPU does is not known")
+# the distributed loop: a 2x2 mesh (4 ranks) training full-width
+# starcoder2_3b cut to 4 layers on 2 rows of 16384 tokens (8192 per
+# rank), 3 steps, against one rank on the same global batch; step 0's
+# loss relative, grad norm and every leaf but the embedding table's as
+# in cp_train
+DP_MESH, DP_LAYERS, DP_SEQ, DP_BATCH, DP_STEPS = (2, 2), 4, 16384, 2, 3
+DP_LOSS_TOL, DP_TOL = 1e-4, 1e-2
+# the smoke model (f32, on the card): a checkpoint written at step 2 on
+# 2x2 and resumed on 1x4 against the uninterrupted 4-step run
+DP_RESUME_AT, DP_RESUME_STEPS, DP_RESUME_TOL = 2, 4, 1e-5
+# the 2x2 run's final checkpoint (full width, 4 layers) restored on the
+# same mesh: each rank's shards bit for bit, and the device's peak over
+# the restore within this many bytes of the rank's state (the allocator's
+# rounding; the whole state is 4x it)
+DP_RESTORE_SLACK = 16 << 20
+# all 30 layers (3.18 B parameters) on a 2x1 mesh, one step of 2 rows of
+# 8192 tokens, against one rank
+DP_FULL_MESH, DP_FULL_SEQ, DP_FULL_BATCH = (2, 1), 8192, 2
 # a rank group that outlives this is killed and the phase fails
 RANK_TIMEOUT = 300
 
@@ -1019,11 +1047,6 @@ def cp_train_args(*extra):
                       "--log-every", "100", *extra)
 
 
-def param_checksum(params) -> float:
-    from repro_torch.optim._slices import leaves
-    return float(sum(p.float().sum().item() for p in leaves(params)))
-
-
 def named(tree, prefix: str = "") -> list:
     """(name, tensor) leaves in sorted-key order; a stacked layer leaf
     is split into one entry per layer."""
@@ -1041,21 +1064,29 @@ def _widen(tree):
     return tree.float()
 
 
-def step0_grads(dtype: str, cp: int, comm, device) -> tuple:
-    """Step 0's loss and gradients ({leaf: grad} on the host) of the CP
-    training run's model and stream, on one rank (``cp`` 1) or as this
-    rank of ``comm``; ``dtype`` float32 widens the bf16 parameters."""
+def step0_grads(dtype: str, mesh=None, device="cuda", backend=None, *,
+                layers: int = CP_TRAIN_LAYERS, seq: int = CP_SEQ,
+                batch: int = 1, norm_only: bool = False) -> tuple:
+    """Step 0's loss and whole gradients ({leaf: grad} on the host) of a
+    training run's model (full width, ``layers`` deep) and stream (``seq``
+    tokens x ``batch`` rows), on one rank (``mesh`` None) or as this rank
+    of ``mesh`` over ``backend`` (ZeRO-3 shards, gathered whole for the
+    comparison); ``dtype`` float32 widens the bf16 parameters.  With
+    ``norm_only`` (one rank), the gradients' global norm in their place."""
     import dataclasses
     from repro_torch.configs import RunConfig, get_config
     from repro_torch.data.pipeline import PipelineConfig, make_batch
+    from repro_torch.launch.mesh import mesh_axes
     from repro_torch.launch.steps import batch_to_device, build_train_step
     from repro_torch.models import init_params
+    from repro_torch.runtime.zero import Zero3, tree_shapes
 
-    cfg = dataclasses.replace(get_config(ARCH), num_layers=CP_TRAIN_LAYERS)
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=layers)
     run = RunConfig(arch=ARCH, cp_strategy="flashcp", attention_impl="flash",
                     kernel_grid="flat", seed=0)
+    cp = 1 if mesh is None else mesh_axes(mesh)["model"]
     pipe = PipelineConfig(
-        dataset="wlb_llm", context_len=CP_SEQ, batch_per_host=1, cp_size=cp,
+        dataset="wlb_llm", context_len=seq, batch_per_host=batch, cp_size=cp,
         strategy="flashcp", vocab_size=cfg.vocab_size, seed=0, align=128,
         emit_tables=True, table_overlap=run.cp_overlap,
         table_grid=run.kernel_grid)
@@ -1063,9 +1094,19 @@ def step0_grads(dtype: str, cp: int, comm, device) -> tuple:
     if dtype == "float32":
         cfg = dataclasses.replace(cfg, dtype=dtype)
         params = _widen(params)
-    step = build_train_step(cfg, run, q_chunk=128, device=device, comm=comm)
-    batch = batch_to_device(make_batch(pipe, 0), device)
-    (loss, _), grads = step.loss_and_grads(params, batch)
+    zero = None
+    if mesh is not None:
+        zero = Zero3(mesh, backend, tree_shapes(params))
+        params = zero.shard(params)
+    step = build_train_step(cfg, run, q_chunk=128, device=device, zero=zero)
+    b = batch_to_device(make_batch(pipe, 0), device)
+    (loss, _), grads = step.loss_and_grads(params, b)
+    del params
+    if norm_only:
+        from repro_torch.optim import global_norm
+        return float(loss), float(global_norm(grads))
+    if zero is not None:
+        grads = zero.gather_full(grads)
     return float(loss), {n: g.detach().cpu() for n, g in named(grads)}
 
 
@@ -1090,20 +1131,61 @@ def compare_grads(got: dict, want: dict) -> dict:
             "leaves": sorted(rows, key=lambda r: -r["rel_err"])}
 
 
+def zero_state(res) -> dict:
+    """A ZeRO-3 rank's state after ``train``: whether every parameter and
+    optimizer leaf has exactly the layout's shard shape, and its bytes."""
+    from repro_torch.runtime.zero import named_leaves
+
+    zero, opt = res["zero"], res["opt_state"]
+    want = zero.shard_shapes()
+    trees = [res["params"]] + [opt[k] for k in ("master", "mu", "nu")
+                               if k in opt]
+    leaves_ = [x for t in trees for x in named_leaves(t)]
+    return {"shapes_ok": all(tuple(x.shape) == want[p] for p, x in leaves_),
+            "state_bytes": sum(x.numel() * x.element_size()
+                               for _, x in leaves_ + [("", opt["count"])])}
+
+
+def expected_state_bytes(params, mesh_shape) -> dict:
+    """The state bytes of a ZeRO-3 run summed over its ranks: one copy of
+    the bf16 parameters, fp32 master, mu and nu (and a count per rank),
+    plus the copies of the leaves the layout keeps whole over an axis."""
+    import math
+    from repro_torch.runtime.sharding import param_specs, replicated_axes
+    from repro_torch.runtime.zero import named_leaves, tree_shapes
+
+    axes = dict(zip(("data", "model"), mesh_shape))
+    specs = param_specs(axes, tree_shapes(params))
+    named_ = named_leaves(params)
+    # mu and nu, and an fp32 master where any leaf is stored below fp32
+    f32_state = 12 if any(x.element_size() < 4 for _, x in named_) else 8
+    one = extra = 0
+    for p, x in named_:
+        per = x.numel() * (x.element_size() + f32_state)
+        reps = math.prod(axes[a] for a in replicated_axes(specs[p], axes))
+        one += per
+        extra += (reps - 1) * per
+    world = math.prod(mesh_shape)
+    return {"one_copy": one + 4, "replicated_extra": extra + 4 * (world - 1),
+            "total": one + extra + 4 * world}
+
+
 def cp_train_rank(rank, world, backend, store, out_dir, grad_dir):
-    """One rank of the CP training run: step 0's gradients (rank 0 saves
-    them to ``grad_dir``), then ``train`` at ``--mesh 1xN``; the
-    parameters' checksum before and after."""
+    """One rank of the CP training run on a ``1xN`` mesh (ZeRO-3): step
+    0's gradients (rank 0 saves them to ``grad_dir``), then ``train``;
+    its state's shard shapes and bytes."""
     import dataclasses
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.launch.ranks import init_rank
     from repro_torch.models import init_params
 
-    comm, dev = init_rank(rank, world, backend, store, "cuda")
+    _, dev = init_rank(rank, world, backend, store, "cuda")
     try:
-        _, grads = step0_grads("bfloat16", world, comm, dev)
+        mesh = make_local_mesh(1, world, device_type="cuda")
+        _, grads = step0_grads("bfloat16", mesh, dev, backend)
         if rank == 0:
             torch.save(grads, Path(grad_dir) / "grads.pt")
         del grads
@@ -1112,32 +1194,43 @@ def cp_train_rank(rank, world, backend, store, out_dir, grad_dir):
         cfg = dataclasses.replace(get_config(ARCH),
                                   num_layers=CP_TRAIN_LAYERS)
         params = init_params(cfg, seed=0, device=dev)
-        checksum = param_checksum(params)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         reset_counts()
-        res = train(args, params=params, comm=comm, device=dev)
+        res = train(args, params=params, mesh=mesh, device=dev)
         launches = read_counts()
         with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
             json.dump({"rank": rank, "losses": res["losses"],
                        "grad_norms": res["grad_norms"],
                        "step_s": res["step_s"], "tokens": res["tokens"],
                        "peak_bytes": torch.cuda.max_memory_allocated(dev),
-                       "param_checksum": checksum,
-                       "final_param_checksum": param_checksum(res["params"]),
-                       "launches": launches}, f)
+                       **zero_state(res), "launches": launches}, f)
     finally:
         dist.destroy_process_group()
 
 
+def check_zero_state(what: str, ranks, want: dict) -> None:
+    """Every rank holds exactly the layout's shard shapes, and the state
+    bytes summed over the ranks are one copy plus the replicated
+    leaves'."""
+    if not all(x["shapes_ok"] for x in ranks):
+        raise AssertionError(f"{what}: a rank holds other than its ZeRO-3 "
+                             "shard shapes")
+    got = sum(x["state_bytes"] for x in ranks)
+    if got != want["total"]:
+        raise AssertionError(f"{what}: the ranks hold {got} state bytes, "
+                             f"the layout {want}")
+
+
 def cp_train_phase(torch) -> dict:
     """Full-width starcoder2_3b cut to CP_TRAIN_LAYERS layers, bf16 with
-    an fp32 master, flashcp over N ranks on one 32768-token sequence per
-    step: step 0's loss, grad norm and every gradient leaf but the
-    embedding table against the one-rank step on the same batch from the
-    same parameters; every loss finite; every rank's launches exactly
-    layers x steps x (1 + N-1 hops) x (2, 1, 1); the replicas equal
-    before the first step and after the last."""
+    an fp32 master, flashcp over N ranks (ZeRO-3 on a 1xN mesh) on one
+    32768-token sequence per step: step 0's loss, grad norm and every
+    gradient leaf but the embedding table against the one-rank step on
+    the same batch from the same parameters; every loss finite; every
+    rank's launches exactly layers x steps x (1 + N-1 hops) x (2, 1, 1);
+    every rank's shard shapes those of the layout, and the state bytes
+    over the ranks one copy plus the replicated leaves."""
     import dataclasses
     import math
     import tempfile
@@ -1145,11 +1238,11 @@ def cp_train_phase(torch) -> dict:
     from repro_torch.models import init_params
 
     world = CP_TRAIN_WORLD
-    _, g1 = step0_grads("bfloat16", 1, None, "cuda")
+    _, g1 = step0_grads("bfloat16")
     torch.cuda.empty_cache()
     cfg = dataclasses.replace(get_config(ARCH), num_layers=CP_TRAIN_LAYERS)
     params = init_params(cfg, seed=0, device="cuda")
-    checksum = param_checksum(params)
+    want_bytes = expected_state_bytes(params, (1, world))
     # one rank, step 0 of the same stream from the same parameters
     torch.cuda.reset_peak_memory_stats()
     res1 = train(cp_train_args("--steps", "1"), params=params)
@@ -1183,18 +1276,19 @@ def cp_train_phase(torch) -> dict:
                          "step_s_after_first": step_s,
                          "tokens_per_s": CP_SEQ / step_s,
                          "peak_bytes": x["peak_bytes"],
-                         "param_checksum": x["param_checksum"],
-                         "final_param_checksum": x["final_param_checksum"],
+                         "shapes_ok": x["shapes_ok"],
+                         "state_bytes": x["state_bytes"],
                          "launches": x["launches"]})
     emit("cp_train", arch=ARCH, layers=CP_TRAIN_LAYERS, world=world,
          backend=backend,
          exchange=("gloo through host memory, not NVLink"
                    if backend == "gloo" else "nccl"),
          seq_len=CP_SEQ, t_loc=CP_SEQ // world, steps=CP_TRAIN_STEPS,
-         one_rank_step0=one, loss_rel_diff=d_loss, grad_norm_rel_diff=d_norm, tol=CP_TRAIN_TOL,
-         grad_rel_err=leaf["grad_rel_err"], worst_leaves=gated[:6],
-         embed_leaf=embed, expected_launches=want, wall_s=wall,
-         one_rank_param_checksum=checksum, ranks=per_rank)
+         one_rank_step0=one, loss_rel_diff=d_loss, grad_norm_rel_diff=d_norm,
+         tol=CP_TRAIN_TOL, grad_rel_err=leaf["grad_rel_err"],
+         worst_leaves=gated[:6], embed_leaf=embed, embed_leaf_not_gated=F2,
+         expected_launches=want, expected_state_bytes=want_bytes,
+         wall_s=wall, ranks=per_rank)
     finite = all(math.isfinite(v) for x in ranks
                  for v in x["losses"] + x["grad_norms"])
     if not finite:
@@ -1204,15 +1298,339 @@ def cp_train_phase(torch) -> dict:
     if gated[0]["rel_err"] > CP_TRAIN_TOL:
         raise AssertionError(f"CP step-0 gradient of {gated[0]['leaf']} is "
                              f"{gated[0]['rel_err']:.3g} from one rank's")
-    if any(x["param_checksum"] != checksum for x in ranks):
-        raise AssertionError("CP ranks started from other parameters")
-    if len({x["final_param_checksum"] for x in ranks}) != 1:
-        raise AssertionError("CP replicas differ after the last step")
+    check_zero_state("CP training", ranks, want_bytes)
     if any(x["launches"][n] != want[n] for x in ranks for n in want):
         raise AssertionError(f"CP training launches "
                              f"{[x['launches'] for x in ranks]}, want {want} "
                              "per rank")
     return {"ranks": per_rank}
+
+
+# ----------------------------------------------------------------------- #
+# the distributed training loop: a data axis, ZeRO-3, checkpoints
+# ----------------------------------------------------------------------- #
+def dp_train_args(*extra):
+    return train_args("--arch", ARCH, "--layers", str(DP_LAYERS),
+                      "--seq-len", str(DP_SEQ), "--batch", str(DP_BATCH),
+                      "--steps", str(DP_STEPS), "--device", "cuda",
+                      "--log-every", "100", *extra)
+
+
+def smoke_args(*extra):
+    """The f32 smoke model on the card (checkpoint resharding check)."""
+    return train_args("--smoke", "--seq-len", "512", "--batch", "2",
+                      "--device", "cuda", "--log-every", "100", *extra)
+
+
+def resume_check(backend, ckpt_dir: str, dev) -> dict:
+    """On this rank of a 4-rank world: the smoke model trained
+    DP_RESUME_STEPS steps on a 2x2 mesh without a stop, and again with a
+    stop after step DP_RESUME_AT (its final checkpoint) and a resume on a
+    1x4 mesh; each run's losses."""
+    from repro_torch.launch.mesh import make_local_mesh
+
+    m22 = make_local_mesh(2, 2, device_type="cuda")
+    m14 = make_local_mesh(1, 4, device_type="cuda")
+    steps = str(DP_RESUME_STEPS)
+    kw = ("--dist-backend", backend)
+    whole = train(smoke_args("--mesh", "2x2", "--steps", steps, *kw),
+                  mesh=m22, device=dev)["losses"]
+    first = train(smoke_args("--mesh", "2x2", "--steps", str(DP_RESUME_AT),
+                             "--checkpoint-dir", ckpt_dir, *kw),
+                  mesh=m22, device=dev)["losses"]
+    resumed = train(smoke_args("--mesh", "1x4", "--steps", steps,
+                               "--checkpoint-dir", ckpt_dir, "--resume",
+                               *kw), mesh=m14, device=dev)["losses"]
+    return {"uninterrupted_2x2": whole, "stopped_2x2": first,
+            "resumed_1x4": resumed}
+
+
+def restore_check(res, ckpt_dir: str, mesh, backend, dev) -> dict:
+    """This rank's shards of ``train``'s final checkpoint in ``ckpt_dir``,
+    restored on ``mesh``: whether they equal the shards ``res`` ended
+    with, bit for bit, and the device's peak memory over the restore
+    beside this rank's state bytes and the whole checkpoint's."""
+    import math
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch.train import restore_state
+    from repro_torch.runtime.zero import named_leaves
+
+    ckpt = CheckpointManager(ckpt_dir)
+    step = ckpt.latest_step()
+    whole = sum(math.prod(a["shape"]) * (2 if a["dtype"] == "bfloat16"
+                                         else np.dtype(a["dtype"]).itemsize)
+                for a in ckpt.manifest(step)["arrays"].values())
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params, opt, _ = restore_state(ckpt, step, mesh, backend, dev)
+    torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    got = named_leaves({"params": params, "opt": opt})
+    want = named_leaves({"params": res["params"], "opt": res["opt_state"]})
+    return {"step": step, "seconds": seconds, "peak_bytes": peak,
+            "state_bytes": sum(x.numel() * x.element_size() for _, x in got),
+            "checkpoint_bytes": whole,
+            "equal": [p for p, _ in got] == [p for p, _ in want]
+            and all(torch.equal(a, b) for (_, a), (_, b) in zip(got, want))}
+
+
+def dp_train_rank(rank, world, backend, store, out_dir, grad_dir, ckpt_dir,
+                  full_ckpt_dir):
+    """One rank of the 2x2 training run: step 0's gradients (rank 0 saves
+    them whole to ``grad_dir``), ``train`` with the launch counts read
+    around it and its final checkpoint in ``full_ckpt_dir``, its ZeRO-3
+    state, the restore of that checkpoint; then the checkpoint resharding
+    check."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.ranks import init_rank
+    from repro_torch.models import init_params
+
+    _, dev = init_rank(rank, world, backend, store, "cuda")
+    try:
+        mesh = make_local_mesh(*DP_MESH, device_type="cuda")
+        _, grads = step0_grads("bfloat16", mesh, dev, backend,
+                               layers=DP_LAYERS, seq=DP_SEQ, batch=DP_BATCH)
+        if rank == 0:
+            torch.save(grads, Path(grad_dir) / "grads.pt")
+        del grads
+        cfg = dataclasses.replace(get_config(ARCH), num_layers=DP_LAYERS)
+        params = init_params(cfg, seed=0, device=dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        res = train(dp_train_args("--mesh", "x".join(map(str, DP_MESH)),
+                                  "--dist-backend", backend,
+                                  "--checkpoint-dir", full_ckpt_dir),
+                    params=params, mesh=mesh, device=dev)
+        launches = read_counts()
+        out = {"rank": rank, "losses": res["losses"],
+               "grad_norms": res["grad_norms"], "step_s": res["step_s"],
+               "tokens": res["tokens"],
+               "peak_bytes": torch.cuda.max_memory_allocated(dev),
+               **zero_state(res), "launches": launches}
+        del params
+        out["restore"] = restore_check(res, full_ckpt_dir, mesh, backend, dev)
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["resume"] = resume_check(backend, ckpt_dir, dev)
+        with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_train_phase(torch) -> dict:
+    """Full-width starcoder2_3b cut to DP_LAYERS layers, bf16 with an
+    fp32 master, flashcp, on a 2x2 mesh (ZeRO-3 over both axes, the rows
+    of a 2 x 16384-token batch over ``data``, each row's tokens over
+    ``model``) for DP_STEPS steps, against one rank on the same global
+    batch from the same parameters: step 0's loss (DP_LOSS_TOL), grad
+    norm and every gradient leaf but the embedding table (DP_TOL); every
+    loss finite; every rank's launches exactly layers x steps x (1 + 1
+    hop) x (2, 1, 1); the ZeRO-3 state as in ``cp_train``; the final
+    checkpoint restored on 2x2: every rank's shards bit for bit, the
+    device's peak over the restore at the rank's state size (within
+    DP_RESTORE_SLACK).  Then the smoke model, f32 on the card: a checkpoint written at step
+    DP_RESUME_AT on 2x2 and resumed on 1x4 reaches the uninterrupted
+    run's losses (DP_RESUME_TOL)."""
+    import dataclasses
+    import math
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    world = math.prod(DP_MESH)
+    t0 = time.perf_counter()
+    loss1, g1 = step0_grads("bfloat16", layers=DP_LAYERS, seq=DP_SEQ,
+                            batch=DP_BATCH)
+    one_s = time.perf_counter() - t0
+    gnorm1 = math.sqrt(sum(g.double().pow(2).sum().item()
+                           for g in g1.values()))
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=DP_LAYERS)
+    want_bytes = expected_state_bytes(
+        init_params(cfg, seed=0, device="cuda"), DP_MESH)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    backend = cp_backend(torch, world)
+    with tempfile.TemporaryDirectory() as tmp:
+        grad_dir, ckpt_dir = Path(tmp) / "grads", Path(tmp) / "ckpt"
+        grad_dir.mkdir()
+        t0 = time.perf_counter()
+        ranks = run_ranks(torch, dp_train_rank, world, str(grad_dir),
+                          str(ckpt_dir), str(Path(tmp) / "ckpt_full"))
+        wall = time.perf_counter() - t0
+        leaf = compare_grads(torch.load(grad_dir / "grads.pt"), g1)
+    del g1
+    r0 = ranks[0]
+    d_loss = abs(r0["losses"][0] - loss1) / abs(loss1)
+    d_norm = abs(r0["grad_norms"][0] - gnorm1) / gnorm1
+    gated = [r for r in leaf["leaves"] if r["leaf"] != EMBED_LEAF]
+    embed = next(r for r in leaf["leaves"] if r["leaf"] == EMBED_LEAF)
+    hops = DP_MESH[1] - 1
+    want = {n: DP_LAYERS * DP_STEPS * (1 + hops) * k
+            for n, k in (("flash_fwd", 2), ("flash_bwd_dq", 1),
+                         ("flash_bwd_dkv", 1))}
+    tokens = DP_SEQ * DP_BATCH
+    per_rank = []
+    for x in ranks:
+        step_s = statistics.mean(x["step_s"][1:])
+        per_rank.append({k: x[k] for k in (
+            "rank", "losses", "grad_norms", "step_s", "peak_bytes",
+            "shapes_ok", "state_bytes", "launches", "restore")}
+            | {"step_s_after_first": step_s, "tokens_per_s": tokens / step_s})
+    res = r0["resume"]
+    d_resume = max(abs(a - b) / abs(b) for a, b in zip(
+        res["resumed_1x4"], res["uninterrupted_2x2"][DP_RESUME_AT:]))
+    emit("dp_train", arch=ARCH, layers=DP_LAYERS, mesh=list(DP_MESH),
+         backend=backend,
+         exchange=("gloo through host memory, not NVLink"
+                   if backend == "gloo" else "nccl"),
+         seq_len=DP_SEQ, batch=DP_BATCH, tokens_per_rank=tokens // world,
+         steps=DP_STEPS,
+         one_rank_step0={"loss": loss1, "grad_norm": gnorm1,
+                         "seconds": one_s},
+         loss_rel_diff=d_loss, loss_tol=DP_LOSS_TOL,
+         grad_norm_rel_diff=d_norm, tol=DP_TOL,
+         grad_rel_err=leaf["grad_rel_err"], worst_leaves=gated[:6],
+         embed_leaf=embed, embed_leaf_not_gated=F2,
+         expected_launches=want, expected_state_bytes=want_bytes,
+         wall_s=wall, ranks=per_rank, resume=res,
+         resume_rel_diff=d_resume, resume_tol=DP_RESUME_TOL)
+    finite = all(math.isfinite(v) for x in ranks
+                 for v in x["losses"] + x["grad_norms"])
+    if not finite:
+        raise AssertionError("2x2 training produced non-finite losses")
+    if not (d_loss <= DP_LOSS_TOL and d_norm <= DP_TOL):
+        raise AssertionError("2x2 and one-rank training steps disagree")
+    if gated[0]["rel_err"] > DP_TOL:
+        raise AssertionError(f"2x2 step-0 gradient of {gated[0]['leaf']} is "
+                             f"{gated[0]['rel_err']:.3g} from one rank's")
+    check_zero_state("2x2 training", ranks, want_bytes)
+    if any(x["launches"][n] != want[n] for x in ranks for n in want):
+        raise AssertionError(f"2x2 training launches "
+                             f"{[x['launches'] for x in ranks]}, want {want} "
+                             "per rank")
+    for x in ranks:
+        r = x["restore"]
+        if not (r["equal"] and r["step"] == DP_STEPS
+                and r["state_bytes"] == x["state_bytes"]):
+            raise AssertionError(f"rank {x['rank']}: the restored 2x2 "
+                                 f"shards differ from the saved ones: {r}")
+        if r["peak_bytes"] > r["state_bytes"] + DP_RESTORE_SLACK:
+            raise AssertionError(
+                f"rank {x['rank']}: restoring took {r['peak_bytes']} bytes "
+                f"of the device for a shard state of {r['state_bytes']} "
+                f"(the whole checkpoint: {r['checkpoint_bytes']})")
+    if any(x["resume"] != res for x in ranks):
+        raise AssertionError("the ranks logged other resumed losses")
+    if len(res["resumed_1x4"]) != DP_RESUME_STEPS - DP_RESUME_AT \
+            or d_resume > DP_RESUME_TOL:
+        raise AssertionError(f"2x2 -> 1x4 resume: {res}")
+    return {"ranks": per_rank}
+
+
+def dp_full_rank(rank, world, backend, store, out_dir):
+    """One rank of the full-depth 2x1 run: one step of ``train`` with the
+    launch counts and peak memory read around it, and its state."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.ranks import init_rank
+
+    _, dev = init_rank(rank, world, backend, store, "cuda")
+    try:
+        mesh = make_local_mesh(*DP_FULL_MESH, device_type="cuda")
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = train(train_args(
+            "--arch", ARCH, "--seq-len", str(DP_FULL_SEQ), "--batch",
+            str(DP_FULL_BATCH), "--steps", "1", "--device", "cuda",
+            "--log-every", "100", "--mesh", "x".join(map(str, DP_FULL_MESH)),
+            "--dist-backend", backend), mesh=mesh, device=dev)
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+            json.dump({"rank": rank, "losses": res["losses"],
+                       "grad_norms": res["grad_norms"],
+                       "step_s": res["step_s"], "wall_s": wall,
+                       "peak_bytes": torch.cuda.max_memory_allocated(dev),
+                       **zero_state(res), "launches": launches}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_full_phase(torch) -> dict:
+    """All 30 layers of full-width starcoder2_3b (3.18 B parameters), bf16
+    with an fp32 master, on a 2x1 mesh: ZeRO-3 lets two ranks' state
+    share one card (two replicas would not fit).  One step of a 2 x
+    8192-token batch, one row per rank; then, after the ranks exit, one
+    rank's step-0 loss and grad norm on the same batch: loss within
+    DP_LOSS_TOL, grad norm within DP_TOL; the ZeRO-3 state as in
+    ``cp_train``; launches exactly 30 x (2, 1, 1) per rank.  Each rank's
+    peak memory."""
+    import math
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    world = math.prod(DP_FULL_MESH)
+    backend = cp_backend(torch, world)
+    t0 = time.perf_counter()
+    ranks = run_ranks(torch, dp_full_rank, world)
+    wall = time.perf_counter() - t0
+
+    cfg = get_config(ARCH)
+    want_bytes = expected_state_bytes(init_params(cfg, seed=0, device="cuda"),
+                                      DP_FULL_MESH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    loss, norm = step0_grads("bfloat16", layers=cfg.num_layers,
+                             seq=DP_FULL_SEQ, batch=DP_FULL_BATCH,
+                             norm_only=True)
+    one = {"loss": loss, "grad_norm": norm,
+           "seconds": time.perf_counter() - t1,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    r0 = ranks[0]
+    d_loss = abs(r0["losses"][0] - one["loss"]) / abs(one["loss"])
+    d_norm = abs(r0["grad_norms"][0] - one["grad_norm"]) / one["grad_norm"]
+    L = cfg.num_layers
+    want = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    emit("dp_full", arch=ARCH, params=cfg.param_count(), layers=L,
+         mesh=list(DP_FULL_MESH), backend=backend,
+         exchange=("gloo through host memory, not NVLink"
+                   if backend == "gloo" else "nccl"),
+         seq_len=DP_FULL_SEQ, batch=DP_FULL_BATCH, steps=1,
+         tokens_per_s=DP_FULL_SEQ * DP_FULL_BATCH / r0["step_s"][0],
+         one_rank_step0=one, loss_rel_diff=d_loss, loss_tol=DP_LOSS_TOL,
+         grad_norm_rel_diff=d_norm, tol=DP_TOL, expected_launches=want,
+         expected_state_bytes=want_bytes, wall_s=wall, ranks=ranks)
+    if not all(math.isfinite(v) for x in ranks
+               for v in x["losses"] + x["grad_norms"]):
+        raise AssertionError("2x1 training produced non-finite losses")
+    if not (d_loss <= DP_LOSS_TOL and d_norm <= DP_TOL):
+        raise AssertionError("2x1 and one-rank full-depth steps disagree")
+    check_zero_state("2x1 training", ranks, want_bytes)
+    if any(x["launches"][n] != want[n] for x in ranks for n in want):
+        raise AssertionError(f"2x1 training launches "
+                             f"{[x['launches'] for x in ranks]}, want {want} "
+                             "per rank")
+    return {"ranks": ranks}
 
 
 # ----------------------------------------------------------------------- #
@@ -1223,9 +1641,9 @@ def train_args(*extra):
     return build_parser().parse_args(list(extra))
 
 
-def train(args, params=None, comm=None, device=None):
+def train(args, params=None, mesh=None, device=None):
     from repro_torch.launch.train import train as run_train
-    return run_train(args, params, comm=comm, device=device)
+    return run_train(args, params, mesh=mesh, device=device)
 
 
 # device-time categories of a profile, by kernel name
@@ -1477,6 +1895,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         cp_islands_phase(torch)
         cp_train_phase(torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        dp_train_phase(torch)
+        dp_full_phase(torch)
         errs = {**kern["err"], **doc["err"]}
         times = {**kern["times"], **doc["times"]}
         for name in REPLACES:

@@ -5,12 +5,11 @@ leaf, on one NVIDIA GPU.
 Full-width starcoder2_3b cut to ``chip_smoke.CP_TRAIN_LAYERS`` layers, on
 step 0 of the ``chip_smoke.CP_SEQ``-token wlb_llm stream (flashcp, the
 CUDA kernels): loss and gradients on one rank and over
-``chip_smoke.CP_TRAIN_WORLD`` ranks, in three variants:
+``chip_smoke.CP_TRAIN_WORLD`` ranks (a ``1xN`` mesh, ZeRO-3), in two
+variants:
 
-* ``bf16``: the training dtype, the ranks' gradients summed in bf16 (as
-  ``build_train_step`` sums them);
-* ``bf16_f32sum``: the same, the sum taken in f32 and rounded to bf16
-  once;
+* ``bf16``: the training dtype, the ranks' gradients summed in bf16 (the
+  reduce-scatters of the parameter gathers);
 * ``f32``: f32 parameters (the bf16 ones, widened) and f32 attention.
 
 Per variant it prints the loss and global grad-norm differences, the
@@ -34,36 +33,24 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402  (puts src/ on the path)
 
-VARIANTS = {"bf16": ("bfloat16", False), "bf16_f32sum": ("bfloat16", True),
-            "f32": ("float32", False)}
+VARIANTS = {"bf16": "bfloat16", "f32": "float32"}
 TOP = 6
-
-
-def _sum_in_f32(tensors, comm, _sum) -> None:
-    wide = [t.float() for t in tensors]
-    _sum(wide, comm)
-    for t, w in zip(tensors, wide):
-        t.copy_(w)
 
 
 def grad_rank(rank, world, backend, store, res_dir, out_dir):
     """One CP rank: every variant's step-0 losses (to ``res_dir``) and
-    gradients (rank 0 saves them to ``out_dir``; every rank holds the
-    same sum)."""
-    import functools
+    whole gradients (rank 0 saves them to ``out_dir``)."""
     import torch
     import torch.distributed as dist
-    import repro_torch.launch.steps as steps
+    from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.launch.ranks import init_rank
 
-    comm, dev = init_rank(rank, world, backend, store, "cuda")
-    plain_sum = steps.all_reduce_sum_
+    _, dev = init_rank(rank, world, backend, store, "cuda")
     try:
+        mesh = make_local_mesh(1, world, device_type="cuda")
         losses = {}
-        for name, (dtype, f32_sum) in VARIANTS.items():
-            steps.all_reduce_sum_ = functools.partial(
-                _sum_in_f32, _sum=plain_sum) if f32_sum else plain_sum
-            loss, grads = cs.step0_grads(dtype, world, comm, dev)
+        for name, dtype in VARIANTS.items():
+            loss, grads = cs.step0_grads(dtype, mesh, dev, backend)
             losses[name] = loss
             if rank == 0:
                 torch.save(grads, Path(out_dir) / f"{name}.pt")
@@ -72,7 +59,6 @@ def grad_rank(rank, world, backend, store, res_dir, out_dir):
         with open(Path(res_dir) / f"rank{rank}.json", "w") as f:
             json.dump(losses, f)
     finally:
-        steps.all_reduce_sum_ = plain_sum
         dist.destroy_process_group()
 
 
@@ -101,20 +87,20 @@ def main() -> int:
     _build.doc_attention_lib()
     one = {}
     for dtype in ("bfloat16", "float32"):
-        one[dtype] = cs.step0_grads(dtype, 1, None, "cuda")
+        one[dtype] = cs.step0_grads(dtype)
         torch.cuda.empty_cache()
     world = cs.CP_TRAIN_WORLD
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "grads"
         out.mkdir()
         ranks = cs.run_ranks(torch, grad_rank, world, str(out))
-        for name, (dtype, f32_sum) in VARIANTS.items():
+        for name, dtype in VARIANTS.items():
             loss_1, g1 = one[dtype]
             loss_n = ranks[0][name]
             gn = torch.load(out / f"{name}.pt")
             cs.emit("cp_grad_check", variant=name, world=world,
                     backend=cs.cp_backend(torch, world), dtype=dtype,
-                    f32_sum=f32_sum, loss_1=loss_1, loss_n=loss_n,
+                    loss_1=loss_1, loss_n=loss_n,
                     loss_rel_diff=abs(loss_n - loss_1) / abs(loss_1),
                     n_vs_1=compare(gn, g1))
             if dtype == "bfloat16":

@@ -75,6 +75,9 @@ class RunConfig:
     total_steps: int = 1000
     grad_clip: float = 1.0
     grad_compression: Literal["none", "topk", "int8"] = "none"
+    # '' = no checkpoints (the reference writes /tmp/repro_ckpt; the port
+    # writes only where its caller says)
+    checkpoint_dir: str = ""
     remat: bool = True
     # decode attention: flash-decode kernel (default) vs the dense
     # softmax parity oracle (models/attention.py::attn_decode)

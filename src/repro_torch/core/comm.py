@@ -31,7 +31,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["CPComm", "hop_start", "hop_wait", "all_gather_tiled",
-           "all_reduce_sum_", "broadcast_"]
+           "all_reduce_", "broadcast_"]
 
 BACKENDS = ("nccl", "gloo")
 
@@ -195,16 +195,17 @@ def all_gather_tiled(x: torch.Tensor, comm: CPComm, dim: int) -> torch.Tensor:
     return _AllGather.apply(x, comm, dim)
 
 
-def all_reduce_sum_(tensors, comm: CPComm) -> None:
-    """Sum each of ``tensors`` over the group, in place, as one flat
-    collective per dtype (no gradient)."""
+def all_reduce_(tensors, comm: CPComm, op=dist.ReduceOp.SUM) -> None:
+    """Reduce each of ``tensors`` over the group by ``op`` (a sum unless
+    told otherwise), in place, as one flat collective per dtype (no
+    gradient)."""
     by_dtype: dict = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
     for group in by_dtype.values():
         flat = torch.cat([t.detach().reshape(-1) for t in group])
         wire = flat.cpu() if comm._host_wire(flat) else flat
-        dist.all_reduce(wire, group=comm.group)
+        dist.all_reduce(wire, op=op, group=comm.group)
         flat = wire.to(flat.device)
         off = 0
         for t in group:

@@ -1,2 +1,2 @@
 """Training data of the port: document-length distributions, packing and
-the single-device batch pipeline."""
+the batch pipeline (any CP size, with a background prefetcher)."""

@@ -19,15 +19,18 @@ of the same planners, so batches match it bit for bit at any CP size
 The reference's planner knobs are constants here until a caller of the
 port needs another value: the Eq.-5 bucket is chosen per batch, the
 target imbalance is :data:`TARGET_IMBALANCE`, and the plan cache holds
-:data:`PLAN_CACHE_ENTRIES` exact signatures.  Global dispatch and the
-background Prefetcher wait for later slices of the port.
+:data:`PLAN_CACHE_ENTRIES` exact signatures.  :class:`Prefetcher` builds
+the stream ahead on a background thread.  Global dispatch waits for a
+later slice of the port.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any
+import queue
+import threading
+from typing import Any, Iterator
 
 import numpy as np
 
@@ -37,7 +40,8 @@ from repro_torch.planner import (PlanCache, emit_visit_tables,
 from .distributions import make_rng
 from .packing import pack_sequence
 
-__all__ = ["PipelineConfig", "make_batch", "exec_style_of"]
+__all__ = ["PipelineConfig", "make_batch", "exec_style_of", "data_iterator",
+           "Prefetcher"]
 
 # the FlashCP heuristic's target max/mean load ratio (planners that take one)
 TARGET_IMBALANCE = 1.05
@@ -163,3 +167,60 @@ def make_batch(cfg: PipelineConfig, step: int,
     batch["labels"] = labels
     batch["stats"] = _batch_stats(encs, doc_lens_list, cache)
     return batch
+
+
+def data_iterator(cfg: PipelineConfig, start_step: int = 0,
+                  dp_rank: int = 0) -> Iterator[dict[str, Any]]:
+    """``make_batch(cfg, step, dp_rank)`` for step = start_step, ..."""
+    step = start_step
+    while True:
+        yield make_batch(cfg, step, dp_rank)
+        step += 1
+
+
+class Prefetcher:
+    """The batches of :func:`data_iterator`, built ahead on a background
+    thread into a queue of ``prefetch`` batches.  A failure of the
+    thread is raised by the ``next()`` that would have returned its
+    batch; ``close()`` stops the thread and joins it."""
+
+    _POLL_S = 0.1
+
+    def __init__(self, cfg: PipelineConfig, start_step: int = 0,
+                 dp_rank: int = 0, prefetch: int = 2):
+        self._q: queue.Queue = queue.Queue(maxsize=prefetch)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._run, args=(cfg, start_step, dp_rank), daemon=True)
+        self._thread.start()
+
+    def _put(self, item) -> bool:
+        """Queue ``item`` unless closed first; whether it was queued."""
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=self._POLL_S)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _run(self, cfg, start_step, dp_rank):
+        try:
+            for batch in data_iterator(cfg, start_step, dp_rank):
+                if not self._put(batch):
+                    return
+        except Exception as err:  # noqa: BLE001 - handed to the consumer
+            self._put(err)
+
+    def __next__(self):
+        item = self._q.get()
+        if isinstance(item, Exception):
+            raise RuntimeError("the prefetch thread failed") from item
+        return item
+
+    def __iter__(self):
+        return self
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join()

@@ -2,23 +2,29 @@
 ``repro.launch.steps.build_train_step``).
 
 One step is loss + gradients (autograd through the attention context and
-the rematerialized layers), global-norm clipping, the warmup-cosine LR
-and an in-place AdamW update.  ``accum > 1`` splits the batch into
-micro-batches and token-weights their gradients, so the accumulated
-update equals the fused one on the same batch (the global masked CE mean
-is Σ ce_sum / Σ tokens either way).
+the rematerialized layers), global-norm clipping, optional gradient
+compression, the warmup-cosine LR and an in-place AdamW update.
+``accum > 1`` splits the batch into micro-batches and token-weights
+their gradients, so the accumulated update equals the fused one on the
+same batch (the global masked CE mean is Σ ce_sum / Σ tokens either
+way).
 
-Context parallelism over N ranks (``comm`` given): the parameters are
-replicated over the CP group and every rank runs the model on its token
-slice of the batch (the plan order puts worker j's tokens at ``[j t_loc,
-(j+1) t_loc)``), its attention through the CP islands.  Each rank's loss
-is its masked-CE sum over the *global* count of valid labels (a sum over
-the group, without gradient), so the losses of the ranks add up to the
-reference's global masked-CE mean; after the backward the gradients are
-summed over the group, and clipping and AdamW then run on every rank
-alike, keeping the replicas equal.  Sharding the parameters and the
-optimizer state (ZeRO-3 / FSDP over a data axis) comes with a later
-slice of the port.
+On a ``data x model`` mesh of more than one rank (``zero`` given, a
+:class:`~repro_torch.runtime.zero.Zero3`), the parameters and the
+optimizer state are this rank's ZeRO-3 shards, gathered layer by layer
+where they are used.  Every rank takes its rows of the batch (by its
+``data`` index) and its token slice (by its ``model`` index; the plan
+order puts CP worker j's tokens at ``[j t_loc, (j+1) t_loc)``), and runs
+its attention through the CP islands of its ``model`` row.  Each rank's
+loss is its masked-CE sum over the *world's* count of valid labels, so
+the losses of the ranks add up to the reference's global masked-CE mean
+and the gradients reaching each shard (summed by the gathers' reduce-
+scatters and, over the axes a leaf is whole on, by an all-reduce) are
+its gradient.  Rows that do not divide by the data axis go to every data
+rank, as the reference replicates them; the world's label count then
+counts them once per data rank, which weights each copy by 1/D.
+Clipping and compression take their statistics over every rank's
+shards.
 """
 
 from __future__ import annotations
@@ -29,15 +35,17 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
-from repro_torch.core.comm import CPComm, all_reduce_sum_
+from repro_torch.core.comm import all_reduce_
 from repro_torch.core.cp_attention import make_cp_context
 from repro_torch.data.pipeline import exec_style_of
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import loss_fn
-from repro_torch.optim import adamw_update, clip_by_global_norm, warmup_cosine
+from repro_torch.optim import (adamw_update, clip_by_global_norm,
+                               compress_tree, warmup_cosine)
 from repro_torch.optim._slices import leaves
+from repro_torch.runtime.sharding import batch_specs, take_shard
 
-__all__ = ["build_train_step", "batch_to_device"]
+__all__ = ["build_train_step", "batch_to_device", "rank_batch"]
 
 
 def batch_to_device(batch: dict[str, Any], device) -> dict[str, Any]:
@@ -66,71 +74,84 @@ def _unflatten(like, flat):
     return go(like)
 
 
-def _rank_slice(batch, comm: CPComm | None):
-    """This rank's token slice of the batch's tokens and labels."""
-    if comm is None:
-        return batch
-    t_loc = batch["labels"].shape[1] // comm.size
-    my = slice(comm.rank * t_loc, (comm.rank + 1) * t_loc)
-    return {k: batch[k][:, my] for k in ("tokens", "labels")}
+def rank_batch(batch, axes: dict, coords: dict) -> dict:
+    """The rank at ``coords``'s part of the whole batch under
+    :func:`~repro_torch.runtime.sharding.batch_specs`: its rows of every
+    key, and its token columns of ``tokens`` and ``labels``.  The plan
+    keys keep their token and rank axes whole: the CP context takes this
+    rank's slices of them itself."""
+    specs = batch_specs(axes, {k: tuple(v.shape) for k, v in batch.items()})
+    out = {}
+    for k, v in batch.items():
+        spec = specs[k]
+        if k not in ("tokens", "labels"):
+            spec = spec[:1]
+        out[k] = take_shard(v, spec, axes, coords)
+    return out
 
 
 def build_train_step(cfg: ModelConfig, run: RunConfig, *, q_chunk: int = 512,
                      block_q: int = 128, block_k: int = 128, accum: int = 1,
-                     device="cuda", comm: CPComm | None = None):
+                     device="cuda", zero=None):
     """A callable ``train_step(params, opt_state, batch, step)`` that
     updates ``params`` and ``opt_state`` in place and returns the metrics
     dict (loss, ce, aux, grad_norm, lr, tokens) as 0-d tensors.
 
     ``batch`` is a dict of tensors on ``device`` (:func:`batch_to_device`),
     the whole batch on every rank; with ``attention_impl="flash"`` it
-    carries the visit tables.  ``comm`` is this rank's CP group when the
-    batch was planned for N > 1 ranks.  The callable also exposes
-    ``loss_and_grads(params, batch)``.
+    carries the visit tables.  ``zero`` is this rank's ZeRO-3 layout
+    when the step runs on a mesh of more than one rank (the batch then
+    planned for its ``model`` axis); ``params`` and ``opt_state`` are
+    then this rank's shards.  The callable also exposes
+    ``loss_and_grads(params, batch)``, whose gradients are shards too.
     """
     resolve_device(device)
-    if run.grad_compression != "none":
-        raise NotImplementedError(
-            f"grad_compression={run.grad_compression!r}: gradient "
-            "compression comes with the distributed slice of the port")
     exec_strategy = exec_style_of(run.cp_strategy)
+    groups = 1 if zero is None else zero.axes["data"]
 
     def _ctx_of(batch):
         return make_cp_context(
             _plan_keys(batch), strategy=exec_strategy,
             impl=run.attention_impl, head_dim=cfg.resolved_head_dim,
             q_chunk=q_chunk, overlap=run.cp_overlap, block_q=block_q,
-            block_k=block_k, grid=run.kernel_grid, comm=comm)
+            block_k=block_k, grid=run.kernel_grid,
+            comm=None if zero is None else zero.cp)
 
     def loss_and_grads(params, batch):
         """((loss, metrics), grads) of the global masked CE mean."""
         flat = leaves(params)
         for p in flat:
             p.requires_grad_(True)
-        local = _rank_slice(batch, comm)
-        loss, metrics = loss_fn(params, cfg, _ctx_of(batch), local,
-                                remat=run.remat)
-        if comm is not None:
-            # local mean -> local sum over the global token count
-            n_loc = torch.sum(local["labels"] >= 0).float()
+        kw = {}
+        if zero is not None:
+            batch = rank_batch(batch, zero.axes, zero.coords)
+            kw["gather"] = zero.gather
+        loss, metrics = loss_fn(params, cfg, _ctx_of(batch), batch,
+                                remat=run.remat, **kw)
+        if zero is not None:
+            # local mean -> local sum over the world's token count
+            n_loc = torch.sum(batch["labels"] >= 0).float()
             n_glob = n_loc.clone()
-            all_reduce_sum_([n_glob], comm)
+            all_reduce_([n_glob], zero.world)
             weight = n_loc / torch.clamp(n_glob, min=1.0)
             loss = loss * weight
             metrics = {k: v * weight for k, v in metrics.items()}
         grads = torch.autograd.grad(loss, flat)
-        loss = loss.detach()
+        loss = loss.detach().clone()
         metrics = {k: v.detach() for k, v in metrics.items()}
-        if comm is not None:
-            loss = loss.clone()
-            all_reduce_sum_([loss, *metrics.values(), *grads], comm)
+        if zero is not None:
+            all_reduce_([loss, *metrics.values()], zero.world)
+            zero.reduce_grads_(list(grads))
         return (loss, metrics), _unflatten(params, grads)
 
     def _micro(batch, m):
-        """Micro-batch m: rows [m B/accum, (m+1) B/accum)."""
+        """Micro-batch m: rows ``[g spg + m spg/accum, g spg + (m+1)
+        spg/accum)`` of every data group g (``spg`` its rows), as the
+        reference slices them."""
         def sl(v):
-            n = v.shape[0] // accum
-            return v[m * n:(m + 1) * n]
+            n = v.shape[0] // (groups * accum)
+            x = v.reshape((groups, accum, n) + v.shape[1:])
+            return x[:, m].reshape((groups * n,) + v.shape[1:])
         return {k: sl(v) for k, v in batch.items()}
 
     def train_step(params, opt_state, batch, step):
@@ -138,8 +159,9 @@ def build_train_step(cfg: ModelConfig, run: RunConfig, *, q_chunk: int = 512,
             (loss, metrics), grads = loss_and_grads(params, batch)
         else:
             B = batch["labels"].shape[0]
-            if B % accum:
-                raise ValueError(f"accum {accum} does not divide batch {B}")
+            if B % (groups * accum):
+                raise ValueError(f"accum {accum} x {groups} data groups do "
+                                 f"not divide batch {B}")
             g_sum = metr_sum = None
             loss_sum = tok_sum = 0.0
             for m in range(accum):
@@ -158,7 +180,11 @@ def build_train_step(cfg: ModelConfig, run: RunConfig, *, q_chunk: int = 512,
             grads = _unflatten(params, [g.div_(denom) for g in g_sum])
             metrics = {k: v / denom for k, v in metr_sum.items()}
             loss = loss_sum / denom
-        grads, gnorm = clip_by_global_norm(grads, run.grad_clip)
+        norm = None if zero is None else zero.global_norm(leaves(grads))
+        grads, gnorm = clip_by_global_norm(grads, run.grad_clip, norm=norm)
+        if run.grad_compression != "none":
+            grads, _ = compress_tree(grads, None, run.grad_compression,
+                                     layout=zero)
         lr = warmup_cosine(step, base_lr=run.lr,
                            warmup_steps=run.warmup_steps,
                            total_steps=run.total_steps)

@@ -184,33 +184,55 @@ def _apply_sub(sub, cfg: ModelConfig, ctx, x, ffn: str):
     return _ffn(sub, cfg, ffn, x + attn_apply(sub["attn"], cfg, ctx, h))
 
 
-def _trunk(params, cfg: ModelConfig, ctx, batch, remat: bool):
+def _whole(prefix: str, tree):
+    """The ``gather`` hook of unsharded parameters: the tree itself."""
+    return tree
+
+
+def _trunk(params, cfg: ModelConfig, ctx, batch, remat: bool, gather):
     """Embeddings through every layer; returns (x, aux).  Dense stacks
-    carry no auxiliary loss (aux is 0)."""
+    carry no auxiliary loss (aux is 0).  ``gather(prefix, tree)`` makes
+    whole leaves of the parameters at ``prefix`` where they are used; a
+    layer's runs inside its rematerialized function, so the backward
+    gathers the layer again instead of keeping it."""
     kinds = block_kinds(cfg)
-    x = inputs_to_embeds(params, cfg, batch)
+    x = inputs_to_embeds({"embed": gather("embed", params["embed"])}, cfg,
+                         batch)
     for lp in _unbind(params["layers"], _n_periods(cfg)):
         for j, (_, ffn) in enumerate(kinds):
-            def apply(sub, x, ffn=ffn):
-                return _apply_sub(sub, cfg, ctx, x, ffn)
+            def apply(sub, x, ffn=ffn, name=f"layers/sub_{j}"):
+                return _apply_sub(gather(name, sub), cfg, ctx, x, ffn)
             sub = lp[f"sub_{j}"]
             x = checkpoint(apply, sub, x, use_reentrant=False) if remat \
                 else apply(sub, x)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def forward(params, cfg: ModelConfig, ctx, batch, *, remat: bool = True):
+def _head_params(params, gather):
+    """The leaves the head reads, whole."""
+    out = {k: gather(k, params[k]) for k in ("final_norm", "lm_head")
+           if k in params}
+    if "lm_head" not in params:
+        out["embed"] = gather("embed", params["embed"])
+    return out
+
+
+def forward(params, cfg: ModelConfig, ctx, batch, *, remat: bool = True,
+            gather=_whole):
     """batch -> (logits (B, T, vocab), aux_loss scalar).
 
     Remat: the residual stream between sublayers is saved; each
     sublayer's interior is recomputed in the backward, so its attention
-    forward runs twice per step."""
-    x, aux = _trunk(params, cfg, ctx, batch, remat)
-    return _head(params, cfg, x), aux
+    forward runs twice per step.  ``gather``: the hook that makes
+    sharded parameters whole where they are used (ZeRO-3)."""
+    x, aux = _trunk(params, cfg, ctx, batch, remat, gather)
+    return _head(_head_params(params, gather), cfg, x), aux
 
 
-def loss_fn(params, cfg: ModelConfig, ctx, batch, *, remat: bool = True):
-    logits, aux = forward(params, cfg, ctx, batch, remat=remat)
+def loss_fn(params, cfg: ModelConfig, ctx, batch, *, remat: bool = True,
+            gather=_whole):
+    logits, aux = forward(params, cfg, ctx, batch, remat=remat,
+                          gather=gather)
     ce = cross_entropy(logits, batch["labels"])
     return ce + AUX_LOSS_WEIGHT * aux, {"ce": ce, "aux": aux}
 
@@ -219,7 +241,7 @@ def loss_fn_chunked_head(params, cfg: ModelConfig, ctx, batch, *,
                          remat: bool = True, chunk: int = 128):
     """Loss with the fused chunked head: the (B, T, vocab) logits are
     never materialized."""
-    x, aux = _trunk(params, cfg, ctx, batch, remat)
+    x, aux = _trunk(params, cfg, ctx, batch, remat, _whole)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     head = params["lm_head"]["w"] if "lm_head" in params \
         else params["embed"]["e"].T

@@ -1,0 +1,125 @@
+"""Sharding rules as pure shape functions (the port of the reference's
+``repro.runtime.sharding``).
+
+Parameters are fully sharded over every mesh axis (ZeRO-3): each leaf
+gets its largest divisible dims assigned greedily to the mesh axes, the
+largest axis first.  Stacked layer leaves (a leading period dim) never
+shard dim 0, so layer i of a shard, gathered, is layer i whole.
+
+A *spec* has one entry per dim of a leaf: ``None`` (not split), an axis
+name, or a tuple of axis names (split over their flattened product,
+the first axis the major one), as a JAX ``PartitionSpec`` has.  Meshes
+are ``{axis: size}`` dicts in axis order, ``("data", "model")``: rows of
+a batch go over ``data``, tokens over ``model`` (the CP axis).
+"""
+
+from __future__ import annotations
+
+import math
+
+__all__ = ["leaf_spec", "param_specs", "batch_specs", "spec_axes",
+           "replicated_axes", "shard_index", "shard_shape", "take_shard"]
+
+
+def _size(axes: dict, entry) -> int:
+    names = entry if isinstance(entry, tuple) else (entry,)
+    return math.prod(axes[a] for a in names)
+
+
+def leaf_spec(shape, axes: dict, *, skip_dim0: bool) -> tuple:
+    """The reference's ``_leaf_spec``: per mesh axis (largest first; ties
+    in axis order), the largest not-yet-split dim it divides, else stacked
+    onto an already-split dim that its size still divides, else none."""
+    order = sorted(axes, key=lambda a: -axes[a])
+    dims: list = [None] * len(shape)
+    start = 1 if skip_dim0 and len(shape) > 1 else 0
+    used: set[int] = set()
+    for ax in order:
+        size = axes[ax]
+        if size == 1:
+            continue
+        cand = [i for i in range(start, len(shape))
+                if i not in used and shape[i] % size == 0
+                and shape[i] >= size]
+        if not cand:
+            for i in sorted(used, key=lambda i: -shape[i]):
+                cur = dims[i] if isinstance(dims[i], tuple) else (dims[i],)
+                if shape[i] % (_size(axes, cur) * size) == 0:
+                    dims[i] = cur + (ax,)
+                    break
+            continue
+        best = max(cand, key=lambda i: shape[i])
+        dims[best] = ax
+        used.add(best)
+    return tuple(dims)
+
+
+def param_specs(axes: dict, shapes: dict) -> dict:
+    """``{path: spec}`` for ``{path: shape}`` of a parameter or optimizer
+    tree: 0-d leaves replicated, leaves of two or more dims keep dim 0
+    whole (the reference's ``param_shardings`` for dense stacks)."""
+    return {path: leaf_spec(shape, axes, skip_dim0=len(shape) >= 2)
+            if len(shape) else () for path, shape in shapes.items()}
+
+
+def batch_specs(axes: dict, batch_shapes: dict) -> dict:
+    """Specs of the training batch's keys (the reference's
+    ``batch_specs`` for the dense families' keys): rows over ``data``
+    unless the row count does not divide by it (then every data rank
+    takes every row), token columns and the per-rank table and
+    ``send_idx`` axis over ``model``."""
+    specs = {}
+    for key, shape in batch_shapes.items():
+        ndim = len(shape)
+        rows = shape[0] if ndim else 1
+        b = "data" if rows % axes["data"] == 0 else None
+        if key in ("tokens", "labels", "doc", "pos", "perm"):
+            specs[key] = (b, "model")
+        elif key == "send_idx":
+            specs[key] = (b, "model", None)
+        elif key in ("gath_doc", "gath_pos"):
+            specs[key] = (b, None)
+        elif key.startswith("tab_"):
+            specs[key] = (b, "model") + (None,) * (ndim - 2)
+        else:
+            specs[key] = (b,) + (None,) * (ndim - 1)
+    return specs
+
+
+def spec_axes(spec) -> list[str]:
+    """The mesh axes a spec splits over."""
+    return [a for e in spec if e is not None
+            for a in (e if isinstance(e, tuple) else (e,))]
+
+
+def replicated_axes(spec, axes: dict) -> list[str]:
+    """The axes (of size > 1) over which a leaf of this spec is whole on
+    every rank."""
+    split = set(spec_axes(spec))
+    return [a for a, n in axes.items() if n > 1 and a not in split]
+
+
+def shard_index(entry, axes: dict, coords: dict) -> int:
+    """Which of the ``_size(entry)`` pieces of a dim the rank at
+    ``coords`` holds (the first axis of a tuple entry the major one)."""
+    idx = 0
+    for a in (entry if isinstance(entry, tuple) else (entry,)):
+        idx = idx * axes[a] + coords[a]
+    return idx
+
+
+def shard_shape(shape, spec, axes: dict) -> tuple:
+    return tuple(n if e is None else n // _size(axes, e)
+                 for n, e in zip(shape, spec))
+
+
+def take_shard(x, spec, axes: dict, coords: dict):
+    """The rank at ``coords``'s piece of ``x`` (a tensor or an array)
+    under ``spec``: a view."""
+    for dim, e in enumerate(spec):
+        if e is None:
+            continue
+        n = x.shape[dim] // _size(axes, e)
+        i = shard_index(e, axes, coords)
+        x = x[(slice(None),) * dim + (slice(i * n, (i + 1) * n),)]
+    return x

@@ -126,45 +126,52 @@ def leaf_names(tree, prefix=""):
 
 
 def train_rank(rank, world, store, out_dir, params_file, pipe_kw, run_kw,
-               impls):
-    """The CP train step at this CP size on the smoke starcoder2_3b, from
-    the converted parameters, for each attention impl: loss, metrics and
-    gradients of step 0's batch, then one train step's metrics and
-    updated parameters."""
+               cases, mesh_shape):
+    """The train step on a ``mesh_shape`` (data, model) mesh of gloo ranks
+    (ZeRO-3) on the smoke starcoder2_3b, from the converted parameters,
+    for each (attention impl, gradient compression) case: loss, metrics
+    and the whole gradients of step 0's batch, then one train step's
+    metrics and the whole updated parameters."""
     from repro_torch import configs as tcfgs
     from repro_torch import optim as topt
     from repro_torch.data.pipeline import PipelineConfig, make_batch
+    from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.launch.steps import batch_to_device, build_train_step
     from repro_torch.models import params_from_numpy
     from repro_torch.optim._slices import leaves
+    from repro_torch.runtime.zero import Zero3, tree_shapes
 
-    comm, _ = init_rank(rank, world, "gloo", store, "cpu")
+    init_rank(rank, world, "gloo", store, "cpu")
     torch.set_num_threads(1)          # as in island_rank
     try:
+        mesh = make_local_mesh(*mesh_shape, device_type="cpu")
         cfg = tcfgs.reduce_for_smoke(tcfgs.get_config("starcoder2_3b"))
         with np.load(params_file) as f:
             flat = {k: f[k] for k in f.files}
         res = {}
-        for impl in impls:
-            params = params_from_numpy(nest(flat), device="cpu")
-            names = leaf_names(params)
+        for impl, comp in cases:
+            whole = params_from_numpy(nest(flat), device="cpu")
+            names = leaf_names(whole)
+            zero = Zero3(mesh, "gloo", tree_shapes(whole))
+            params = zero.shard(whole)
             run = tcfgs.RunConfig(arch=cfg.name, attention_impl=impl,
-                                  **run_kw)
+                                  grad_compression=comp, **run_kw)
             step_fn = build_train_step(cfg, run, q_chunk=64, block_q=64,
-                                       block_k=64, device="cpu", comm=comm)
-            pipe = PipelineConfig(**pipe_kw[impl], cp_size=world,
+                                       block_k=64, device="cpu", zero=zero)
+            pipe = PipelineConfig(**pipe_kw[impl], cp_size=mesh_shape[1],
                                   vocab_size=cfg.vocab_size)
             batch = batch_to_device(make_batch(pipe, 0), "cpu")
             (loss, metrics), grads = step_fn.loss_and_grads(params, batch)
-            res[f"{impl}/loss"] = loss.numpy()
-            res[f"{impl}/ce"] = metrics["ce"].numpy()
-            res.update({f"{impl}/grad/{n}": g.numpy()
-                        for n, g in zip(names, leaves(grads))})
+            key = f"{impl}/{comp}"
+            res[f"{key}/loss"] = loss.numpy()
+            res[f"{key}/ce"] = metrics["ce"].numpy()
+            res.update({f"{key}/grad/{n}": g.numpy() for n, g in
+                        zip(names, leaves(zero.gather_full(grads)))})
             m = step_fn(params, topt.adamw_init(params), batch, 0)
-            res.update({f"{impl}/step/{k}": v.float().numpy()
+            res.update({f"{key}/step/{k}": v.float().numpy()
                         for k, v in m.items()})
-            res.update({f"{impl}/param/{n}": p.detach().numpy()
-                        for n, p in zip(names, leaves(params))})
+            res.update({f"{key}/param/{n}": p.detach().numpy() for n, p in
+                        zip(names, leaves(zero.gather_full(params)))})
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
     finally:
         dist.destroy_process_group()

@@ -38,6 +38,15 @@ def test_port_sources_import_no_jax_and_no_reference():
     assert not {f: r for f, r in bad.items() if r}
 
 
+@pytest.mark.parametrize("path", sorted(
+    [p.relative_to(ROOT) for p in (ROOT / "tests").glob("_torch_*ranks.py")]
+    + [Path("chip_smoke.py"), Path("scripts/cp_grad_check.py")]), ids=str)
+def test_rank_bodies_and_chip_scripts_import_no_jax(path):
+    """What runs in spawned ranks and on the card imports neither JAX nor
+    the reference package."""
+    assert not _imported_roots(ROOT / path) & set(FORBIDDEN)
+
+
 @pytest.mark.parametrize("modules", [
     ["repro_torch.serve", "repro_torch.launch.serve"],
     ["repro_torch.kernels.flash_decode", "repro_torch.models"],

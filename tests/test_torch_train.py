@@ -17,6 +17,8 @@ kernels' twins (CPU tensors).  Tolerances, with their reasons:
   everything else agrees to ~1e-7.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -327,22 +329,24 @@ def test_train_cli_smoke_on_cpu_and_cuda_default_raises():
 
 
 def test_train_step_refuses_what_waits_for_later_slices():
+    """Gradient compression and a data axis run now (their parity is in
+    tests/test_torch_zero.py and tests/test_torch_dp.py); the int8 KV
+    wire and a CP plan without its process group are still refused."""
     cfg = tcfgs.reduce_for_smoke(tcfgs.get_config("starcoder2_3b"))
-    with pytest.raises(NotImplementedError, match="distributed"):
-        build_train_step(cfg, tcfgs.RunConfig(grad_compression="int8"),
-                         device="cpu")
+    assert callable(build_train_step(
+        cfg, tcfgs.RunConfig(grad_compression="int8"), device="cpu"))
     from repro_torch.core.cp_attention import make_cp_context
     from repro_torch.launch.train import parse_mesh
     arrs = {"doc": torch.zeros((1, 8), dtype=torch.int32),
             "pos": torch.zeros((1, 8), dtype=torch.int32)}
     with pytest.raises(NotImplementedError, match="int8 KV wire"):
         make_cp_context(arrs, head_dim=16, kv_comm_dtype="int8")
-    with pytest.raises(NotImplementedError, match="data axis"):
-        parse_mesh("2x4")
-    with pytest.raises(NotImplementedError, match="data axis"):
+    assert parse_mesh("2x4") == (2, 4)
+    assert parse_mesh("1x4") == (1, 4)
+    # a 2x1 mesh is two ranks: train() alone (no mesh) refuses it
+    with pytest.raises(ValueError, match="main\\(\\) starts the ranks"):
         train(build_parser().parse_args(["--smoke", "--device", "cpu",
                                           "--mesh", "2x1"]))
-    assert parse_mesh("1x4") == (1, 4)
     # N > 1 needs this rank's process group
     with pytest.raises(ValueError, match="process group"):
         make_cp_context({**arrs, "send_idx": torch.full((1, 2, 128), -1)},
@@ -378,62 +382,84 @@ def test_train_cli_mesh_runs_cp_ranks(capfd):
 JOIN_TIMEOUT = 240
 
 
-@pytest.mark.parametrize("cp", [2, 4])
-def test_cp_train_step_matches_jax(cp, tmp_path):
-    """The port's CP step at N ranks (gloo, CPU) on the CP batch of step 0
-    against the JAX step on the same logical batch (its N = 1 batch: the
-    same documents and tokens in packed order), from the reference's own
-    parameters: loss 1e-5 relative, every gradient 1e-4 of its leaf's
-    largest entry, and after one step the metrics and parameters at the
-    bounds of test_two_train_steps_match_jax.  Plain and flash attention
-    (the twins, flat tables) run in one spawn."""
+MESH_RUN_KW = dict(lr=1e-3, warmup_steps=1, total_steps=4)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_step0(impl: str, comp: str):
+    """The JAX reference of :func:`check_mesh_step` for one case (the same
+    for every mesh): step 0's loss, ce and gradients on the N = 1 batch,
+    and one train step's metrics and parameters, as numpy."""
+    jc, _, jp, _ = _models("starcoder2_3b", seed=1)
+    flash = impl == "flash"
+    batch = jbatch(JPipe(**_pipe_kw(jc, flash)), 0)
+    jb = {k: jnp.asarray(batch[k]) for k in ("tokens", "labels")}
+    ctx = jctx(jnp.asarray(batch["doc"]), jnp.asarray(batch["pos"]),
+               attention_impl="xla", q_chunk=64)
+    (jl, jm), jg = jax.value_and_grad(
+        lambda p: jloss(p, jc, ctx, jb, remat=True), has_aux=True)(jp)
+    jparams, _, jmetrics = _jax_steps(
+        jc, jp, "pallas" if flash else "xla", 1, [batch],
+        {**MESH_RUN_KW, "grad_compression": comp})
+    return (float(jl), float(jm["ce"]), _flat(_np_tree(jg)), jmetrics[0],
+            _flat(_np_tree(jparams)))
+
+
+def check_mesh_step(mesh_shape, tmp_path, cases):
+    """The port's train step on a ``mesh_shape`` mesh of gloo ranks (CPU,
+    ZeRO-3) on the mesh's batch of step 0 against the JAX step on the
+    same logical batch (its N = 1 batch: the same documents and tokens
+    in packed order), from the reference's own parameters, for each
+    (impl, gradient compression) case: loss 1e-5 relative, every whole
+    gradient 1e-4 of its leaf's largest entry, and after one step the
+    metrics and whole parameters at the bounds of
+    test_two_train_steps_match_jax.  Every case runs in one spawn."""
     import _torch_cp_ranks as ranks
     from repro_torch.launch.ranks import spawn_ranks
 
+    world = mesh_shape[0] * mesh_shape[1]
     jc, _, jp, _ = _models("starcoder2_3b", seed=1)
     np.savez(tmp_path / "params.npz", **_flat(_np_tree(jp)))
-    run_kw = dict(lr=1e-3, warmup_steps=1, total_steps=4)
-    impls = ("plain", "flash")
     pipe_kw = {}
-    for impl in impls:
+    for impl in {impl for impl, _ in cases}:
         kw = _pipe_kw(jc, impl == "flash")
         pipe_kw[impl] = {k: v for k, v in kw.items()
                          if k not in ("cp_size", "vocab_size")}
-    spawn_ranks(ranks.train_rank, cp,
-                args=(cp, str(tmp_path / "store"), str(tmp_path),
-                      str(tmp_path / "params.npz"), pipe_kw, run_kw, impls),
+    spawn_ranks(ranks.train_rank, world,
+                args=(world, str(tmp_path / "store"), str(tmp_path),
+                      str(tmp_path / "params.npz"), pipe_kw, MESH_RUN_KW,
+                      cases, mesh_shape),
                 timeout=JOIN_TIMEOUT)
-    got = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(cp)]
-    for impl in impls:
-        flash = impl == "flash"
-        batch = jbatch(JPipe(**_pipe_kw(jc, flash)), 0)
-        jb = {k: jnp.asarray(batch[k]) for k in ("tokens", "labels")}
-        ctx = jctx(jnp.asarray(batch["doc"]), jnp.asarray(batch["pos"]),
-                   attention_impl="xla", q_chunk=64)
-        (jl, jm), jg = jax.value_and_grad(
-            lambda p: jloss(p, jc, ctx, jb, remat=True), has_aux=True)(jp)
-        jgrads = _flat(_np_tree(jg))
-        jparams, _, jmetrics = _jax_steps(
-            jc, jp, "pallas" if flash else "xla", 1, [batch], run_kw)
-        jparams = _flat(_np_tree(jparams))
+    got = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(world)]
+    for impl, comp in cases:
+        key = f"{impl}/{comp}"
+        jl, jce, jgrads, jmetrics, jparams = _jax_step0(impl, comp)
         for r, res in enumerate(got):
-            tag = f"{impl} cp{cp} rank {r}"
-            np.testing.assert_allclose(res[f"{impl}/loss"], float(jl),
-                                       rtol=1e-5, err_msg=tag)
-            np.testing.assert_allclose(res[f"{impl}/ce"], float(jm["ce"]),
-                                       rtol=1e-5, err_msg=tag)
+            tag = f"{key} mesh {mesh_shape} rank {r}"
+            np.testing.assert_allclose(res[f"{key}/loss"], jl, rtol=1e-5,
+                                       err_msg=tag)
+            np.testing.assert_allclose(res[f"{key}/ce"], jce, rtol=1e-5,
+                                       err_msg=tag)
             for name, want in jgrads.items():
                 scale = max(float(np.abs(want).max()), 1e-6)
                 np.testing.assert_allclose(
-                    res[f"{impl}/grad/{name}"], want, atol=1e-4 * scale,
+                    res[f"{key}/grad/{name}"], want, atol=1e-4 * scale,
                     rtol=0, err_msg=f"{tag} grad {name}")
             for k in ("loss", "ce", "grad_norm"):
-                np.testing.assert_allclose(res[f"{impl}/step/{k}"],
-                                           jmetrics[0][k], rtol=1e-5,
+                np.testing.assert_allclose(res[f"{key}/step/{k}"],
+                                           jmetrics[k], rtol=1e-5,
                                            err_msg=f"{tag} step {k}")
-            assert int(res[f"{impl}/step/tokens"]) == \
-                int(jmetrics[0]["tokens"])
+            assert int(res[f"{key}/step/tokens"]) == int(jmetrics["tokens"])
             for name, want in jparams.items():
-                np.testing.assert_allclose(res[f"{impl}/param/{name}"], want,
+                np.testing.assert_allclose(res[f"{key}/param/{name}"], want,
                                            atol=5e-5, rtol=0,
                                            err_msg=f"{tag} param {name}")
+
+
+@pytest.mark.parametrize("cp", [2, 4])
+def test_cp_train_step_matches_jax(cp, tmp_path):
+    """The CP step on a 1 x ``cp`` mesh (ZeRO-3 over the CP ranks),
+    plain and flash attention (the twins, flat tables), through
+    :func:`check_mesh_step`."""
+    check_mesh_step((1, cp), tmp_path,
+                    [("plain", "none"), ("flash", "none")])
