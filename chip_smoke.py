@@ -40,7 +40,27 @@ launch count set to 0 just before and read just after:
   step against one rank (``dp_full``).  Every rank checks that it holds
   exactly its ZeRO-3 shards.  The ranks are spawned after the build;
   where they share a card they use gloo, whose exchange goes through
-  host memory, else NCCL with one rank per card.
+  host memory, else NCCL with one rank per card;
+* the rest of serving: the main path's paged run again under chaos (a
+  request poisoned in its decode, one at its final prefill chunk, one
+  stuck, a latency spike, and a kill restored from a snapshot into a
+  fresh engine), gated on every request ending, exactly the faulty ones
+  aborted with their reasons, the healthy ones with the clean run's
+  tokens and no poisoned block in the prefix trie
+  (``serve_resilience``); the dense layout at ``attn_shards`` 2 and 4:
+  one bf16 decode step's logits within a rounding of one shard's, and
+  in f32 tokens equal to one shard's and ``flash_decode`` launched
+  steps x 30 x shards times (``serve_sharded``);
+* the MoE family, olmoe_1b_7b at full width (64 experts, top-8): served
+  at full depth (16 layers) on both layouts, launch counts, one f32
+  decode step flash vs dense oracle, and a small f32 MoE model card vs
+  CPU (``moe_serve``); trained with depth cut to 4 layers on one
+  8192-token sequence, launch counts and the step through the kernels
+  vs the plain attention (``moe_train``); and on a 1x4 mesh with the
+  experts split over ``model`` and the expert-parallel all-to-all
+  island: a drop-free f32 step 0 against one rank, leaf by leaf, then
+  the model's own capacity for 2 steps on 32768 tokens
+  (``moe_cp_train``).  The routed pairs the capacity drops are counted.
 
 Run from the repository root:
 
@@ -86,6 +106,11 @@ DOC_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 B, HQ, HKV, D = 6, 24, 2, 128
 S_DENSE, BLOCK = 1056, 16
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# one bf16 decode step of the full model against another route to the
+# same logits (flash vs the dense oracle; 2 or 4 LSE-merged segments vs
+# one), relative to the largest logit: a rounding of the attention
+# output, where a segment lost or merged wrong moves logits by O(1)
+DECODE_STEP_BF16_TOL = 2e-2
 # the dense split kernel's partial m (absolute) and l (relative) against
 # its split twin in either dtype: f32 statistics of the same scores
 STAT_TOL = 1e-5
@@ -157,6 +182,31 @@ DP_RESTORE_SLACK = 16 << 20
 DP_FULL_MESH, DP_FULL_SEQ, DP_FULL_BATCH = (2, 1), 8192, 2
 # a rank group that outlives this is killed and the phase fails
 RANK_TIMEOUT = 300
+# serving under chaos (full-width starcoder2_3b, paged, the main path's
+# requests): planned steps without progress before the watchdog aborts a
+# stuck slot, the latency spike, and the snapshot period of the killed run
+RES_PATIENCE, RES_DELAY_STEP, RES_DELAY_S = 8, 3, 0.25
+RES_SNAPSHOT_EVERY = 20
+# sharded dense decode: segments per stripe
+SHARDS = (2, 4)
+# the MoE family: olmoe_1b_7b at full width (d 2048, 16 heads of 128, 64
+# experts of d_ff 1024, top-8, vocab 50304).  Training cuts depth to 4
+# layers (16 layers of bf16 weights and gradients, fp32 master, mu and nu
+# are 111 GB); serving runs all 16.
+MOE_ARCH = "olmoe_1b_7b"
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 4, 3
+# one f32 decode step of the full model, flash vs the dense oracle,
+# relative to the largest logit (in bf16 a rounding difference can flip a
+# token's top-8 experts, which moves its logits by far more; printed)
+MOE_DECODE_TOL = 1e-3
+# MoE over 4 EP/CP ranks (1x4, ZeRO-3, experts split over model): (a) the
+# gate at 2 layers, f32, at the drop-free capacity factor E / top_k on
+# one 8192-token sequence, step 0 against one rank, loss and every
+# gradient leaf; (b) the model's own capacity factor at 4 layers on one
+# 32768-token sequence, 2 steps
+MOE_CP_WORLD, MOE_GATE_LAYERS, MOE_CP_GATE_TOL = 4, 2, 1e-3
+MOE_DROP_FREE = {"capacity_factor": 8.0}
+MOE_CP_LAYERS, MOE_CP_STEPS = 4, 2
 
 
 def emit(phase: str, **kw) -> None:
@@ -501,8 +551,8 @@ def main_path_phase(torch) -> dict:
     diff = (logits["flash"] - logits["dense"]).abs().max().item()
     scale = logits["dense"].abs().max().item()
     emit("decode_step_flash_vs_dense", max_abs_diff=diff,
-         max_abs_logit=scale, limit=0.02 * scale)
-    if not diff <= 0.02 * scale:
+         max_abs_logit=scale, limit=DECODE_STEP_BF16_TOL * scale)
+    if not diff <= DECODE_STEP_BF16_TOL * scale:
         raise AssertionError("flash and dense decode steps disagree")
     out["profile"] = {layout: profile_decode(torch, out[layout]["eng"], cfg,
                                              params)
@@ -1066,11 +1116,13 @@ def _widen(tree):
 
 def step0_grads(dtype: str, mesh=None, device="cuda", backend=None, *,
                 layers: int = CP_TRAIN_LAYERS, seq: int = CP_SEQ,
-                batch: int = 1, norm_only: bool = False) -> tuple:
+                batch: int = 1, norm_only: bool = False, arch: str = ARCH,
+                cfg_kw=None) -> tuple:
     """Step 0's loss and whole gradients ({leaf: grad} on the host) of a
-    training run's model (full width, ``layers`` deep) and stream (``seq``
-    tokens x ``batch`` rows), on one rank (``mesh`` None) or as this rank
-    of ``mesh`` over ``backend`` (ZeRO-3 shards, gathered whole for the
+    training run's model (``arch`` at full width, ``layers`` deep, its
+    config fields replaced by ``cfg_kw``) and stream (``seq`` tokens x
+    ``batch`` rows), on one rank (``mesh`` None) or as this rank of
+    ``mesh`` over ``backend`` (ZeRO-3 shards, gathered whole for the
     comparison); ``dtype`` float32 widens the bf16 parameters.  With
     ``norm_only`` (one rank), the gradients' global norm in their place."""
     import dataclasses
@@ -1081,8 +1133,9 @@ def step0_grads(dtype: str, mesh=None, device="cuda", backend=None, *,
     from repro_torch.models import init_params
     from repro_torch.runtime.zero import Zero3, tree_shapes
 
-    cfg = dataclasses.replace(get_config(ARCH), num_layers=layers)
-    run = RunConfig(arch=ARCH, cp_strategy="flashcp", attention_impl="flash",
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers,
+                              **(cfg_kw or {}))
+    run = RunConfig(arch=arch, cp_strategy="flashcp", attention_impl="flash",
                     kernel_grid="flat", seed=0)
     cp = 1 if mesh is None else mesh_axes(mesh)["model"]
     pipe = PipelineConfig(
@@ -1634,6 +1687,593 @@ def dp_full_phase(torch) -> dict:
 
 
 # ----------------------------------------------------------------------- #
+# serving: chaos quarantine, snapshot / kill / restore, sharded decode
+# ----------------------------------------------------------------------- #
+def serve_resilience_phase(torch, serving) -> dict:
+    """Full-width starcoder2_3b, paged, the main path's 12 requests on 6
+    slots, under chaos: one request poisoned (NaN logits) in its decode,
+    one poisoned from step 0 (it fires at its final prefill chunk), one
+    stuck in its decode (the watchdog aborts it after RES_PATIENCE
+    planned steps without progress), one latency spike, and a kill,
+    with snapshots every RES_SNAPSHOT_EVERY steps, restored into a fresh
+    engine that finishes the run.  Gates: every request ends; exactly
+    the poisoned and stuck ones are aborted, with their reasons; every
+    healthy request's greedy tokens equal the main path's uninjected
+    run's; no block of the prefill-poisoned prompt (past the shared
+    prefix) is in the prefix trie.  Prints the snapshot's bytes and its
+    save and restore seconds."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.serve import ChaosInjector, EngineKilled, ServeEngine
+
+    cfg = get_config("starcoder2_3b")
+    base = serving["paged"]["eng"]
+    clean = {r: e["tokens"] for r, e in base.sched.finished.items()}
+    # the step at which each request of the clean run ended (all were
+    # submitted at step 0)
+    done = {r: e["latency_steps"] for r, e in base.sched.finished.items()}
+    prompts = requests(cfg)
+    gen = 32
+    # decode faults land 10 and 20 steps before the request's clean end,
+    # inside its 32 decode steps; the kill after both have been handled
+    nan_rid, stuck_rid, pre_rid = 1, 3, 5
+    nan_at, stuck_at = done[nan_rid] - 10, done[stuck_rid] - 20
+    kill_at = max(nan_at, stuck_at + RES_PATIENCE) + 4
+    chaos = ChaosInjector(nan_logits={nan_rid: nan_at, pre_rid: 0},
+                          stuck={stuck_rid: stuck_at},
+                          delays={RES_DELAY_STEP: RES_DELAY_S},
+                          kill_at=kill_at)
+
+    def engine():
+        eng = ServeEngine(cfg, base.params, device="cuda", kv_layout="paged",
+                          max_len=base.max_len, num_slots=6,
+                          prefill_chunk=128, block_size=16,
+                          stall_patience=RES_PATIENCE, chaos=chaos)
+        eng.warmup()
+        for p in prompts:
+            eng.submit(p, max_new=gen)
+        return eng
+
+    with tempfile.TemporaryDirectory() as tmp:
+        snap = f"{tmp}/snap"
+        eng = engine()
+        t0 = time.perf_counter()
+        try:
+            eng.run(snapshot_every=RES_SNAPSHOT_EVERY, snapshot_dir=snap)
+            raise AssertionError(f"the kill at step {kill_at} never fired")
+        except EngineKilled:
+            pass
+        killed_s = time.perf_counter() - t0
+        killed_steps = eng.stats["steps"]
+        snaps = eng.stats["snapshots"]
+        # one more snapshot of the killed engine, timed
+        t0 = time.perf_counter()
+        step = eng.snapshot(f"{tmp}/timed")
+        save_s = time.perf_counter() - t0
+        snap_bytes = sum(f.stat().st_size for f in
+                         Path(f"{tmp}/timed/step_{step:09d}").iterdir())
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        # a fresh engine of the same geometry (the same injector: its kill
+        # has fired, and its step-keyed faults hold after the restore)
+        fresh = ServeEngine(cfg, base.params, device="cuda",
+                            kv_layout="paged", max_len=base.max_len,
+                            num_slots=6, prefill_chunk=128, block_size=16,
+                            stall_patience=RES_PATIENCE, chaos=chaos)
+        fresh.warmup()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored = fresh.restore_snapshot(snap)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = fresh.run()
+        resumed_s = time.perf_counter() - t0
+    aborted = {r: e.get("reason") for r, e in res.items()
+               if e["status"] != "ok"}
+    healthy = [r for r in res if r not in (nan_rid, stuck_rid, pre_rid)]
+    same = [r for r in healthy
+            if res[r]["status"] == "ok" and len(res[r]["tokens"]) == gen
+            and (res[r]["tokens"] == clean[r]).all()]
+    # the prefill-poisoned prompt's own full blocks (past the shared
+    # prefix) must not be in the trie
+    bs = fresh.block_size
+    own = {tuple(int(t) for t in prompts[pre_rid][i:i + bs])
+           for i in range(128, len(prompts[pre_rid]) - bs + 1, bs)}
+    trie = {tuple(key[1]) for key in fresh.prefix._by_key}
+    leaked = len(own & trie)
+    emit("serve_resilience", arch=cfg.name, requests=len(prompts),
+         chaos={"nan_decode": [nan_rid, nan_at],
+                "nan_prefill": [pre_rid, 0], "stuck": [stuck_rid, stuck_at],
+                "delay": [RES_DELAY_STEP, RES_DELAY_S], "kill_at": kill_at},
+         stall_patience=RES_PATIENCE, snapshot_every=RES_SNAPSHOT_EVERY,
+         killed_at_step=killed_steps, snapshots_before_kill=snaps,
+         restored_step=restored, killed_run_s=killed_s,
+         resumed_run_s=resumed_s, snapshot_bytes=snap_bytes,
+         snapshot_save_s=save_s, snapshot_restore_s=restore_s,
+         chaos_delay_s=fresh.stats["chaos_delay_s"],
+         statuses={r: e["status"] for r, e in res.items()},
+         aborted=aborted, healthy_same_tokens=len(same),
+         healthy=len(healthy), poisoned_blocks_in_trie=leaked)
+    if sorted(res) != list(range(len(prompts))):
+        raise AssertionError(f"requests lost: {sorted(res)}")
+    reasons = {nan_rid: "non-finite decode", pre_rid: "non-finite prefill",
+               stuck_rid: "no scheduler progress"}
+    if set(aborted) != set(reasons) or any(
+            reasons[r] not in (aborted[r] or "") for r in reasons):
+        raise AssertionError(f"aborted {aborted}, want {reasons}")
+    if len(same) != len(healthy):
+        raise AssertionError(f"healthy requests with other tokens than the "
+                             f"uninjected run's: "
+                             f"{sorted(set(healthy) - set(same))}")
+    if leaked:
+        raise AssertionError(f"{leaked} poisoned blocks in the prefix trie")
+    if restored <= 0 or restored >= kill_at:
+        raise AssertionError(f"restored step {restored}, kill at {kill_at}")
+    return {"snapshot_bytes": snap_bytes}
+
+
+def serve_sharded_phase(torch, serving) -> dict:
+    """The dense layout at ``attn_shards`` 2 and 4 (each stripe split into
+    that many segments, one ``flash_decode`` partial each, LSE-merged) on
+    the main path's requests, full-width starcoder2_3b.  In bf16, the
+    model's own dtype, one decode step's logits at each shard count
+    within DECODE_STEP_BF16_TOL of the largest of one shard's (the
+    segments' other accumulation order moves a rounding of the attention
+    output, as the flash kernel does against the dense oracle).  Random
+    weights leave near-tied logits that such a rounding flips, so the
+    served runs are gated in f32: greedy tokens equal to the one-shard
+    run's, and ``flash_decode`` launched decode steps x 30 x shards
+    times."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step
+
+    cfg = get_config("starcoder2_3b")
+    base = serving["dense"]["eng"]
+    # bf16: one decode step from the main path's dense cache
+    toks = torch.arange(6, device="cuda") * 1000 + 7
+    pos = torch.tensor([255, 400, 600, 800, 1000, 1054], dtype=torch.int32,
+                       device="cuda")
+    logits = {}
+    for shards in (1, *SHARDS):
+        cache = {j: {n: t.clone() for n, t in sub.items()}
+                 for j, sub in base.cache.items()}
+        logits[shards] = decode_step(base.params, cfg, cache,
+                                     {"tokens": toks}, pos,
+                                     attn_shards=shards)[0].float()
+        del cache
+    scale = logits[1].abs().max().item()
+    step = {s: (logits[s] - logits[1]).abs().max().item() for s in SHARDS}
+    emit("serve_sharded_bf16_step", max_abs_diff=step, max_abs_logit=scale,
+         limit=DECODE_STEP_BF16_TOL * scale)
+    del logits
+    if not max(step.values()) <= DECODE_STEP_BF16_TOL * scale:
+        raise AssertionError(f"bf16 decode step at attn_shards {step} "
+                             f"from one shard's, over the limit "
+                             f"{DECODE_STEP_BF16_TOL * scale}")
+
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    params = _widen(base.params)
+    prompts = requests(cfg)
+    out, tokens = {}, {}
+    for shards in (1, *SHARDS):
+        eng, res, launches, wall, peak = serve_run(
+            torch, c32, params, "dense", prompts, 32, num_slots=6,
+            prefill_chunk=128, block_size=16, attn_shards=shards)
+        want = eng.stats["decode_steps"] * cfg.num_layers * shards
+        tokens[shards] = {r: e["tokens"] for r, e in res.items()}
+        same = sum(int((tokens[shards][r] == tokens[1][r]).all())
+                   for r in res)
+        emit("serve_sharded", arch=cfg.name, dtype="float32",
+             attn_shards=shards, kv_layout=eng.layout, wall_s=wall,
+             **eng.throughput(), decode_steps=eng.stats["decode_steps"],
+             launches=launches, expected_launches=want,
+             same_tokens_as_one_shard=same, of=len(prompts),
+             peak_bytes=peak)
+        if launches["flash_decode"] != want:
+            raise AssertionError(f"attn_shards {shards}: flash_decode "
+                                 f"launched {launches['flash_decode']} "
+                                 f"times, want {want}")
+        if same != len(prompts):
+            raise AssertionError(f"attn_shards {shards}: {same} of "
+                                 f"{len(prompts)} requests have the "
+                                 "one-shard run's tokens")
+        out[shards] = launches["flash_decode"]
+        del eng
+    del params
+    return out
+
+
+# ----------------------------------------------------------------------- #
+# the MoE family: olmoe_1b_7b served, trained, and over 4 EP/CP ranks
+# ----------------------------------------------------------------------- #
+class DropCounter:
+    """Counts the routed (token, choice) pairs and those the capacity
+    drops, by wrapping ``repro_torch.models.moe.dispatch_local`` (the
+    local dispatch and the EP island both call it), for the calls over
+    ``rows`` tokens (None: every call).  The counts stay on the device
+    until read."""
+
+    def __init__(self, rows=None):
+        self.rows, self.pairs, self.kept = rows, 0, None
+
+    def __enter__(self):
+        import repro_torch.models.moe as moe
+        self.moe, self.orig = moe, moe.dispatch_local
+
+        def counted(xt, topi, gates, num_experts, cap):
+            out = self.orig(xt, topi, gates, num_experts, cap)
+            if self.rows is None or xt.shape[0] == self.rows:
+                keep = out[4]
+                self.pairs += keep.numel()
+                k = keep.sum()
+                self.kept = k if self.kept is None else self.kept + k
+            return out
+
+        moe.dispatch_local = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.dispatch_local = self.orig
+
+    def dropped_share(self):
+        if not self.pairs:
+            return None
+        return 1.0 - int(self.kept) / self.pairs
+
+
+def moe_smoke_parity(torch) -> None:
+    """A small f32 olmoe served on the card and on the CPU (the kernels'
+    plain versions), paged and dense: the same greedy tokens."""
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.models import init_params
+
+    cfg = reduce_for_smoke(get_config(MOE_ARCH))
+    params_cpu = init_params(cfg, seed=3, device="cpu")
+    params_gpu = _to(params_cpu, "cuda")
+    prompts = requests(cfg, n=6, lo=20, hi=60, prefix=16, seed=4)
+    kw = dict(num_slots=3, prefill_chunk=16, block_size=16)
+    for layout in ("paged", "dense"):
+        toks = {}
+        for dev, params in (("cuda", params_gpu), ("cpu", params_cpu)):
+            _, res, launches, _, _ = serve_run(torch, cfg, params, layout,
+                                               prompts, 12, device=dev, **kw)
+            toks[dev] = {r: e["tokens"].tolist() for r, e in res.items()}
+            if dev == "cuda" and not sum(launches.values()):
+                raise AssertionError("MoE smoke run launched no kernel")
+        same = toks["cuda"] == toks["cpu"]
+        emit("moe_smoke_cuda_vs_cpu_tokens", layout=layout, identical=same)
+        if not same:
+            raise AssertionError(f"MoE {layout}: cuda and cpu tokens differ")
+
+
+def moe_serve_phase(torch) -> dict:
+    """olmoe_1b_7b at full width and full depth (16 layers, 64 experts,
+    top-8, bf16, 6.92 B random parameters from a seed) serving the main
+    path's 12 requests on 6 slots, paged and dense: every request ok and
+    each decode kernel launched decode steps x 16 times; decode tok/s,
+    peak memory and the share of routed (token, choice) pairs the decode
+    capacity (the config's 1.25 over the 6 rows) drops.  Then one decode
+    step of the full model in f32, flash kernel against the dense
+    oracle, within MOE_DECODE_TOL of the largest logit (the bf16 step's
+    difference printed), and the small f32 model card vs CPU."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params
+
+    cfg = get_config(MOE_ARCH)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    emit("moe_init", arch=cfg.name, params=cfg.param_count(),
+         active_params=cfg.active_param_count(),
+         seconds=time.perf_counter() - t0,
+         param_bytes=torch.cuda.memory_allocated())
+    prompts = requests(cfg)
+    gen, L = 32, cfg.num_layers
+    kw = dict(num_slots=6, prefill_chunk=128, block_size=16)
+    out = {}
+    for layout, kernel in (("paged", "flash_decode_paged"),
+                           ("dense", "flash_decode")):
+        with DropCounter(rows=kw["num_slots"]) as drops:
+            eng, res, launches, wall, peak = serve_run(
+                torch, cfg, params, layout, prompts, gen, **kw)
+        s = eng.stats
+        want = s["decode_steps"] * L
+        emit(f"moe_serve_{layout}", arch=cfg.name, layers=L,
+             requests=len(prompts), slots=kw["num_slots"], gen=gen,
+             wall_s=wall, **eng.throughput(),
+             stats={k: v for k, v in s.items() if not isinstance(v, dict)},
+             launches=launches, expected_launches=want, peak_bytes=peak,
+             kv_cache_bytes=eng.kv_cache_bytes(),
+             decode_capacity_factor=cfg.capacity_factor,
+             decode_pairs=drops.pairs,
+             decode_dropped_share=drops.dropped_share(),
+             latency=eng.latency_percentiles())
+        if launches[kernel] != want or not want:
+            raise AssertionError(f"MoE {layout}: {kernel} launched "
+                                 f"{launches[kernel]} times, want {want}")
+        out[layout] = {"launches": launches[kernel],
+                       "decode_tok_s": eng.throughput()["decode_tok_s"]}
+        if layout == "dense":
+            cache = eng.cache
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # one decode step from the dense run's cache, flash vs dense oracle
+    gen_t = torch.Generator(device="cuda")
+    gen_t.manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (6,), generator=gen_t,
+                         device="cuda")
+    pos = torch.tensor([255, 400, 600, 800, 1000, 1054], dtype=torch.int32,
+                       device="cuda")
+    diffs = {}
+    for dtype in ("bfloat16", "float32"):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        p = params if dtype == "bfloat16" else _widen(params)
+        if dtype == "float32":
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+        logits = {}
+        for impl in ("flash", "dense"):
+            kv = {j: {n: t.clone().to(getattr(torch, dtype))
+                      for n, t in sub.items()} for j, sub in cache.items()}
+            logits[impl] = decode_step(p, c, kv, {"tokens": toks}, pos,
+                                       attn_impl=impl)[0].float()
+            del kv
+        diffs[dtype] = {
+            "max_abs_diff": (logits["flash"] - logits["dense"]).abs()
+            .max().item(), "max_abs_logit": logits["dense"].abs().max()
+            .item()}
+        del p, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+    del cache
+    f32 = diffs["float32"]
+    emit("moe_decode_step_flash_vs_dense", gated_dtype="float32",
+         tol=MOE_DECODE_TOL, limit=MOE_DECODE_TOL * f32["max_abs_logit"],
+         **{k: v for k, v in diffs.items()})
+    if not f32["max_abs_diff"] <= MOE_DECODE_TOL * f32["max_abs_logit"]:
+        raise AssertionError("MoE flash and dense decode steps disagree")
+    moe_smoke_parity(torch)
+    return out
+
+
+def moe_train_args(*extra):
+    return train_args("--arch", MOE_ARCH, "--layers", str(MOE_TRAIN_LAYERS),
+                      "--seq-len", str(SEQ), "--batch", "1",
+                      "--device", "cuda", "--log-every", "100", *extra)
+
+
+def moe_train_phase(torch) -> dict:
+    """olmoe_1b_7b at full width, depth cut to MOE_TRAIN_LAYERS layers
+    (its 16 layers of training state, 111 GB, do not fit one card), bf16
+    with an fp32 master, one 8192-token wlb_llm sequence a step, flashcp
+    at one rank, flat queue, MOE_TRAIN_STEPS steps: finite losses and aux
+    losses, launches exactly layers x (2, 1, 1) a step; then step 0's
+    batch from the initial parameters through the kernels and through the
+    plain attention: loss and grad norm within STEP_LOSS_TOL and
+    STEP_GNORM_TOL."""
+    import dataclasses
+    import math
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch.steps import batch_to_device, build_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import global_norm
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH),
+                              num_layers=MOE_TRAIN_LAYERS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with DropCounter() as drops:
+        res = train(moe_train_args("--steps", str(MOE_TRAIN_STEPS)))
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    L = MOE_TRAIN_LAYERS
+    want = {"flash_fwd": MOE_TRAIN_STEPS * L * 2,
+            "flash_bwd_dq": MOE_TRAIN_STEPS * L,
+            "flash_bwd_dkv": MOE_TRAIN_STEPS * L}
+    mean_s = statistics.mean(res["step_s"][1:])
+    out = {"arch": MOE_ARCH, "layers": L, "params": cfg.param_count(),
+           "active_params": cfg.active_param_count(), "seq_len": SEQ,
+           "steps": MOE_TRAIN_STEPS, "wall_s": wall,
+           "losses": res["losses"], "auxes": res["auxes"],
+           "grad_norms": res["grad_norms"], "step_s": res["step_s"],
+           "step_s_after_first": mean_s, "tokens_per_s": SEQ / mean_s,
+           "peak_bytes": peak, "launches": launches,
+           "expected_launches": want,
+           "dropped_share": drops.dropped_share()}
+    pipe = res["pipeline"]
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_params(cfg, seed=0, device="cuda")
+    batch = batch_to_device(make_batch(pipe, 0), "cuda")
+    got = {}
+    for impl in ("flash", "plain"):
+        run = RunConfig(arch=MOE_ARCH, cp_strategy="flashcp",
+                        attention_impl=impl, kernel_grid="flat", seed=0)
+        fn = build_train_step(cfg, run, q_chunk=512, device="cuda")
+        (loss, _), grads = fn.loss_and_grads(params, batch)
+        got[impl] = {"loss": float(loss), "grad_norm": float(
+            global_norm(grads))}
+        del grads
+        torch.cuda.empty_cache()
+    d_loss = abs(got["flash"]["loss"] - got["plain"]["loss"]) \
+        / abs(got["plain"]["loss"])
+    d_norm = abs(got["flash"]["grad_norm"] - got["plain"]["grad_norm"]) \
+        / got["plain"]["grad_norm"]
+    out["step0_flash_vs_plain"] = {**got, "loss_rel_diff": d_loss,
+                                   "grad_norm_rel_diff": d_norm,
+                                   "loss_tol": STEP_LOSS_TOL,
+                                   "grad_norm_tol": STEP_GNORM_TOL}
+    emit("moe_train", **out)
+    if not all(math.isfinite(x) for x in
+               out["losses"] + out["auxes"] + out["grad_norms"]):
+        raise AssertionError("MoE training produced non-finite losses")
+    if any(launches[n] != want[n] for n in want):
+        raise AssertionError(f"MoE training launches {launches}, want "
+                             f"{want}")
+    if not (d_loss <= STEP_LOSS_TOL and d_norm <= STEP_GNORM_TOL):
+        raise AssertionError("MoE flash and plain steps disagree")
+    return out
+
+
+def moe_cp_rank(rank, world, backend, store, out_dir, grad_dir):
+    """One rank of the MoE CP runs on a 1xN mesh (ZeRO-3, the experts
+    split over ``model``): (a) step 0's f32 gradients at a drop-free
+    capacity (rank 0 saves them whole to ``grad_dir``); (b) ``train`` at
+    the model's own capacity, its launches, aux losses, dropped share,
+    ZeRO-3 state and expert layout."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.ranks import init_rank
+    from repro_torch.runtime.sharding import is_expert_leaf
+
+    _, dev = init_rank(rank, world, backend, store, "cuda")
+    try:
+        mesh = make_local_mesh(1, world, device_type="cuda")
+        t0 = time.perf_counter()
+        loss, grads = step0_grads(
+            "float32", mesh, dev, backend, layers=MOE_GATE_LAYERS,
+            seq=SEQ, arch=MOE_ARCH, cfg_kw=MOE_DROP_FREE)
+        gate_s = time.perf_counter() - t0
+        if rank == 0:
+            torch.save(grads, Path(grad_dir) / "grads.pt")
+        del grads
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(get_config(MOE_ARCH),
+                                  num_layers=MOE_CP_LAYERS)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        with DropCounter() as drops:
+            res = train(train_args(
+                "--arch", MOE_ARCH, "--layers", str(MOE_CP_LAYERS),
+                "--seq-len", str(CP_SEQ), "--batch", "1", "--steps",
+                str(MOE_CP_STEPS), "--device", "cuda", "--log-every", "100",
+                "--mesh", f"1x{world}", "--dist-backend", backend),
+                mesh=mesh, device=dev)
+        launches = read_counts()
+        zero = res["zero"]
+        experts = {p: list(zero.specs[p]) for p in zero.paths
+                   if is_expert_leaf(p, len(zero.shapes[p]))}
+        with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+            json.dump({"rank": rank, "gate_loss": loss, "gate_s": gate_s,
+                       "losses": res["losses"], "auxes": res["auxes"],
+                       "grad_norms": res["grad_norms"],
+                       "step_s": res["step_s"],
+                       "peak_bytes": torch.cuda.max_memory_allocated(dev),
+                       **zero_state(res), "launches": launches,
+                       "expert_specs": experts,
+                       "dropped_share": drops.dropped_share(),
+                       "param_count": cfg.param_count()}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def moe_cp_train_phase(torch) -> dict:
+    """olmoe_1b_7b at full width on a 1x4 mesh: ZeRO-3, the experts split
+    over ``model`` (16 a rank) and the tokens of each layer's MoE
+    exchanged by the EP all-to-all island.  (a) The drop-free gate:
+    MOE_GATE_LAYERS layers, f32, capacity factor E / top_k (no rank
+    clips, so one rank is the reference), one 8192-token sequence (2048
+    a rank): step 0's loss and every gradient leaf against one rank
+    within MOE_CP_GATE_TOL.  (b) The model's own run: MOE_CP_LAYERS
+    layers, bf16, capacity factor 1.25 (the capacity of each rank's 8192
+    tokens), one 32768-token sequence, MOE_CP_STEPS steps: finite losses
+    and aux losses, every rank's launches layers x steps x (1 + 3 hops) x
+    (2, 1, 1), every rank holding exactly its shards with each expert leaf
+    split over ``model``, and the state bytes over the ranks one copy
+    plus the replicated leaves'."""
+    import dataclasses
+    import math
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    world = MOE_CP_WORLD
+    t0 = time.perf_counter()
+    loss1, g1 = step0_grads("float32", layers=MOE_GATE_LAYERS, seq=SEQ,
+                            arch=MOE_ARCH, cfg_kw=MOE_DROP_FREE)
+    one_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_CP_LAYERS)
+    want_bytes = expected_state_bytes(init_params(cfg, seed=0,
+                                                  device="cuda"),
+                                      (1, world))
+    gc.collect()
+    torch.cuda.empty_cache()
+    backend = cp_backend(torch, world)
+    with tempfile.TemporaryDirectory() as grad_dir:
+        t0 = time.perf_counter()
+        ranks = run_ranks(torch, moe_cp_rank, world, grad_dir)
+        wall = time.perf_counter() - t0
+        leaf = compare_grads(torch.load(Path(grad_dir) / "grads.pt"), g1)
+    del g1
+    r0 = ranks[0]
+    d_loss = abs(r0["gate_loss"] - loss1) / abs(loss1)
+    want = {n: MOE_CP_LAYERS * MOE_CP_STEPS * world * k
+            for n, k in (("flash_fwd", 2), ("flash_bwd_dq", 1),
+                         ("flash_bwd_dkv", 1))}
+    per_rank = []
+    for x in ranks:
+        step_s = statistics.mean(x["step_s"][1:])
+        per_rank.append({k: x[k] for k in (
+            "rank", "losses", "auxes", "grad_norms", "step_s", "peak_bytes",
+            "shapes_ok", "state_bytes", "launches", "dropped_share",
+            "gate_s")} | {"step_s_after_first": step_s,
+                          "tokens_per_s": CP_SEQ / step_s})
+    emit("moe_cp_train", arch=MOE_ARCH, world=world, backend=backend,
+         exchange=("gloo through host memory, not NVLink"
+                   if backend == "gloo" else "nccl"),
+         gate={"layers": MOE_GATE_LAYERS, "dtype": "float32",
+               "capacity_factor": MOE_DROP_FREE["capacity_factor"],
+               "seq_len": SEQ, "tokens_per_rank": SEQ // world,
+               "one_rank_loss": loss1, "one_rank_s": one_s,
+               "loss_rel_diff": d_loss, "tol": MOE_CP_GATE_TOL,
+               "grad_rel_err": leaf["grad_rel_err"],
+               "worst_leaves": leaf["leaves"][:6]},
+         run={"layers": MOE_CP_LAYERS, "dtype": "bfloat16",
+              "capacity_factor": cfg.capacity_factor, "seq_len": CP_SEQ,
+              "tokens_per_rank": CP_SEQ // world, "steps": MOE_CP_STEPS,
+              "params": cfg.param_count()},
+         expert_specs=r0["expert_specs"], expected_launches=want,
+         expected_state_bytes=want_bytes, wall_s=wall, ranks=per_rank)
+    if not (d_loss <= MOE_CP_GATE_TOL
+            and leaf["leaves"][0]["rel_err"] <= MOE_CP_GATE_TOL):
+        raise AssertionError(f"MoE CP step 0 against one rank: loss "
+                             f"{d_loss:.3g}, worst leaf "
+                             f"{leaf['leaves'][0]}")
+    if not all(math.isfinite(v) for x in ranks
+               for v in x["losses"] + x["auxes"] + x["grad_norms"]):
+        raise AssertionError("MoE CP training produced non-finite losses")
+    check_zero_state("MoE CP training", ranks, want_bytes)
+    if any(len(s) < 2 or s[1] != "model" for x in ranks
+           for s in x["expert_specs"].values()) \
+            or any(len(x["expert_specs"]) != 3 for x in ranks):
+        raise AssertionError(f"expert leaves not split over model: "
+                             f"{r0['expert_specs']}")
+    if any(x["launches"][n] != want[n] for x in ranks for n in want):
+        raise AssertionError(f"MoE CP launches "
+                             f"{[x['launches'] for x in ranks]}, want {want} "
+                             "per rank")
+    return {"ranks": per_rank}
+
+
+# ----------------------------------------------------------------------- #
 # the training path
 # ----------------------------------------------------------------------- #
 def train_args(*extra):
@@ -1877,7 +2517,11 @@ def main() -> int:
         launches = {name: serving[layout]["launches"]
                     for name, layout in (("flash_decode", "dense"),
                                          ("flash_decode_paged", "paged"))}
+        serve_resilience_phase(torch, serving)
+        serve_sharded_phase(torch, serving)
         del serving
+        gc.collect()
+        torch.cuda.empty_cache()
         smoke_parity_phase(torch)
         gc.collect()
         torch.cuda.empty_cache()
@@ -1899,6 +2543,15 @@ def main() -> int:
         torch.cuda.empty_cache()
         dp_train_phase(torch)
         dp_full_phase(torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe_serve_phase(torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe_train_phase(torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe_cp_train_phase(torch)
         errs = {**kern["err"], **doc["err"]}
         times = {**kern["times"], **doc["times"]}
         for name in REPLACES:

@@ -1,18 +1,21 @@
-"""Architecture registry of the port: the dense attention-only configs.
+"""Architecture registry of the port: the dense and MoE attention
+stacks.
 
-The other families of the reference (MoE, hybrid, SSM, audio, VLM) are
-not ported yet, so ``get_config`` resolves only these four.
+The other families of the reference (hybrid, SSM, audio, VLM) are not
+ported yet, so ``get_config`` resolves only these six.
 """
 
 from __future__ import annotations
 
 from .base import ModelConfig, RunConfig, reduce_for_smoke
 
-from . import granite_34b, qwen3_32b, starcoder2_3b, starcoder2_7b
+from . import (dbrx_132b, granite_34b, olmoe_1b_7b, qwen3_32b,
+               starcoder2_3b, starcoder2_7b)
 
 ARCHS: dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG
-    for m in (starcoder2_3b, starcoder2_7b, granite_34b, qwen3_32b)
+    for m in (starcoder2_3b, starcoder2_7b, granite_34b, qwen3_32b,
+              olmoe_1b_7b, dbrx_132b)
 }
 
 

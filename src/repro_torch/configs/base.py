@@ -1,8 +1,8 @@
 """Model and serving configuration for the PyTorch port.
 
-The port's own copy of the dense-attention part of the JAX package's
-config system: ``ModelConfig`` with the fields a dense attention stack
-reads, the serving and single-device training fields of ``RunConfig``,
+The port's own copy of the part of the JAX package's config system that
+the ported families read: ``ModelConfig`` with the fields of a dense or
+MoE attention stack, the serving and training fields of ``RunConfig``,
 and ``reduce_for_smoke``.
 Plain frozen dataclasses; the values of every configuration are the
 same as the reference's.
@@ -30,6 +30,11 @@ class ModelConfig:
     qk_norm: bool = False
     rope_theta: float = 10_000.0
     mlp: Literal["glu", "gelu"] = "glu"   # silu-GLU (llama) vs plain gelu MLP
+    # --- MoE ----------------------------------------------------------- #
+    num_experts: int = 0
+    top_k: int = 0
+    moe_every: int = 1                # apply MoE FFN every k-th layer
+    capacity_factor: float = 1.25
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"
     tie_embeddings: bool = False
@@ -38,18 +43,37 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.num_heads
 
+    def _is_moe_layer(self, layer: int) -> bool:
+        return self.num_experts > 0 \
+            and layer % self.moe_every == self.moe_every - 1
+
     def param_count(self) -> int:
-        """Analytic parameter count of a dense attention stack
-        (embeddings included)."""
+        """Analytic parameter count of an attention stack with dense or
+        MoE FFNs (embeddings included)."""
         d, dff, L = self.d_model, self.d_ff, self.num_layers
         hd = self.resolved_head_dim
         attn = (d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd
                 + self.num_heads * hd * d)
         ffn = (3 if self.mlp == "glu" else 2) * d * dff
-        total = L * (attn + ffn + 2 * d) + self.vocab_size * d
+        total = 0
+        for layer in range(L):
+            total += attn + 2 * d
+            if dff > 0:
+                total += self.num_experts * ffn + d * self.num_experts \
+                    if self._is_moe_layer(layer) else ffn
+        total += self.vocab_size * d
         if not self.tie_embeddings:
             total += self.vocab_size * d
         return total
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: top_k of num_experts)."""
+        if self.num_experts == 0:
+            return self.param_count()
+        ffn = (3 if self.mlp == "glu" else 2) * self.d_model * self.d_ff
+        n_moe = sum(self._is_moe_layer(i) for i in range(self.num_layers))
+        return self.param_count() - n_moe * (self.num_experts
+                                             - self.top_k) * ffn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,7 +123,8 @@ class RunConfig:
 
 
 def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
-    """Shrink a config to smoke-test size, keeping its GQA ratio."""
+    """Shrink a config to smoke-test size, keeping its GQA ratio and its
+    MoE top-k (at most 4 experts, top-2)."""
     kv = max(1, min(cfg.num_kv_heads, 2))
     heads = max(kv, min(cfg.num_heads, 4))
     heads = (heads // kv) * kv or kv
@@ -112,5 +137,7 @@ def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
         head_dim=16,
         d_ff=128 if cfg.d_ff > 0 else 0,
         vocab_size=min(cfg.vocab_size, 512),
+        num_experts=min(cfg.num_experts, 4),
+        top_k=min(cfg.top_k, 2),
         dtype="float32",
     )

@@ -11,6 +11,14 @@ process group (the port's counterparts of the reference's
   rank r-1, from rank r+1).
 * The **tiled all-gather** along one axis: forward
   ``all_gather_into_tensor``, backward ``reduce_scatter_tensor``.
+* The **tiled all-to-all** (the expert-parallel exchange of the MoE
+  island, ``jax.lax.all_to_all(..., tiled=True)``): ``x`` split along one
+  dim into N pieces, piece j sent to rank j, the received pieces
+  concatenated along another dim in rank order
+  (``all_to_all_single``); its backward is the inverse all-to-all.
+* The **summing all-reduce** of a replicated statistic (the MoE aux
+  loss's whole-batch routing fractions): backward, the cotangents summed
+  over the ranks.
 
 The backend is an explicit argument, ``"nccl"`` or ``"gloo"``, never
 inferred.  With NCCL the transfers run on the process group's own NCCL
@@ -31,7 +39,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["CPComm", "hop_start", "hop_wait", "all_gather_tiled",
-           "all_reduce_", "broadcast_"]
+           "all_to_all_tiled", "all_reduce_sum", "all_reduce_",
+           "broadcast_"]
 
 BACKENDS = ("nccl", "gloo")
 
@@ -193,6 +202,66 @@ def all_gather_tiled(x: torch.Tensor, comm: CPComm, dim: int) -> torch.Tensor:
     if not x.is_floating_point():
         return _along(x, comm, dim, gather=True)
     return _AllGather.apply(x, comm, dim)
+
+
+def _a2a(x, comm: CPComm, split_dim: int, concat_dim: int):
+    """The tiled all-to-all of ``x`` (no gradient)."""
+    xs = x.detach().movedim(split_dim, 0).contiguous()
+    host = comm._host_wire(xs)
+    wire = xs.cpu() if host else xs
+    out = torch.empty_like(wire)
+    dist.all_to_all_single(out, wire, group=comm.group)
+    if host:
+        out = out.to(x.device)
+    return torch.cat([p.movedim(0, split_dim)
+                      for p in out.chunk(comm.size, 0)], concat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, split_dim, concat_dim):
+        ctx.comm, ctx.dims = comm, (split_dim, concat_dim)
+        return _a2a(x, comm, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return _a2a(g, ctx.comm, concat_dim, split_dim), None, None, None
+
+
+def all_to_all_tiled(x: torch.Tensor, comm: CPComm, split_dim: int,
+                     concat_dim: int) -> torch.Tensor:
+    """``x`` split along ``split_dim`` into one piece per rank, piece j
+    sent to rank j; returns the pieces this rank received, concatenated
+    along ``concat_dim`` in rank order.  ``x.shape[split_dim]`` must
+    divide by the group's size.  Differentiable: the backward sends each
+    cotangent piece back where it came from."""
+    if x.shape[split_dim] % comm.size:
+        raise ValueError(f"dim {split_dim} of {tuple(x.shape)} does not "
+                         f"split over {comm.size} ranks")
+    return _AllToAll.apply(x, comm, split_dim, concat_dim)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        out = x.detach().clone()
+        all_reduce_([out], comm)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        all_reduce_([g], ctx.comm)
+        return g, None
+
+
+def all_reduce_sum(x: torch.Tensor, comm: CPComm) -> torch.Tensor:
+    """The sum of every rank's ``x`` (the same on each rank).
+    Differentiable: each rank's ``x`` gets the sum of the ranks'
+    cotangents, since every rank's output depends on it."""
+    return _AllReduceSum.apply(x, comm)
 
 
 def all_reduce_(tensors, comm: CPComm, op=dist.ReduceOp.SUM) -> None:

@@ -34,6 +34,16 @@ the all-gather's backward is a reduce-scatter.
 partial mode over the pipeline's ``tab_*`` visit tables (the reference's
 ``"pallas"``); ``"plain"`` the chunked dense attention (its ``"xla"``).
 At N = 1 no communication happens and no process group is needed.
+
+MoE layers run the **expert-parallel island** (``extras["ep_dispatch"]``,
+the reference's ``_moe_island``): each rank routes its own tokens into
+capacity-clipped per-expert buffers, with the capacity of its *own*
+token count, and one all-to-all over the CP group carries each expert's
+slices to the rank that holds that expert (the experts are split over
+the ``model`` axis); the expert FFNs run there, and a second all-to-all
+brings the outputs home for the weighted combine.  ``extras
+["token_sum"]`` sums a routing statistic over ``world`` (every rank of
+the batch), so the aux loss is that of the whole batch.
 """
 
 from __future__ import annotations
@@ -45,7 +55,8 @@ import torch
 
 from repro_torch.models.context import ExecContext
 from repro_torch.table_layout import table_keys
-from .comm import CPComm, all_gather_tiled, hop_start, hop_wait
+from .comm import (CPComm, all_gather_tiled, all_reduce_sum,
+                   all_to_all_tiled, hop_start, hop_wait)
 from .merge import NEG, _merge_step, finalize_partial
 
 __all__ = ["make_cp_context", "resolve_overlap", "STRATEGIES"]
@@ -222,6 +233,53 @@ def _ring_island(q, k, v, doc, pos, *, comm, q_chunk, scale):
     return finalize_partial(acc, q.dtype)
 
 
+def _moe_island(x, topi, gates, wi, wg, wo, *, comm, kind, capacity_factor,
+                top_k):
+    """Expert-parallel dispatch of this rank's tokens: local capacity-
+    clipped routing buffers exchanged by all-to-all over the CP group
+    (rank r holds experts [r E/N, (r+1) E/N)), the FFN of the experts
+    this rank holds, all-to-all back, local weighted combine."""
+    from repro_torch.models.moe import (capacity, combine_local,
+                                        dispatch_local, expert_ffn)
+
+    b, t, d = x.shape
+    E = wi.shape[0] * comm.size
+    n = b * t
+    cap = capacity(n, E, top_k, capacity_factor)
+    buf, slot, tok_s, gat_s, keep = dispatch_local(
+        x.reshape(n, d), topi.reshape(n, -1), gates.reshape(n, -1), E, cap)
+    # (E, cap, d) -> rank r gets every rank's slices of its E/N experts:
+    # (E/N, N cap, d)
+    buf = all_to_all_tiled(buf, comm, 0, 1)
+    y = expert_ffn(buf, wi, wg, wo, kind)
+    y = all_to_all_tiled(y, comm, 1, 0)                      # (E, cap, d)
+    return combine_local(y, slot, tok_s, gat_s, keep, n).reshape(b, t, d)
+
+
+def _make_ep_dispatch(comm: CPComm | None):
+    """``ep_dispatch(x, topi, gates, params, *, kind, capacity_factor)``
+    of one rank.  ``params`` is the layer's ``moe`` sub-tree; its expert
+    leaves are this rank's E/N experts (the ZeRO-3 layout).  One rank:
+    the local dispatch."""
+    from repro_torch.models.moe import local_ep_dispatch
+
+    def ep_dispatch(x, topi, gates, params, *, kind, capacity_factor):
+        if comm is None:
+            return local_ep_dispatch(x, topi, gates, params, kind=kind,
+                                     capacity_factor=capacity_factor)
+        E = params["router"].shape[-1]
+        wi, wo = params["wi"], params["wo"]
+        wg = params.get("wg", wi)       # unused by the gelu FFN
+        if wi.shape[0] * comm.size != E:
+            raise ValueError(f"{E} experts do not split over "
+                             f"{comm.size} CP ranks")
+        return _moe_island(x, topi, gates, wi, wg, wo, comm=comm,
+                           kind=kind, capacity_factor=capacity_factor,
+                           top_k=topi.shape[-1])
+
+    return ep_dispatch
+
+
 # ===================================================================== #
 # context factory
 # ===================================================================== #
@@ -231,7 +289,8 @@ def make_cp_context(plan_arrays: dict[str, Any], *,
                     overlap: str = "chunked", block_q: int = 128,
                     block_k: int = 128, grid: str = "rect",
                     kv_comm_dtype: str = "native",
-                    comm: CPComm | None = None) -> ExecContext:
+                    comm: CPComm | None = None,
+                    world: CPComm | None = None) -> ExecContext:
     """The ExecContext of one rank's training step.
 
     ``plan_arrays`` are the batch's plan arrays in their global view: the
@@ -242,7 +301,9 @@ def make_cp_context(plan_arrays: dict[str, Any], *,
     :func:`repro_torch.planner.encode.emit_visit_tables`).  ``comm`` is
     this rank's CP group (required when N > 1); the context's
     ``doc``/``pos`` and its ``attn(q, k, v)`` are this rank's token
-    slice.
+    slice.  ``world`` is the group of every rank that holds tokens of
+    the batch (data x model), over which the MoE routing statistics are
+    summed; None: this rank's CP group.
     """
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown CP strategy {strategy!r}; have "
@@ -325,4 +386,8 @@ def make_cp_context(plan_arrays: dict[str, Any], *,
         return _allgather_island(q, k, v, doc_l, pos_l, comm=comm,
                                  masked=masked, tables=mono)
 
-    return ExecContext(doc=doc_l, pos=pos_l, attn=attn)
+    world = world or comm
+    extras = {"ep_dispatch": _make_ep_dispatch(comm)}
+    if world is not None:
+        extras["token_sum"] = functools.partial(all_reduce_sum, comm=world)
+    return ExecContext(doc=doc_l, pos=pos_l, attn=attn, extras=extras)

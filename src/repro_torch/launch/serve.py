@@ -25,11 +25,27 @@ On the CPU, at smoke size:
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
         --requests 4 --prompt-len 64 --gen 16 --shared-prefix 16
 
-Admission (DESIGN.md §Serving-resilience): ``--max-queue`` bounds the
+MoE archs serve the same way (``--arch olmoe_1b_7b``, all 16 layers fit
+one H100): prefill chunks route drop-free, decode at the config's
+capacity factor over the slot rows, as the reference does.
+
+``--attn-shards N`` splits the dense-layout decode cache into N
+LSE-merged segments (``flash_decode`` in partial mode per segment).
+
+Resilience (DESIGN.md §Serving-resilience): ``--max-queue`` bounds the
 queue and ``--admission deadline`` sheds the least-slack request under
-overload (``--deadline N`` gives every request an N-step deadline).
-Every submitted request ends in the results: ok, rejected, shed or
-aborted.
+overload (``--deadline N`` gives every request an N-step deadline);
+``--chaos-nan RID:STEP`` / ``--chaos-stuck RID:STEP`` /
+``--chaos-delay STEP:SECONDS`` inject faults the watchdog must
+quarantine; ``--kill-at STEP`` with ``--snapshot-every N --snapshot-dir
+D`` kills the engine mid-run and restores a fresh one from the latest
+snapshot in-process (``--drain-at STEP`` is the orderly variant:
+snapshot, stop, restore).  Every submitted request ends in the results:
+ok, rejected, shed or aborted.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+        --requests 6 --slots 3 --prompt-len 48 --gen 8 --chaos-nan 1:6 \
+        --chaos-stuck 2:4 --kill-at 9 --snapshot-every 3 --snapshot-dir snap
 """
 
 from __future__ import annotations
@@ -40,7 +56,7 @@ import time
 import numpy as np
 
 from repro_torch.configs import RunConfig, get_config, reduce_for_smoke
-from repro_torch.serve import ServeEngine
+from repro_torch.serve import EngineKilled, ServeEngine, parse_chaos
 
 _RC = RunConfig()   # serve defaults live on RunConfig (single source)
 
@@ -61,16 +77,24 @@ def serve(args) -> dict:
     lens = np.maximum(lens, args.shared_prefix + 1)
     max_len = int(lens.max() + gen)
 
-    eng = ServeEngine(
-        cfg, device=args.device, num_slots=slots, max_len=max_len,
-        prefill_chunk=args.prefill_chunk, decode_impl=args.decode_impl,
-        seed=args.seed, kv_layout=args.kv_layout,
-        block_size=args.block_size, num_blocks=args.num_blocks,
-        token_budget=args.token_budget, prefix_cache=args.prefix_cache,
-        unified=args.unified, max_queue=args.max_queue,
-        admission=args.admission, admit_lookahead=args.admit_lookahead,
-        watchdog=args.watchdog, stall_patience=args.stall_patience)
-    eng.warmup()
+    chaos = parse_chaos(args.chaos_nan, args.chaos_stuck, args.chaos_delay,
+                        kill_at=args.kill_at)
+
+    def build(with_chaos):
+        eng = ServeEngine(
+            cfg, device=args.device, num_slots=slots, max_len=max_len,
+            prefill_chunk=args.prefill_chunk, decode_impl=args.decode_impl,
+            attn_shards=args.attn_shards, seed=args.seed,
+            kv_layout=args.kv_layout, block_size=args.block_size,
+            num_blocks=args.num_blocks, token_budget=args.token_budget,
+            prefix_cache=args.prefix_cache, unified=args.unified,
+            max_queue=args.max_queue, admission=args.admission,
+            admit_lookahead=args.admit_lookahead, watchdog=args.watchdog,
+            stall_patience=args.stall_patience, chaos=with_chaos)
+        eng.warmup()
+        return eng
+
+    eng = build(chaos)
 
     sys_prompt = rng.integers(0, cfg.vocab_size, args.shared_prefix) \
         .astype(np.int32)
@@ -83,7 +107,27 @@ def serve(args) -> dict:
                    deadline_steps=args.deadline)
 
     t0 = time.perf_counter()
-    results = eng.run(max_steps=args.max_steps)
+    restored_from = None
+    try:
+        results = eng.run(max_steps=args.max_steps,
+                          snapshot_every=args.snapshot_every,
+                          snapshot_dir=args.snapshot_dir or None,
+                          drain_at=args.drain_at)
+        interrupted = args.drain_at >= 0 and eng.sched.has_work
+        if interrupted:
+            print(f"[serve] drained at step {eng.stats['steps']} into "
+                  f"{args.snapshot_dir}")
+    except EngineKilled as e:
+        print(f"[serve] {e}; restoring from {args.snapshot_dir}")
+        interrupted = True
+    if interrupted:
+        # the restart-from-snapshot round trip, in-process: a fresh engine
+        # (no chaos: the fault fired) resumes the in-flight work
+        eng = build(None)
+        restored_from = eng.restore_snapshot(args.snapshot_dir)
+        print(f"[serve] restored snapshot at step {restored_from}; "
+              "resuming")
+        results = eng.run(max_steps=args.max_steps)
     wall = time.perf_counter() - t0
     # every submitted request terminates in the results: a lost rid is
     # a bug, fail loudly
@@ -126,10 +170,12 @@ def serve(args) -> dict:
           f"shed {s['shed_by_reason']}, aborted {s['aborted_by_reason']}")
     print(f"[serve] latency (ok): p50 {lat['p50_steps']:.0f} steps / "
           f"{lat['p50_s'] * 1e3:.0f} ms, p99 {lat['p99_steps']:.0f} "
-          f"steps / {lat['p99_s'] * 1e3:.0f} ms")
+          f"steps / {lat['p99_s'] * 1e3:.0f} ms"
+          + (f"; restored from step {restored_from}"
+             if restored_from is not None else ""))
     return {"results": results, "stats": dict(s), "throughput": tp,
             "prompt_lens": lens, "kv_layout": eng.layout, "latency": lat,
-            "wall_s": wall,
+            "wall_s": wall, "restored_from": restored_from,
             "pool": None if eng.pool is None else eng.pool.stats(),
             "prefix": None if eng.prefix is None else eng.prefix.stats(),
             "tokens": {r: results[r]["tokens"] for r in results
@@ -151,6 +197,9 @@ def build_parser() -> argparse.ArgumentParser:
                     dest="prefill_chunk")
     ap.add_argument("--decode-impl", choices=("flash", "dense"),
                     default=_RC.decode_impl, dest="decode_impl")
+    ap.add_argument("--attn-shards", type=int, default=1,
+                    dest="attn_shards",
+                    help="LSE-merged segments of the dense decode cache")
     ap.add_argument("--kv-layout", choices=("auto", "paged", "dense"),
                     default=_RC.kv_layout, dest="kv_layout")
     ap.add_argument("--block-size", type=int, default=_RC.serve_block_size,
@@ -185,6 +234,25 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-watchdog", action="store_false", dest="watchdog")
     ap.add_argument("--stall-patience", type=int,
                     default=_RC.serve_stall_patience, dest="stall_patience")
+    ap.add_argument("--chaos-nan", action="append", default=[],
+                    dest="chaos_nan", metavar="RID:STEP",
+                    help="poison a request's logits to NaN from STEP on")
+    ap.add_argument("--chaos-stuck", action="append", default=[],
+                    dest="chaos_stuck", metavar="RID:STEP",
+                    help="drop a request's planned work from STEP on")
+    ap.add_argument("--chaos-delay", action="append", default=[],
+                    dest="chaos_delay", metavar="STEP:SECONDS",
+                    help="inject a latency spike at STEP")
+    ap.add_argument("--kill-at", type=int, default=-1, dest="kill_at",
+                    help="raise EngineKilled at this step (restore needs "
+                         "--snapshot-every and --snapshot-dir)")
+    ap.add_argument("--drain-at", type=int, default=-1, dest="drain_at",
+                    help="orderly drain: snapshot and stop at this step, "
+                         "then restore and finish in-process")
+    ap.add_argument("--snapshot-every", type=int, default=0,
+                    dest="snapshot_every",
+                    help="snapshot the engine every N steps")
+    ap.add_argument("--snapshot-dir", default="", dest="snapshot_dir")
     ap.add_argument("--max-steps", type=int, default=100_000,
                     dest="max_steps")
     return ap

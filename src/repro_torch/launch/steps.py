@@ -115,7 +115,8 @@ def build_train_step(cfg: ModelConfig, run: RunConfig, *, q_chunk: int = 512,
             impl=run.attention_impl, head_dim=cfg.resolved_head_dim,
             q_chunk=q_chunk, overlap=run.cp_overlap, block_q=block_q,
             block_k=block_k, grid=run.kernel_grid,
-            comm=None if zero is None else zero.cp)
+            comm=None if zero is None else zero.cp,
+            world=None if zero is None else zero.world)
 
     def loss_and_grads(params, batch):
         """((loss, metrics), grads) of the global masked CE mean."""

@@ -24,6 +24,15 @@ Full width on one H100 (random weights from the seed):
     PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2_3b \\
         --seq-len 8192 --batch 1 --steps 4
 
+MoE archs (``olmoe_1b_7b``, ``dbrx_132b``) train the same way; on a mesh
+their experts split over ``model`` and each layer's tokens reach them by
+the expert-parallel all-to-all.  The log and the result carry the aux
+load-balancing loss.  olmoe's 16 layers of training state (111 GB) do
+not fit one card, so cut its depth:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe_1b_7b \\
+        --layers 4 --seq-len 8192 --batch 1 --steps 3
+
 Checkpoints are written only where ``--checkpoint-dir`` names a
 directory (the reference defaults to ``/tmp/repro_ckpt``; the port
 writes nothing its caller did not name).  Elastic supervision, dispatch
@@ -140,7 +149,8 @@ def _resume_step(ckpt, args, world: CPComm | None, dev) -> int | None:
 
 def train(args, params=None, mesh=None, device=None) -> dict:
     """Run training steps up to ``args.steps``; returns the per-step
-    losses, grad norms, LRs, token counts and wall times, plus the final
+    losses, grad norms, LRs, token counts, MoE aux losses (0 for a dense
+    model) and wall times, plus the final
     ``params``, ``opt_state``, ``step_fn``, ``pipeline`` config and (on
     a mesh) the ``zero`` layout, so a caller can run further steps.
 
@@ -220,7 +230,7 @@ def train(args, params=None, mesh=None, device=None) -> dict:
 
     it = Prefetcher(pipe, start_step=start) if args.prefetch else None
     out = {"losses": [], "grad_norms": [], "lrs": [], "tokens": [],
-           "step_s": []}
+           "auxes": [], "step_s": []}
     try:
         for step in range(start, args.steps):
             t0 = time.perf_counter()
@@ -234,10 +244,12 @@ def train(args, params=None, mesh=None, device=None) -> dict:
             out["grad_norms"].append(float(metrics["grad_norm"]))
             out["lrs"].append(float(metrics["lr"]))
             out["tokens"].append(int(metrics["tokens"]))
+            out["auxes"].append(float(metrics["aux"]))
             out["step_s"].append(dt)
             if rank == 0 and step % args.log_every == 0:
                 print(f"[train] step {step:5d} loss {loss:.4f} "
                       f"ce {float(metrics['ce']):.4f} "
+                      f"aux {float(metrics['aux']):.4f} "
                       f"gnorm {float(metrics['grad_norm']):.2f} "
                       f"lr {float(metrics['lr']):.2e} "
                       f"imb {batch['stats']['imbalance']:.3f} "

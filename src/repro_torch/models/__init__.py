@@ -1,4 +1,5 @@
-"""Dense decoder stack of the port (training and serving paths)."""
+"""Decoder stacks of the port, dense and MoE (training and serving
+paths)."""
 
 from .context import ExecContext, make_local_context
 from .convert import params_from_numpy

@@ -4,14 +4,17 @@ runtime (the port of the reference's ``repro.models.context``).
 Model code is written against :class:`ExecContext` and never mentions
 tables or ranks.  ``doc``/``pos`` are per-token metadata in plan order;
 ``attn(q, k, v)`` maps q (B, Hq, T, D) and k, v (B, Hkv, T, D) to
-(B, Hq, T, D).  The SSM scans of the reference's context wait for the
-non-dense families.
+(B, Hq, T, D).  ``extras`` carries the MoE hooks of a CP context
+(``ep_dispatch``, the expert-parallel all-to-all island, and
+``token_sum``, a differentiable sum over the ranks that hold the batch's
+other tokens); a local context has none.  The SSM scans of the
+reference's context wait for the recurrent families.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Any, Callable
 
 import torch
 
@@ -23,6 +26,7 @@ class ExecContext:
     doc: torch.Tensor
     pos: torch.Tensor
     attn: Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+    extras: dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
 def make_local_context(doc: torch.Tensor, pos: torch.Tensor,

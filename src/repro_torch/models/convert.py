@@ -2,10 +2,11 @@
 the port's tensors.
 
 The JAX tree is nested dicts of arrays with the same keys as the port's
-(``layers.sub_0.{norm1.g, attn.{wq,wk,wv,wo,q_norm?,k_norm?}, norm2.g,
-mlp.{wi,wg?,wo}}`` stacked on a leading period axis, plus
-``final_norm.g``, ``embed.e``, ``lm_head.w``), and the same matmul
-layout (``x @ w`` with w of shape (d_in, d_out)).  So conversion is leaf
+(``layers.sub_j.{norm1.g, attn.{wq,wk,wv,wo,q_norm?,k_norm?}, norm2.g,
+mlp.{wi,wg?,wo} or moe.{router,wi,wg?,wo}}`` stacked on a leading period
+axis, plus ``final_norm.g``, ``embed.e``, ``lm_head.w``), and the same
+matmul layout (``x @ w`` with w of shape (d_in, d_out); an expert leaf
+is (E, d_in, d_out)).  So conversion is leaf
 for leaf and exact, bfloat16 included.  The caller turns the JAX arrays
 into numpy (``jax.tree.map(np.asarray, params)``); the port never sees
 JAX.

@@ -1,5 +1,6 @@
-"""Dense decoder stack: init, the training forward and losses, and for
-serving the caches, chunked prefill and decode.
+"""Decoder stack of attention layers with dense or MoE FFNs: init, the
+training forward and losses, and for serving the caches, chunked
+prefill and decode.
 
 The parameter tree mirrors the JAX package's leaf for leaf: every
 per-layer leaf is stacked on a leading period axis under
@@ -14,8 +15,12 @@ gradient lands in one stacked gradient per leaf, and rematerializes each
 sublayer in the backward (``torch.utils.checkpoint`` without reentry, as
 the reference wraps each sublayer in ``jax.checkpoint``).
 
-Only dense attention-only stacks are ported; the MoE, hybrid, SSM,
-audio and VLM families raise ``NotImplementedError``.
+MoE stacks (``num_experts > 0``) put a :func:`~.moe.moe_apply` FFN on
+every ``moe_every``-th layer of a period; the training forward sums its
+aux loss over the layers, and the losses add ``AUX_LOSS_WEIGHT`` times
+it.  Serving routes prefill chunks drop-free and decode at the config's
+capacity factor, as the reference does.  The hybrid, SSM, audio and VLM
+families raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,11 +35,12 @@ from .attention import (attn_apply, attn_cache_init, attn_decode, attn_decode_pa
                         attn_prefill_paged)
 from .layers import (EMBED_STD, chunked_lm_loss, cross_entropy, dense, embed,
                      he_normal, mlp_apply, rmsnorm)
+from .moe import moe_apply, moe_init
 
 __all__ = ["period_length", "block_kinds", "init_params", "init_cache",
            "init_paged_cache", "inputs_to_embeds", "forward", "loss_fn",
            "loss_fn_chunked_head", "prefill_forward", "decode_step",
-           "torch_dtype", "AUX_LOSS_WEIGHT"]
+           "torch_dtype", "drop_free_capacity", "AUX_LOSS_WEIGHT"]
 
 AUX_LOSS_WEIGHT = 0.01
 
@@ -43,22 +49,44 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+#: the reference's families that wait for later slices of the port
+UNPORTED_FAMILIES = ("hybrid", "ssm", "audio", "vlm")
+
+
+def _require_ported(cfg: ModelConfig) -> None:
+    if cfg.family in UNPORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported to "
-            "PyTorch; the port serves dense attention-only stacks")
+            "PyTorch; the port runs dense and MoE attention stacks")
 
 
 def period_length(cfg: ModelConfig) -> int:
-    _require_dense(cfg)
-    return 1
+    _require_ported(cfg)
+    return cfg.moe_every if cfg.num_experts > 0 else 1
 
 
 def block_kinds(cfg: ModelConfig) -> list[tuple[str, str]]:
     """Per-layer (mixer, ffn) kinds for one period."""
-    _require_dense(cfg)
-    return [("attn", "dense" if cfg.d_ff > 0 else "none")]
+    kinds = []
+    for j in range(period_length(cfg)):
+        if cfg.d_ff == 0:
+            ffn = "none"
+        elif cfg.num_experts > 0 and j % cfg.moe_every == cfg.moe_every - 1:
+            ffn = "moe"
+        else:
+            ffn = "dense"
+        kinds.append(("attn", ffn))
+    return kinds
+
+
+def drop_free_capacity(cfg: ModelConfig) -> float:
+    """The capacity factor at which no routing can clip (cap >= n needs
+    cf >= E / top_k): serving prefill routes at it, as the reference
+    does, so a prompt's KV does not depend on how it was chunked."""
+    if not cfg.num_experts:
+        return cfg.capacity_factor
+    return max(cfg.capacity_factor,
+               float(cfg.num_experts) / max(cfg.top_k, 1))
 
 
 def _n_periods(cfg: ModelConfig) -> int:
@@ -119,7 +147,11 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
             attn["q_norm"] = ones(n_periods, hd)
             attn["k_norm"] = ones(n_periods, hd)
         sub = {"norm1": {"g": ones(n_periods, d)}, "attn": attn}
-        if ffn != "none":
+        if ffn == "moe":
+            sub["norm2"] = {"g": ones(n_periods, d)}
+            sub["moe"] = moe_init(stacked, d, dff, cfg.num_experts,
+                                  cfg.mlp)
+        elif ffn != "none":
             mlp = {"wi": stacked((d, dff), d)}
             if cfg.mlp == "glu":
                 mlp["wg"] = stacked((d, dff), d)
@@ -167,11 +199,20 @@ def _head(params, cfg: ModelConfig, x):
     return x @ params["embed"]["e"].to(x.dtype).T
 
 
-def _ffn(sub, cfg: ModelConfig, ffn: str, x):
+def _ffn(sub, cfg: ModelConfig, ffn: str, x, ctx=None,
+         capacity_factor: float | None = None):
+    """x plus the sublayer's FFN; returns (x, aux), aux None unless the
+    FFN is MoE.  x (B, T, d), or (B, d) for a decode step (its MoE then
+    routes the B rows as B x 1 tokens, idle rows included)."""
     if ffn == "none":
-        return x
-    return x + mlp_apply(sub["mlp"], rmsnorm(sub["norm2"], x, cfg.norm_eps),
-                         cfg.mlp)
+        return x, None
+    h = rmsnorm(sub["norm2"], x, cfg.norm_eps)
+    if ffn != "moe":
+        return x + mlp_apply(sub["mlp"], h, cfg.mlp), None
+    cf = cfg.capacity_factor if capacity_factor is None else capacity_factor
+    f, aux = moe_apply(sub["moe"], h if h.dim() == 3 else h[:, None], ctx,
+                       top_k=cfg.top_k, capacity_factor=cf, kind=cfg.mlp)
+    return x + f.reshape(x.shape), aux
 
 
 def inputs_to_embeds(params, cfg: ModelConfig, batch):
@@ -180,8 +221,10 @@ def inputs_to_embeds(params, cfg: ModelConfig, batch):
 
 
 def _apply_sub(sub, cfg: ModelConfig, ctx, x, ffn: str):
+    """One sublayer: (x, aux or None)."""
     h = rmsnorm(sub["norm1"], x, cfg.norm_eps)
-    return _ffn(sub, cfg, ffn, x + attn_apply(sub["attn"], cfg, ctx, h))
+    return _ffn(sub, cfg, ffn, x + attn_apply(sub["attn"], cfg, ctx, h),
+                ctx)
 
 
 def _whole(prefix: str, tree):
@@ -190,22 +233,25 @@ def _whole(prefix: str, tree):
 
 
 def _trunk(params, cfg: ModelConfig, ctx, batch, remat: bool, gather):
-    """Embeddings through every layer; returns (x, aux).  Dense stacks
-    carry no auxiliary loss (aux is 0).  ``gather(prefix, tree)`` makes
-    whole leaves of the parameters at ``prefix`` where they are used; a
-    layer's runs inside its rematerialized function, so the backward
-    gathers the layer again instead of keeping it."""
+    """Embeddings through every layer; returns (x, aux), aux the f32 sum
+    of the MoE layers' aux losses (0 for a dense stack).  ``gather(prefix,
+    tree)`` makes whole leaves of the parameters at ``prefix`` where they
+    are used; a layer's runs inside its rematerialized function, so the
+    backward gathers the layer again instead of keeping it."""
     kinds = block_kinds(cfg)
     x = inputs_to_embeds({"embed": gather("embed", params["embed"])}, cfg,
                          batch)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in _unbind(params["layers"], _n_periods(cfg)):
         for j, (_, ffn) in enumerate(kinds):
             def apply(sub, x, ffn=ffn, name=f"layers/sub_{j}"):
                 return _apply_sub(gather(name, sub), cfg, ctx, x, ffn)
             sub = lp[f"sub_{j}"]
-            x = checkpoint(apply, sub, x, use_reentrant=False) if remat \
+            x, a = checkpoint(apply, sub, x, use_reentrant=False) if remat \
                 else apply(sub, x)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+            if a is not None:
+                aux = aux + a
+    return x, aux
 
 
 def _head_params(params, gather):
@@ -259,8 +305,9 @@ def prefill_forward(params, cfg: ModelConfig, cache, batch, pos, active, *,
     ``block_tables`` (B, nk) selects the paged pool layout, attending
     the request's gathered logical prefix of ``view_blocks`` blocks.
     Returns (logits (B, T, vocab) or None when ``with_logits`` is False,
-    cache)."""
+    cache).  MoE layers route drop-free (:func:`drop_free_capacity`)."""
     kinds = block_kinds(cfg)
+    cf = drop_free_capacity(cfg)
     x = embed(params["embed"], batch["tokens"], torch_dtype(cfg))
     write_idx = active.nonzero(as_tuple=True)
     for i in range(_n_periods(cfg)):
@@ -277,7 +324,7 @@ def prefill_forward(params, cfg: ModelConfig, cache, batch, pos, active, *,
                 mx, _ = attn_prefill(sub["attn"], cfg, h, pos,
                                      lc[f"sub_{j}"], active,
                                      write_idx=write_idx)
-            x = _ffn(sub, cfg, ffn, x + mx)
+            x, _ = _ffn(sub, cfg, ffn, x + mx, capacity_factor=cf)
     if not with_logits:
         return None, cache
     return _head(params, cfg, x), cache
@@ -294,7 +341,8 @@ def decode_step(params, cfg: ModelConfig, cache, batch, pos_t, *,
     softmax oracle.  ``block_tables`` (B, nk) selects the paged pool.
     ``write_mask`` (B,) bool restricts cache writes to its rows (the
     paged layout also hides all KV from the other rows); None writes
-    every row."""
+    every row.  MoE layers route the B rows (idle ones too) at the
+    config's capacity factor, as the reference's decode does."""
     kinds = block_kinds(cfg)
     x = embed(params["embed"], batch["tokens"], torch_dtype(cfg))
     if block_tables is not None and write_mask is None:
@@ -315,5 +363,5 @@ def decode_step(params, cfg: ModelConfig, cache, batch, pos_t, *,
                 mx, _ = attn_decode(sub["attn"], cfg, h, pos_t,
                                     lc[f"sub_{j}"], impl=attn_impl,
                                     shards=attn_shards, write_rows=rows)
-            x = _ffn(sub, cfg, ffn, x + mx)
+            x, _ = _ffn(sub, cfg, ffn, x + mx)
     return _head(params, cfg, x), cache

@@ -4,7 +4,10 @@
 Parameters are fully sharded over every mesh axis (ZeRO-3): each leaf
 gets its largest divisible dims assigned greedily to the mesh axes, the
 largest axis first.  Stacked layer leaves (a leading period dim) never
-shard dim 0, so layer i of a shard, gathered, is layer i whole.
+shard dim 0, so layer i of a shard, gathered, is layer i whole.  The MoE
+expert leaves (``moe/wi``, ``moe/wg``, ``moe/wo``; (nP, E, d, f)) split
+their expert dim over ``model``, the layout the expert-parallel island
+computes in, and their other dims greedily over the other axes.
 
 A *spec* has one entry per dim of a leaf: ``None`` (not split), an axis
 name, or a tuple of axis names (split over their flattened product,
@@ -17,8 +20,9 @@ from __future__ import annotations
 
 import math
 
-__all__ = ["leaf_spec", "param_specs", "batch_specs", "spec_axes",
-           "replicated_axes", "shard_index", "shard_shape", "take_shard"]
+__all__ = ["leaf_spec", "expert_spec", "is_expert_leaf", "param_specs",
+           "batch_specs", "spec_axes", "replicated_axes", "shard_index",
+           "shard_shape", "take_shard"]
 
 
 def _size(axes: dict, entry) -> int:
@@ -54,12 +58,46 @@ def leaf_spec(shape, axes: dict, *, skip_dim0: bool) -> tuple:
     return tuple(dims)
 
 
+def expert_spec(shape, axes: dict) -> tuple:
+    """The reference's ``_expert_spec``: the expert dim (1 of a stacked
+    (nP, E, d, f) leaf, else 0) over ``model`` where E divides by it; each
+    other axis of size > 1 (largest first) on the largest later dim it
+    divides."""
+    dims: list = [None] * len(shape)
+    e_dim = 1 if len(shape) >= 4 else 0
+    if shape[e_dim] % axes["model"] == 0:
+        dims[e_dim] = "model"
+    used = {e_dim}
+    rest = [a for a in axes if a != "model" and axes[a] > 1]
+    for ax in sorted(rest, key=lambda a: -axes[a]):
+        cand = [i for i in range(e_dim + 1, len(shape))
+                if i not in used and shape[i] % axes[ax] == 0]
+        if cand:
+            best = max(cand, key=lambda i: shape[i])
+            dims[best] = ax
+            used.add(best)
+    return tuple(dims)
+
+
+def is_expert_leaf(path: str, ndim: int) -> bool:
+    """Whether the leaf at ``path`` ("/"-joined keys) is an expert weight
+    (the reference's path test in ``param_shardings``)."""
+    keys = path.split("/")
+    return "moe" in keys and keys[-1] in ("wi", "wg", "wo") and ndim >= 3
+
+
 def param_specs(axes: dict, shapes: dict) -> dict:
     """``{path: spec}`` for ``{path: shape}`` of a parameter or optimizer
-    tree: 0-d leaves replicated, leaves of two or more dims keep dim 0
-    whole (the reference's ``param_shardings`` for dense stacks)."""
-    return {path: leaf_spec(shape, axes, skip_dim0=len(shape) >= 2)
-            if len(shape) else () for path, shape in shapes.items()}
+    tree (the reference's ``param_shardings``): 0-d leaves replicated,
+    expert leaves by :func:`expert_spec`, other leaves of two or more
+    dims keep dim 0 whole."""
+    def one(path, shape):
+        if not len(shape):
+            return ()
+        if is_expert_leaf(path, len(shape)):
+            return expert_spec(shape, axes)
+        return leaf_spec(shape, axes, skip_dim0=len(shape) >= 2)
+    return {path: one(path, shape) for path, shape in shapes.items()}
 
 
 def batch_specs(axes: dict, batch_shapes: dict) -> dict:

@@ -9,12 +9,17 @@ reference shards the same way and lets XLA insert the collectives).
   reduce-scatter.  The transformer gathers a layer inside its
   rematerialized function (``gather`` hook of ``models.transformer``),
   so the backward gathers it again and at most one layer is whole at a
-  time.
+  time.  A layer's MoE expert leaves are gathered over every axis but
+  ``model``: the expert-parallel island computes with this rank's
+  experts (the reference's ``shard_map`` in-spec).
 * **Gradients.**  Through the gathers, a shard's gradient arrives summed
   over the axes the leaf is split over; :meth:`Zero3.reduce_grads_` sums
   it over the axes it is whole on.  Each shard then holds the sum over
   all ranks: the gradient of the global masked-CE mean, since each rank's
-  loss is its CE sum over the world's token count.
+  loss is its CE sum over the world's token count.  An expert leaf is
+  split over ``model``, so its gradient is never summed over ``model``:
+  each rank's experts are its own, and the island's all-to-all brought
+  every rank's tokens to them.
 * **Norms and statistics** count each leaf once: a rank adds a leaf's
   squares only where its coordinate on every axis the leaf is whole on
   is 0.
@@ -29,7 +34,8 @@ import torch
 from repro_torch.core.comm import CPComm, all_gather_tiled, all_reduce_
 from repro_torch.launch.mesh import AXES, mesh_axes, mesh_coords
 from repro_torch.optim.clipping import sum_of_squares
-from .sharding import param_specs, replicated_axes, shard_shape, take_shard
+from .sharding import (is_expert_leaf, param_specs, replicated_axes,
+                       shard_shape, take_shard)
 
 __all__ = ["Zero3", "named_leaves", "tree_shapes"]
 
@@ -107,22 +113,29 @@ class Zero3:
     # ---------------------------------------------------------------- #
     # collectives
     # ---------------------------------------------------------------- #
-    def _gather_leaf(self, x, spec):
+    def _gather_leaf(self, x, spec, keep: tuple = ()):
+        """``x`` gathered over the axes of ``spec`` (those of size > 1),
+        but not over the axes in ``keep``."""
         for dim, e in enumerate(spec):
             if e is None:
                 continue
             for a in reversed(e if isinstance(e, tuple) else (e,)):
-                x = all_gather_tiled(x, self.comms[a], dim)
+                if a in self.comms and a not in keep:
+                    x = all_gather_tiled(x, self.comms[a], dim)
         return x
 
     def gather(self, prefix: str, tree):
         """The whole leaves of this rank's shards ``tree`` at ``prefix``
         (differentiable: the backward reduce-scatters).  Under
         ``layers/`` the shards are one layer's slices of the stacked
-        leaves."""
+        leaves, and an expert leaf stays split over ``model``."""
         layer = prefix.startswith("layers")
-        return _map(tree, lambda p, x: self._gather_leaf(
-            x, self._spec(p, layer)), f"{prefix}/")
+
+        def one(p, x):
+            keep = ("model",) if is_expert_leaf(p, len(self.shapes[p])) \
+                else ()
+            return self._gather_leaf(x, self._spec(p, layer), keep)
+        return _map(tree, one, f"{prefix}/")
 
     @torch.no_grad()
     def gather_full(self, tree):

@@ -12,17 +12,29 @@ The PyTorch port of the reference engine (DESIGN.md §7).  KV layouts
   appended.  Decode runs the ``flash_decode_paged`` kernel.
 * **dense** — per-slot stripes, the parity oracle: paged and dense
   greedy decodes agree.  Decode runs ``flash_decode`` in partial mode
-  and finalizes on the online-LSE merge substrate.
+  and finalizes on the online-LSE merge substrate; ``attn_shards`` N
+  splits each stripe into N segments, one partial each, LSE-merged
+  (``flash_decode_sharded``).
 
 Each :meth:`step` spends one token budget (``scheduler.plan_step``):
 decode-ready slots get their decode token first, the remainder buys
 prompt chunks, so a long prompt prefills alongside in-flight decodes.
 ``unified=False`` restores serial prefill-then-decode as the stall
 baseline.  Every request samples from its own ``(seed, rid,
-n_generated)`` stream (``sampling``), so results do not depend on batch
-composition.  Admission is bounded and deadline-aware, and a watchdog
+n_generated)`` stream (``sampling``), so a dense model's results do not
+depend on batch composition.  A MoE model's do: as in the reference,
+decode routes all B slot rows, idle ones included, at the config's
+capacity factor, so rows compete for expert slots and a request's tokens
+depend on the other rows (a chaos abort can change a healthy MoE
+request's tokens).  Admission is bounded and deadline-aware, and a watchdog
 aborts requests with non-finite logits or stalled slots
-(DESIGN.md §Serving-resilience).
+(DESIGN.md §Serving-resilience): the decode step NaNs the rows a
+:class:`~.resilience.ChaosInjector` poisons after the forward and before
+the sampler, so the healthy rows keep their logits bit for bit and the
+host quarantines the poisoned ones from the per-row finite mask.
+:meth:`snapshot` / :meth:`restore_snapshot` persist the whole engine
+mid-decode through the checkpoint manager's atomic commit; a killed
+engine restores with no request lost and the same tokens.
 
 Where the reference donates its cache buffers to jitted programs, this
 engine owns its KV tensors and every program updates them in place.
@@ -42,7 +54,8 @@ from repro_torch.models import (decode_step, init_cache, init_paged_cache,
                                 init_params, prefill_forward)
 from .block_pool import BlockPool
 from .prefix import PrefixCache
-from .resilience import AdmissionConfig, Watchdog
+from .resilience import (AdmissionConfig, ChaosInjector, Watchdog,
+                         restore_engine, snapshot_engine)
 from .sampling import sample_tokens_keyed
 from .scheduler import Request, Scheduler, SlotState
 
@@ -62,26 +75,31 @@ class ServeEngine:
     per step (0 = ``num_slots + prefill_chunk``); ``prefix_cache``
     shares identical prompt prefixes (paged only); ``unified=False``
     serializes prefill before decode.  ``decode_impl`` "flash" (the
-    kernels) or "dense" (the softmax oracle).
+    kernels) or "dense" (the softmax oracle).  ``attn_shards`` splits
+    the dense decode cache into that many LSE-merged segments; it is a
+    dense-layout feature, so "auto" then picks dense and "paged" is
+    refused.
 
     Resilience: ``max_queue`` bounds the queue (0 = unbounded),
     ``admission`` picks the overload policy ("fifo" or "deadline"),
     ``admit_lookahead`` lets placeable requests jump a pool-blocked
     head under ``starvation_limit``; ``watchdog=False`` disables fault
     quarantine; ``stall_patience`` is the planned-but-no-progress steps
-    before a slot aborts.
+    before a slot aborts; ``chaos`` takes a
+    :class:`~.resilience.ChaosInjector`.
     """
 
     def __init__(self, cfg: ModelConfig, params=None, *,
                  device: str | torch.device = "cuda", num_slots: int = 4,
                  max_len: int = 256, prefill_chunk: int = 64,
-                 decode_impl: str = "flash", seed: int = 0,
-                 kv_layout: str = "auto", block_size: int = 16,
+                 decode_impl: str = "flash", attn_shards: int = 1,
+                 seed: int = 0, kv_layout: str = "auto", block_size: int = 16,
                  num_blocks: int = 0, token_budget: int = 0,
                  prefix_cache: bool = True, unified: bool = True,
                  max_queue: int = 0, admission: str = "fifo",
                  admit_lookahead: int = 4, starvation_limit: int = 8,
-                 watchdog: bool = True, stall_patience: int = 8):
+                 watchdog: bool = True, stall_patience: int = 8,
+                 chaos: ChaosInjector | None = None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.num_slots = num_slots
@@ -91,10 +109,16 @@ class ServeEngine:
             raise ValueError(f"unknown decode_impl {decode_impl!r}")
         self.decode_impl = decode_impl
         if kv_layout == "auto":
-            kv_layout = "paged"
+            # sharded decode (LSE-merged stripe segments) is a
+            # dense-layout feature
+            kv_layout = "paged" if attn_shards == 1 else "dense"
         elif kv_layout not in ("paged", "dense"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
+        if kv_layout == "paged" and attn_shards > 1:
+            raise ValueError("attn_shards>1 is a dense-layout feature "
+                             "(LSE-merged stripe segments)")
         self.layout = kv_layout
+        self.attn_shards = attn_shards
 
         self.params = init_params(cfg, seed=seed, device=self.device) \
             if params is None else params
@@ -123,7 +147,9 @@ class ServeEngine:
                 starvation_limit=starvation_limit))
         self.sched.on_retire = self._on_retire
         self.watchdog = Watchdog(stall_patience) if watchdog else None
+        self.chaos = chaos
         self._seed = seed
+        self._snap_mgrs: dict[str, Any] = {}
         self._next_rid = 0
         self.stats: dict[str, Any] = {
             "prefill_tokens": 0, "prefill_chunk_tokens": 0,
@@ -134,6 +160,7 @@ class ServeEngine:
             "stalled_decode_steps": 0, "cow_copies": 0,
             "admission_backoffs": 0,
             "pool_block_steps": 0, "live_token_steps": 0,
+            "chaos_delay_s": 0.0, "snapshots": 0,
             # reason-keyed terminal counters, aliased from the
             # scheduler (single source; mutated in place)
             "rejected_by_reason": self.sched.outcomes["rejected"],
@@ -324,6 +351,8 @@ class ServeEngine:
         self.stats["prefill_chunk_tokens"] += n
         if with_logits:
             row = logits[0, n - 1].float()
+            if self._poisoned(req.rid):
+                row = torch.full_like(row, float("nan"))
             if self.watchdog is not None \
                     and not bool(torch.isfinite(row).all()):
                 self.stats["prefill_s"] += time.perf_counter() - t0
@@ -342,15 +371,23 @@ class ServeEngine:
         return True
 
     # ------------------------------------------------------------- #
-    def _decode(self, tok, lengths, dmask):
-        """One batched decode step; returns (B, vocab) fp32 logits."""
+    def _poisoned(self, rid: int) -> bool:
+        return self.chaos is not None \
+            and self.chaos.poisons(rid, self.stats["steps"])
+
+    def _decode(self, tok, lengths, dmask, poison):
+        """One batched decode step; returns (B, vocab) fp32 logits, NaN on
+        the ``poison`` rows (chaos lands after the forward, before the
+        sampler: a corrupted KV page as the sampler sees it)."""
         kw = {"attn_impl": self.decode_impl, "write_mask": dmask}
         if self.layout == "paged":
             kw.update(block_tables=self._tensor(self._tables_matrix()),
                       block_size=self.block_size)
+        else:
+            kw.update(attn_shards=self.attn_shards)
         logits, _ = decode_step(self.params, self.cfg, self.cache,
                                 {"tokens": tok}, lengths, **kw)
-        return logits.float()
+        return torch.where(poison[:, None], float("nan"), logits.float())
 
     def _decode_once(self, decode_slots: list[int]) -> list[int]:
         """One batched decode step; rows with non-finite logits are
@@ -361,8 +398,10 @@ class ServeEngine:
         dmask = np.zeros((B,), bool)
         dmask[decode_slots] = True
         tok = np.zeros((B,), np.int64)
+        poison = np.zeros((B,), bool)
         for s in decode_slots:
             tok[s] = sc.slots[s].generated[-1]
+            poison[s] = self._poisoned(sc.slots[s].request.rid)
         lengths = np.where(dmask, sc.lengths(), 0).astype(np.int32)
         t0 = time.perf_counter()
         if self.layout == "paged":
@@ -371,7 +410,7 @@ class ServeEngine:
                 self._ensure_private(
                     sc.slots[s], sc.slots[s].length // self.block_size)
         logits = self._decode(self._tensor(tok), self._tensor(lengths),
-                              self._tensor(dmask))
+                              self._tensor(dmask), self._tensor(poison))
         finite = torch.isfinite(logits).all(dim=-1).cpu().numpy()
         nxt = sample_tokens_keyed(self._seed, sc.rids(), sc.sample_counts(),
                                   logits, sc.temperatures(), sc.top_ks())
@@ -396,7 +435,14 @@ class ServeEngine:
         prefill chunks + decode tokens, then run the watchdog.  Returns
         False when idle."""
         sc = self.sched
-        sc.clock = self.stats["steps"]
+        step_no = self.stats["steps"]
+        sc.clock = step_no
+        if self.chaos is not None:
+            self.chaos.maybe_kill(step_no)
+            d = self.chaos.delay(step_no)
+            if d > 0:
+                time.sleep(d)
+                self.stats["chaos_delay_s"] += d
         placed = sc.admit(self._place)
         self.stats["admitted"] += len(placed)
         if sc.queue and not placed and not sc.active_slots:
@@ -412,6 +458,15 @@ class ServeEngine:
                       if sc.slots[s].decode_ready)
         prefill_items, decode_slots = sc.plan_step()
         planned = {s for s, _, _ in prefill_items} | set(decode_slots)
+        if self.chaos is not None:
+            # a stuck slot's planned work is dropped before it runs (a
+            # wedged device call): the watchdog must catch it
+            def _stuck(s):
+                return self.chaos.is_stuck(sc.slots[s].request.rid,
+                                           step_no)
+            prefill_items = [it for it in prefill_items
+                             if not _stuck(it[0])]
+            decode_slots = [s for s in decode_slots if not _stuck(s)]
         progressed: set[int] = set()
         for slot, start, n in prefill_items:
             if self._run_prefill_chunk(slot, start, n):
@@ -440,14 +495,32 @@ class ServeEngine:
             self.stats["pool_block_steps"] += self.pool.allocated_count
         return sc.has_work
 
-    def run(self, max_steps: int = 100_000) -> dict[int, dict[str, Any]]:
+    def run(self, max_steps: int = 100_000, *, snapshot_every: int = 0,
+            snapshot_dir: str | None = None, drain_at: int = -1,
+            ) -> dict[int, dict[str, Any]]:
         """Drain the queue; returns {rid: {"status", "tokens",
         "prompt_len", ...}} with every submitted rid present (status
         "ok", "rejected", "shed" or "aborted"; hitting ``max_steps``
-        aborts the in-flight requests with their partial tokens)."""
+        aborts the in-flight requests with their partial tokens).
+        ``snapshot_every`` persists the engine to ``snapshot_dir`` every
+        N steps; ``drain_at`` stops at that engine step with a final
+        snapshot (an orderly drain: a restored engine resumes the
+        in-flight work)."""
+        if (snapshot_every > 0 or drain_at >= 0) and not snapshot_dir:
+            raise ValueError("snapshot_every/drain_at require "
+                             "snapshot_dir")
         steps = 0
-        while self.step():
+        while True:
+            if drain_at >= 0 and self.stats["steps"] >= drain_at \
+                    and self.sched.has_work:
+                self.snapshot(snapshot_dir)
+                break
+            more = self.step()
             steps += 1
+            if snapshot_every > 0 and steps % snapshot_every == 0:
+                self.snapshot(snapshot_dir)
+            if not more:
+                break
             if steps >= max_steps:
                 self.sched.abort_all(
                     f"engine step cap {max_steps} reached")
@@ -462,13 +535,36 @@ class ServeEngine:
         write nothing, so the cache is left as it was."""
         B, C = self.num_slots, self.prefill_chunk
         zi = self._tensor(np.zeros((B,), np.int64))
-        self._decode(zi, self._tensor(np.zeros((B,), np.int32)),
-                     self._tensor(np.zeros((B,), bool)))
+        zb = self._tensor(np.zeros((B,), bool))
+        self._decode(zi, self._tensor(np.zeros((B,), np.int32)), zb, zb)
         self._prefill(0, self._tensor(np.zeros((1, C), np.int64)),
                       self._tensor(np.arange(C, dtype=np.int32)[None]),
                       self._tensor(np.zeros((1, C), bool)), True,
                       self._view_bucket(C))
         self._sync()
+
+    # ------------------------------------------------------------- #
+    def _snapshot_manager(self, directory: str):
+        if directory not in self._snap_mgrs:
+            from repro_torch.checkpoint import CheckpointManager
+            self._snap_mgrs[directory] = CheckpointManager(directory)
+        return self._snap_mgrs[directory]
+
+    def snapshot(self, directory: str) -> int:
+        """Persist the whole engine state (KV cache, scheduler, block
+        pool, prefix trie, sampling cursors) atomically; see
+        :func:`~.resilience.snapshot_engine`.  Returns the snapshot's
+        step id."""
+        step = snapshot_engine(self, directory)
+        self.stats["snapshots"] += 1
+        return step
+
+    def restore_snapshot(self, directory: str,
+                         step: int | None = None) -> int:
+        """Resume from a snapshot taken by an engine of the same
+        geometry (call after construction and :meth:`warmup`, which
+        leaves the cache as it was).  Returns the restored step id."""
+        return restore_engine(self, directory, step)
 
     def latency_percentiles(self, statuses=("ok",)) -> dict[str, float]:
         """p50/p99 request latency (submit -> terminal entry) over

@@ -126,12 +126,14 @@ def leaf_names(tree, prefix=""):
 
 
 def train_rank(rank, world, store, out_dir, params_file, pipe_kw, run_kw,
-               cases, mesh_shape):
+               cases, mesh_shape, arch="starcoder2_3b", cfg_kw=None):
     """The train step on a ``mesh_shape`` (data, model) mesh of gloo ranks
-    (ZeRO-3) on the smoke starcoder2_3b, from the converted parameters,
-    for each (attention impl, gradient compression) case: loss, metrics
-    and the whole gradients of step 0's batch, then one train step's
-    metrics and the whole updated parameters."""
+    (ZeRO-3) on the smoke ``arch`` (its config fields replaced by
+    ``cfg_kw``), from the converted parameters, for each (attention impl,
+    gradient compression) case: loss, metrics and the whole gradients of
+    step 0's batch, then one train step's metrics and the whole updated
+    parameters."""
+    import dataclasses
     from repro_torch import configs as tcfgs
     from repro_torch import optim as topt
     from repro_torch.data.pipeline import PipelineConfig, make_batch
@@ -145,7 +147,8 @@ def train_rank(rank, world, store, out_dir, params_file, pipe_kw, run_kw,
     torch.set_num_threads(1)          # as in island_rank
     try:
         mesh = make_local_mesh(*mesh_shape, device_type="cpu")
-        cfg = tcfgs.reduce_for_smoke(tcfgs.get_config("starcoder2_3b"))
+        cfg = dataclasses.replace(
+            tcfgs.reduce_for_smoke(tcfgs.get_config(arch)), **(cfg_kw or {}))
         with np.load(params_file) as f:
             flat = {k: f[k] for k in f.files}
         res = {}
@@ -165,6 +168,7 @@ def train_rank(rank, world, store, out_dir, params_file, pipe_kw, run_kw,
             key = f"{impl}/{comp}"
             res[f"{key}/loss"] = loss.numpy()
             res[f"{key}/ce"] = metrics["ce"].numpy()
+            res[f"{key}/aux"] = metrics["aux"].numpy()
             res.update({f"{key}/grad/{n}": g.numpy() for n, g in
                         zip(names, leaves(zero.gather_full(grads)))})
             m = step_fn(params, topt.adamw_init(params), batch, 0)
