@@ -60,7 +60,24 @@ launch count set to 0 just before and read just after:
   experts split over ``model`` and the expert-parallel all-to-all
   island: a drop-free f32 step 0 against one rank, leaf by leaf, then
   the model's own capacity for 2 steps on 32768 tokens
-  (``moe_cp_train``).  The routed pairs the capacity drops are counted.
+  (``moe_cp_train``).  The routed pairs the capacity drops are counted;
+* the recurrent families: jamba_v0_1_52b at full width cut to one period
+  (8 layers: 7 Mamba, 1 attention at Hq 32 / Hkv 8, 4 MoE; 13.30 B
+  parameters) serving 6 requests of 48-96 tokens on 6 slots, each prompt
+  replayed through the decode step: every request ok, ``flash_decode``
+  launched (replay + decode steps) x 1 times, the kernel against its
+  plain version at 32 / 8 heads, and in f32 the replayed logits against
+  the training forward (``jamba_serve``); a full-width Mamba sublayer
+  (forward and backward, bf16 and f32 against a sequential f32
+  recurrence, the selective scan's share of its time), an attention
+  sublayer through the three doc kernels against the plain attention,
+  and the selective-scan island at N = 4 on 32768 tokens against one
+  rank (``jamba_layers``); the smoke jamba trained on the card and on
+  the CPU, and a 1x4 ``contiguous`` step 0 against one rank
+  (``jamba_smoke``); xlstm_350m at full width and depth trained 3 steps
+  on 8192 tokens with no kernel launched, then a 1x4 step 0 against one
+  rank (``xlstm_train``), and served the jamba load, a small f32 xLSTM
+  card vs CPU (``xlstm_serve``).
 
 Run from the repository root:
 
@@ -207,6 +224,36 @@ MOE_DECODE_TOL = 1e-3
 MOE_CP_WORLD, MOE_GATE_LAYERS, MOE_CP_GATE_TOL = 4, 2, 1e-3
 MOE_DROP_FREE = {"capacity_factor": 8.0}
 MOE_CP_LAYERS, MOE_CP_STEPS = 4, 2
+# the recurrent families.  jamba_v0_1_52b at full width (d 4096, 32 heads
+# of 128 over 8 KV heads, d_inner 8192, d_state 16, 16 experts top-2) cut
+# to one period of 8 layers (7 Mamba + 1 attention, 4 MoE; 13.30 B
+# parameters, 26.6 GB in bf16): its training state (>= 186 GB at 14 bytes
+# a parameter) fits no card, so it trains end to end at smoke width and at
+# full width sublayer by sublayer.  xlstm_350m (24 layers, no attention)
+# trains and serves at full width and depth.
+JAMBA, XLSTM, JAMBA_PERIOD = "jamba_v0_1_52b", "xlstm_350m", 8
+# serving load of both: 6 requests of 48-96 tokens on 6 slots, 16 tokens
+REC_REQUESTS, REC_LO, REC_HI, REC_GEN, REC_SLOTS = 6, 48, 96, 16, 6
+# replayed last-token logits vs the training forward (f32, drop-free),
+# relative to the largest logit: the reference's decode-vs-forward bound
+REPLAY_TOL = 1e-4
+# a Mamba sublayer vs a sequential f32 recurrence, relative to the largest
+# output: in f32 the chunked doubling scan associates the same sums in
+# another order; bf16 adds the rounding of the projections and of y
+MAMBA_SEQ_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# the selective-scan island at N = 4 on one 32768-token sequence, and the
+# 1x4 steps of the smoke jamba and of xlstm_350m, f32, against one rank,
+# relative to each array's largest entry (leaves: relative norm)
+SCAN_WORLD, SCAN_SEQ, REC_SMOKE_WORLD, REC_CP_TOL = 4, 32768, 4, 1e-4
+# ... but xlstm_350m's full-width f32 gradients move by more than that
+# when only the order of their sums changes: on one rank, the mLSTM's
+# chunk of 64 against 32 / 128 moves the whole gradient by 1.6e-3 /
+# 2.3e-3 and its worst leaf by 2.9e-3 / 8.1e-3, the loss by 8.4e-8 / 0
+# (scripts/xlstm_chunk_spread.py, H100 80GB HBM3, 700.00 W), and each CP
+# rank chunks its own tokens; so its leaves are held at 2.5x that spread
+# (its loss still at REC_CP_TOL)
+XLSTM_CP_LEAF_TOL = 2e-2
+REC_SMOKE_SEQ, REC_SMOKE_STEPS, XLSTM_STEPS = 1024, 3, 3
 
 
 def emit(phase: str, **kw) -> None:
@@ -1117,31 +1164,38 @@ def _widen(tree):
 def step0_grads(dtype: str, mesh=None, device="cuda", backend=None, *,
                 layers: int = CP_TRAIN_LAYERS, seq: int = CP_SEQ,
                 batch: int = 1, norm_only: bool = False, arch: str = ARCH,
-                cfg_kw=None) -> tuple:
+                cfg_kw=None, smoke: bool = False) -> tuple:
     """Step 0's loss and whole gradients ({leaf: grad} on the host) of a
-    training run's model (``arch`` at full width, ``layers`` deep, its
-    config fields replaced by ``cfg_kw``) and stream (``seq`` tokens x
-    ``batch`` rows), on one rank (``mesh`` None) or as this rank of
-    ``mesh`` over ``backend`` (ZeRO-3 shards, gathered whole for the
-    comparison); ``dtype`` float32 widens the bf16 parameters.  With
+    training run's model (``arch`` at full width, or at smoke width with
+    ``smoke``; ``layers`` deep, 0 keeping the config's; its config fields
+    replaced by ``cfg_kw``) and stream (``seq`` tokens x ``batch`` rows),
+    on one rank (``mesh`` None) or as this rank of ``mesh`` over
+    ``backend`` (ZeRO-3 shards, gathered whole for the comparison);
+    ``dtype`` float32 widens the bf16 parameters.  The run asks for
+    flashcp, which a recurrent family trains on as ``contiguous``.  With
     ``norm_only`` (one rank), the gradients' global norm in their place."""
     import dataclasses
-    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.configs import RunConfig, get_config, reduce_for_smoke
     from repro_torch.data.pipeline import PipelineConfig, make_batch
     from repro_torch.launch.mesh import mesh_axes
-    from repro_torch.launch.steps import batch_to_device, build_train_step
+    from repro_torch.launch.steps import (batch_to_device, build_train_step,
+                                          effective_strategy)
     from repro_torch.models import init_params
     from repro_torch.runtime.zero import Zero3, tree_shapes
 
-    cfg = dataclasses.replace(get_config(arch), num_layers=layers,
+    base = get_config(arch)
+    if smoke:
+        base = reduce_for_smoke(base)
+    cfg = dataclasses.replace(base, num_layers=layers or base.num_layers,
                               **(cfg_kw or {}))
     run = RunConfig(arch=arch, cp_strategy="flashcp", attention_impl="flash",
                     kernel_grid="flat", seed=0)
     cp = 1 if mesh is None else mesh_axes(mesh)["model"]
     pipe = PipelineConfig(
         dataset="wlb_llm", context_len=seq, batch_per_host=batch, cp_size=cp,
-        strategy="flashcp", vocab_size=cfg.vocab_size, seed=0, align=128,
-        emit_tables=True, table_overlap=run.cp_overlap,
+        strategy=effective_strategy(cfg, run.cp_strategy),
+        vocab_size=cfg.vocab_size, seed=0, align=128,
+        emit_tables=cfg.uses_attention, table_overlap=run.cp_overlap,
         table_grid=run.kernel_grid)
     params = init_params(cfg, seed=0, device=device)
     if dtype == "float32":
@@ -2274,6 +2328,710 @@ def moe_cp_train_phase(torch) -> dict:
 
 
 # ----------------------------------------------------------------------- #
+# the recurrent families: jamba_v0_1_52b (hybrid) and xlstm_350m (SSM)
+# ----------------------------------------------------------------------- #
+def rec_cfg(arch: str):
+    """The phases' config of ``arch``: jamba cut to one period."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if arch == JAMBA:
+        cfg = dataclasses.replace(cfg, num_layers=JAMBA_PERIOD)
+    return cfg
+
+
+def rec_requests(cfg):
+    """The recurrent serving load: REC_REQUESTS prompts of REC_LO to
+    REC_HI tokens, no shared prefix."""
+    return requests(cfg, n=REC_REQUESTS, lo=REC_LO, hi=REC_HI, prefix=0,
+                    seed=6)
+
+
+def attn_layers(cfg) -> int:
+    from repro_torch.models import block_kinds, period_length
+    return sum(m == "attn" for m, _ in block_kinds(cfg)) \
+        * (cfg.num_layers // period_length(cfg))
+
+
+def gqa_decode_parity(torch) -> dict:
+    """``flash_decode`` at jamba's heads (Hq 32 over Hkv 8, D 128), the
+    serving batch of 6 rows, against its plain version: f32 and bf16."""
+    from repro_torch.kernels.flash_decode import (decode_reference,
+                                                  flash_decode)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    S = REC_HI + REC_GEN
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        q = torch.randn((REC_SLOTS, 32, 128), generator=gen,
+                        device="cuda").to(dt)
+        k, v = (torch.randn((REC_SLOTS, 8, S, 128), generator=gen,
+                            device="cuda").to(dt) for _ in range(2))
+        lengths = torch.tensor([-1, 0, 47, 63, 95, S - 1], dtype=torch.int32,
+                               device="cuda")
+        got = flash_decode(q, k, v, lengths).float()
+        want = decode_reference(q.float(), k.float(), v.float(), lengths)
+        out[dtype] = {"max_abs_err": (got - want).abs().max().item(),
+                      "tol": TOL[dtype]}
+    emit("jamba_decode_kernel_gqa", heads="32/8", **out)
+    if any(e["max_abs_err"] > e["tol"] for e in out.values()):
+        raise AssertionError(f"flash_decode at Hq 32 / Hkv 8: {out}")
+    return out
+
+
+def replay_vs_forward(torch, cfg) -> dict:
+    """f32, drop-free: each request's replayed last-token logits (the
+    engine's own replay, B slot rows) against the training forward over
+    its prompt, within REPLAY_TOL of the largest logit."""
+    import dataclasses
+    from repro_torch.models import forward, init_params, make_local_context
+    from repro_torch.models.transformer import drop_free_capacity
+    from repro_torch.optim._slices import leaves
+    from repro_torch.serve import ServeEngine
+
+    cfg = dataclasses.replace(cfg, dtype="float32",
+                              capacity_factor=drop_free_capacity(cfg))
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = rec_requests(cfg)
+    eng = ServeEngine(cfg, params, device="cuda", kv_layout="dense",
+                      num_slots=REC_SLOTS, max_len=REC_HI + 1,
+                      prefill_chunk=64)
+    rows, first = {}, eng._first_token
+
+    def grab(req, row):
+        rows[req.rid] = row.float().clone()
+        return first(req, row)
+
+    eng._first_token = grab
+    for p in prompts:
+        eng.submit(p, max_new=1)
+    res = eng.run()
+    if any(e["status"] != "ok" for e in res.values()):
+        raise AssertionError(f"f32 replay: {res}")
+    worst = []
+    with torch.no_grad():
+        for rid, p in enumerate(prompts):
+            T = len(p)
+            pos = torch.arange(T, dtype=torch.int32, device="cuda")[None]
+            ctx = make_local_context(torch.zeros_like(pos), pos)
+            logits, _ = forward(params, cfg, ctx, {"tokens": torch.as_tensor(
+                p, dtype=torch.long, device="cuda")[None]}, remat=False)
+            ref = logits[0, -1].float()
+            worst.append({"rid": rid, "prompt_len": T,
+                          "max_abs_diff": (rows[rid] - ref).abs().max()
+                          .item(), "max_abs_logit": ref.abs().max().item()})
+    out = {"dtype": "float32", "capacity_factor": cfg.capacity_factor,
+           "param_bytes": sum(t.numel() * 4 for t in leaves(params)),
+           "init_s": init_s, "replay_steps": eng.stats["prefill_decode_steps"],
+           "tol": REPLAY_TOL, "requests": worst}
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("jamba_replay_vs_forward", card=card_line(), **out)
+    bad = [w for w in worst
+           if not w["max_abs_diff"] <= REPLAY_TOL * w["max_abs_logit"]]
+    if bad:
+        raise AssertionError(f"replayed logits vs forward: {bad}")
+    return out
+
+
+def jamba_serve_phase(torch) -> dict:
+    """jamba_v0_1_52b at full width, one period (8 layers: 7 Mamba, 1
+    attention, 4 MoE of 16 experts; 13.30 B parameters, bf16, random from
+    a seed), dense layout: REC_REQUESTS requests of REC_LO-REC_HI tokens
+    on REC_SLOTS slots, REC_GEN greedy tokens each, every prompt replayed
+    through the decode step at admission.  Gates: every request ok,
+    ``flash_decode`` launched exactly (replay + decode steps) x 1
+    attention layer times and no other kernel, the kernel against its
+    plain version at Hq 32 / Hkv 8, and in f32 (the bf16 model freed
+    first) the replayed logits against the training forward."""
+    from repro_torch.models import init_params
+
+    cfg = rec_cfg(JAMBA)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    emit("jamba_init", arch=cfg.name, layers=cfg.num_layers,
+         params=cfg.param_count(), active_params=cfg.active_param_count(),
+         seconds=time.perf_counter() - t0,
+         param_bytes=torch.cuda.memory_allocated())
+    prompts = rec_requests(cfg)
+    eng, res, launches, wall, peak = serve_run(
+        torch, cfg, params, "dense", prompts, REC_GEN, num_slots=REC_SLOTS,
+        prefill_chunk=64)
+    s = eng.stats
+    want = (s["prefill_decode_steps"] + s["decode_steps"]) * attn_layers(cfg)
+    # every decode step reads every expert of the 4 MoE layers (the 6 rows
+    # route to all 16) besides the Mamba and attention weights
+    moe_bytes = sum(t.numel() * t.element_size()
+                    for n, t in named(params) if "/moe/w" in n)
+    out = {"arch": cfg.name, "layers": cfg.num_layers,
+           "requests": len(prompts), "slots": REC_SLOTS, "gen": REC_GEN,
+           "prompt_lens": [len(p) for p in prompts], "wall_s": wall,
+           **eng.throughput(),
+           "stats": {k: v for k, v in s.items() if not isinstance(v, dict)},
+           "launches": launches, "expected_flash_decode": want,
+           "peak_bytes": peak, "kv_cache_bytes": eng.kv_cache_bytes(),
+           "moe_expert_bytes": moe_bytes,
+           "decode_step_bound_ms_moe_bytes": moe_bytes / HBM_BYTES_PER_S
+           * 1e3,
+           "decode_step_ms": s["decode_s"] / max(s["decode_steps"], 1) * 1e3,
+           "latency": eng.latency_percentiles()}
+    emit("jamba_serve", card=card_line(), **out)
+    if launches["flash_decode"] != want or not want or any(
+            n != "flash_decode" and c for n, c in launches.items()):
+        raise AssertionError(f"jamba serving launches {launches}, want "
+                             f"flash_decode {want}")
+    del eng, res, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    gqa_decode_parity(torch)
+    out["replay_vs_forward"] = replay_vs_forward(torch, cfg)
+    return out
+
+
+def sequential_selective_scan(torch, dt, A, Bm, Cm, xf, reset):
+    """The selective scan as a plain token-by-token f32 recurrence."""
+    B_, T, di = dt.shape
+    h = torch.zeros((B_, di, A.shape[-1]), dtype=torch.float32,
+                    device=dt.device)
+    ys = torch.empty((B_, T, di), dtype=torch.float32, device=dt.device)
+    A = A.float()
+    for t in range(T):
+        a = torch.exp(dt[:, t, :, None] * A) * reset[:, t, None, None]
+        h = a * h + (dt[:, t] * xf[:, t])[..., None] * Bm[:, t, None, :]
+        ys[:, t] = torch.einsum("bds,bs->bd", h, Cm[:, t])
+    return ys
+
+
+def time_fb(torch, fn, reps: int = 3) -> tuple:
+    """(forward ms, forward + backward ms) of ``fn()`` -> (out, [inputs
+    requiring grad], cotangent), by CUDA events, median of ``reps``."""
+    fwd, both = [], []
+    for _ in range(reps + 1):
+        e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        torch.cuda.synchronize()
+        e0.record()
+        out, wrt, w = fn()
+        e1.record()
+        torch.autograd.grad(out, wrt, w)
+        e2.record()
+        e2.synchronize()
+        fwd.append(e0.elapsed_time(e1))
+        both.append(e0.elapsed_time(e2))
+    return statistics.median(fwd[1:]), statistics.median(both[1:])
+
+
+def _rel(got, want) -> float:
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp(min=1e-30)).item()
+
+
+def jamba_mamba_layer(torch, batch) -> dict:
+    """One full-width Mamba sublayer (d 4096, d_inner 8192, d_state 16,
+    dt_rank 256) on one 8192-token sequence, bf16: forward and backward
+    timed, and the selective scan alone; the forward in bf16 and in f32
+    against a sequential f32 recurrence."""
+    import dataclasses
+    from repro_torch.models.context import (ExecContext,
+                                            local_selective_scan,
+                                            make_local_context)
+    from repro_torch.models.layers import he_normal
+    from repro_torch.models.ssm import mamba_apply, mamba_init
+
+    cfg = rec_cfg(JAMBA)
+    d, S = cfg.d_model, cfg.mamba_d_state
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    p = mamba_init(lambda shape, fan: he_normal(shape, fan, generator=gen,
+                                                device="cuda")[None],
+                   d, periods=1, expand=cfg.mamba_expand, d_state=S,
+                   d_conv=cfg.mamba_d_conv, dtype=torch.bfloat16,
+                   device="cuda")
+    p = {k: v[0].to(torch.bfloat16).clone().requires_grad_(True)
+         for k, v in p.items()}
+    doc = torch.as_tensor(batch["doc"], device="cuda")
+    pos = torch.as_tensor(batch["pos"], device="cuda")
+    T = pos.shape[1]
+    x = torch.randn((1, T, d), generator=gen, device="cuda") \
+        .to(torch.bfloat16).requires_grad_(True)
+    w = torch.randn((1, T, d), generator=gen, device="cuda") \
+        .to(torch.bfloat16)
+    ctx = make_local_context(doc, pos)
+    kw = dict(d_state=S, d_conv=cfg.mamba_d_conv)
+    captured = []
+
+    def capture(*args):
+        captured.append(args)
+        return local_selective_scan(*args)
+
+    cap_ctx = dataclasses.replace(ctx, selective_scan=capture)
+    with torch.no_grad():
+        y = mamba_apply(p, x, cap_ctx, **kw)
+    scan_in = [a.detach().clone() for a in captured[0]]
+    del captured
+    fwd_ms, fb_ms = time_fb(
+        torch, lambda: (mamba_apply(p, x, ctx, **kw), [x, *p.values()], w))
+
+    def scan_call():
+        ins = [a.clone().requires_grad_(i in (0, 2, 3, 4))
+               for i, a in enumerate(scan_in)]
+        out = local_selective_scan(*ins)
+        return out, [ins[i] for i in (0, 2, 3, 4)], torch.ones_like(out)
+    scan_fwd_ms, scan_fb_ms = time_fb(torch, scan_call)
+    del scan_in
+    # the forward against a sequential f32 recurrence
+    seq_ctx = ExecContext(doc=doc, pos=pos, attn=None,
+                          selective_scan=lambda *a:
+                          sequential_selective_scan(torch, *a))
+    p32 = {k: v.detach().float() for k, v in p.items()}
+    x32 = x.detach().float()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        y_seq = mamba_apply(p32, x32, seq_ctx, **kw)
+        torch.cuda.synchronize()
+        seq_s = time.perf_counter() - t0
+        y32 = mamba_apply(p32, x32, ctx, **kw)
+    err = {"float32": _rel(y32, y_seq), "bfloat16": _rel(y, y_seq)}
+    out = {"shape": {"tokens": T, "d_model": d, "d_inner": d *
+                     cfg.mamba_expand, "d_state": S,
+                     "dt_rank": p["dt_proj"].shape[0]},
+           "fwd_ms": fwd_ms, "fwd_bwd_ms": fb_ms,
+           "scan_fwd_ms": scan_fwd_ms, "scan_fwd_bwd_ms": scan_fb_ms,
+           "scan_share_of_fwd_bwd": scan_fb_ms / fb_ms,
+           "sequential_f32_s": seq_s, "rel_err_vs_sequential": err,
+           "tol": MAMBA_SEQ_TOL}
+    emit("jamba_mamba_layer", card=card_line(), **out)
+    if any(err[k] > MAMBA_SEQ_TOL[k] for k in err):
+        raise AssertionError(f"Mamba sublayer vs the sequential recurrence: "
+                             f"{err}")
+    return out
+
+
+def jamba_attn_layer(torch, batch) -> dict:
+    """One full-width attention sublayer of jamba (Hq 32 over Hkv 8, D
+    128; bf16) on the same sequence through the three doc kernels (flat
+    queue), forward and backward, against the plain attention: output
+    and every gradient within DOC_TOL of their largest entry, and each
+    doc kernel launched once."""
+    from repro_torch.kernels.doc_attention import build_block_tables
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.attention import attn_apply
+    from repro_torch.models.context import ExecContext
+    from repro_torch.models.layers import he_normal
+
+    cfg = rec_cfg(JAMBA)
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    p = {n: he_normal(shape, shape[0], generator=gen, device="cuda")
+         .to(torch.bfloat16).requires_grad_(True)
+         for n, shape in (("wq", (d, hq * hd)), ("wk", (d, hkv * hd)),
+                          ("wv", (d, hkv * hd)), ("wo", (hq * hd, d)))}
+    doc = torch.as_tensor(batch["doc"], device="cuda")
+    pos = torch.as_tensor(batch["pos"], device="cuda")
+    T = pos.shape[1]
+    x = torch.randn((1, T, d), generator=gen, device="cuda") \
+        .to(torch.bfloat16).requires_grad_(True)
+    w = torch.randn((1, T, d), generator=gen, device="cuda") \
+        .to(torch.bfloat16)
+    tabs = build_block_tables(batch["doc"], batch["pos"], batch["doc"],
+                              batch["pos"])
+
+    def flash(q, k, v):
+        return kops.doc_flash_attention(q, k, v, doc, pos, doc, pos, tabs,
+                                        grid="flat")
+
+    def plain(q, k, v):
+        return kops.doc_attention_plain(q, k, v, doc, pos, doc, pos,
+                                        q_chunk=512)
+
+    got, ms = {}, {}
+    for name, fn in (("flash", flash), ("plain", plain)):
+        ctx = ExecContext(doc=doc, pos=pos, attn=fn)
+        reset_counts()
+        y = attn_apply(p, cfg, ctx, x)
+        grads = torch.autograd.grad(y, [x, *p.values()], w)
+        got[name] = [y.detach(), *grads]
+        if name == "flash":
+            launches = read_counts()
+        ms[name] = time_fb(torch, lambda: (attn_apply(p, cfg, ctx, x),
+                                           [x, *p.values()], w))
+        del y, grads
+    names = ["y", "dx", *(f"d{n}" for n in p)]
+    err = {n: _rel(a, b) for n, a, b in zip(names, got["flash"],
+                                              got["plain"])}
+    want = {n: 1 if n in DOC_KERNELS else 0 for n in launches}
+    out = {"heads": f"{hq}/{hkv}", "tokens": T, "rel_err": err,
+           "tol": DOC_TOL["bfloat16"], "launches": launches,
+           "expected_launches": want,
+           "flash_fwd_ms": ms["flash"][0], "flash_fwd_bwd_ms": ms["flash"][1],
+           "plain_fwd_ms": ms["plain"][0], "plain_fwd_bwd_ms": ms["plain"][1]}
+    emit("jamba_attn_layer", card=card_line(), **out)
+    if launches != want:
+        raise AssertionError(f"jamba attention launches {launches}, want "
+                             f"{want}")
+    if max(err.values()) > DOC_TOL["bfloat16"]:
+        raise AssertionError(f"jamba attention flash vs plain: {err}")
+    return out
+
+
+def scan_island_inputs(torch, reset):
+    """dt, A, Bm, Cm, xf and the output cotangent w of the selective-scan
+    island check at jamba's widths (d_inner 8192, d_state 16), f32, from
+    a seed: the same numbers in every process on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(51)
+    T, di, S = reset.shape[1], 8192, 16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    dt = torch.nn.functional.softplus(randn(1, T, di) * 0.5 - 2.0)
+    A = -torch.arange(1, S + 1, dtype=torch.float32,
+                      device="cuda")[None].expand(di, S).contiguous()
+    return [dt, A, randn(1, T, S), randn(1, T, S), randn(1, T, di), reset,
+            randn(1, T, di)]
+
+
+SCAN_WRT = (0, 1, 2, 3, 4)          # dt, A, Bm, Cm, xf
+SCAN_NAMES = ("y", "ddt", "dA", "dBm", "dCm", "dxf")
+
+
+def scan_run(torch, args, scan):
+    """y and the gradients of sum(y * w) wrt dt, A, Bm, Cm, xf."""
+    ins = [a.clone().requires_grad_(i in SCAN_WRT)
+           for i, a in enumerate(args[:6])]
+    y = scan(*ins)
+    grads = torch.autograd.grad(y, [ins[i] for i in SCAN_WRT], args[6])
+    return [y.detach(), *grads]
+
+
+def scan_island_rank(rank, world, backend, store, out_dir, ref_path):
+    """One rank of the selective-scan island: its token slice through
+    ``_selective_scan_island``, dA summed over the ranks, each held
+    against the one-rank run's slice (read from ``ref_path``, mapped)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.comm import all_reduce_
+    from repro_torch.core.cp_attention import _selective_scan_island
+    from repro_torch.launch.ranks import init_rank
+
+    comm, dev = init_rank(rank, world, backend, store, "cuda")
+    try:
+        ref = torch.load(ref_path, mmap=True)
+        args = scan_island_inputs(torch, ref["reset"].to(dev))
+        t_loc = args[0].shape[1] // world
+        sl = slice(rank * t_loc, (rank + 1) * t_loc)
+        mine = [a if i == 1 else a[:, sl].contiguous()
+                for i, a in enumerate(args)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = scan_run(torch, mine, lambda *a: _selective_scan_island(
+            *a, comm=comm))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        all_reduce_([out[2]], comm)
+        errs = {}
+        for name, got in zip(SCAN_NAMES, out):
+            want = ref[name] if name == "dA" else ref[name][:, sl]
+            want = want.to(dev)
+            errs[name] = ((got - want).abs().max()
+                          / ref[f"{name}_max"]).item()
+        with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+            json.dump({"rank": rank, "rel_err": errs, "seconds": secs}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def scan_island_check(torch) -> dict:
+    """``_selective_scan_island`` at N = SCAN_WORLD on one SCAN_SEQ-token
+    wlb_llm sequence at jamba's widths, f32: every rank's y and gradients
+    (dA summed over the ranks) against the one-rank chunked scan, within
+    REC_CP_TOL of each array's largest entry."""
+    import tempfile
+    from repro_torch.data.pipeline import PipelineConfig, make_batch
+    from repro_torch.models.context import local_selective_scan
+
+    batch = make_batch(PipelineConfig(
+        dataset="wlb_llm", context_len=SCAN_SEQ, batch_per_host=1,
+        cp_size=1, strategy="contiguous", vocab_size=512, seed=0,
+        align=1), 0)
+    reset = torch.as_tensor(batch["pos"] > 0, dtype=torch.float32,
+                            device="cuda")
+    args = scan_island_inputs(torch, reset)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = scan_run(torch, args, local_selective_scan)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    del args
+    saved = {"reset": reset.cpu()}
+    for name, t in zip(SCAN_NAMES, ref):
+        saved[name] = t.cpu()
+        saved[f"{name}_max"] = t.abs().max().item()
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    backend = cp_backend(torch, SCAN_WORLD)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/ref.pt"
+        torch.save(saved, path)
+        del saved
+        t0 = time.perf_counter()
+        ranks = run_ranks(torch, scan_island_rank, SCAN_WORLD, path)
+        wall = time.perf_counter() - t0
+    worst = max(v for x in ranks for v in x["rel_err"].values())
+    out = {"world": SCAN_WORLD, "backend": backend, "tokens": SCAN_SEQ,
+           "d_inner": 8192, "d_state": 16, "dtype": "float32",
+           "one_rank_s": one_s, "wall_s": wall, "tol": REC_CP_TOL,
+           "worst_rel_err": worst, "ranks": ranks}
+    emit("jamba_scan_island", card=card_line(), **out)
+    if not worst <= REC_CP_TOL:
+        raise AssertionError(f"selective-scan island vs one rank: {worst}")
+    return out
+
+
+def jamba_layers_phase(torch) -> dict:
+    """jamba at full width sublayer by sublayer on one 8192-token wlb_llm
+    sequence: a Mamba sublayer, an attention sublayer through the doc
+    kernels, and the selective-scan island at N = 4."""
+    from repro_torch.data.pipeline import PipelineConfig, make_batch
+
+    batch = make_batch(PipelineConfig(
+        dataset="wlb_llm", context_len=SEQ, batch_per_host=1, cp_size=1,
+        strategy="contiguous", vocab_size=512, seed=0, align=128), 0)
+    out = {"mamba": jamba_mamba_layer(torch, batch)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["attn"] = jamba_attn_layer(torch, batch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["scan_island"] = scan_island_check(torch)
+    return out
+
+
+def rec_cp_rank(rank, world, backend, store, out_dir, grad_dir, arch, smoke,
+                layers, seq, cfg_kw):
+    """One rank of a recurrent model's step 0 on a 1xN mesh (ZeRO-3,
+    contiguous, the scan islands and the convolution halo), f32: its loss
+    and launches; rank 0 saves the whole gradients to ``grad_dir``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.ranks import init_rank
+
+    _, dev = init_rank(rank, world, backend, store, "cuda")
+    try:
+        mesh = make_local_mesh(1, world, device_type="cuda")
+        reset_counts()
+        t0 = time.perf_counter()
+        loss, grads = step0_grads("float32", mesh, dev, backend,
+                                  layers=layers, seq=seq, arch=arch,
+                                  cfg_kw=cfg_kw, smoke=smoke)
+        secs = time.perf_counter() - t0
+        if rank == 0:
+            torch.save(grads, Path(grad_dir) / "grads.pt")
+        with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+            json.dump({"rank": rank, "loss": loss, "seconds": secs,
+                       "launches": read_counts(),
+                       "peak_bytes": torch.cuda.max_memory_allocated(dev)},
+                      f)
+    finally:
+        dist.destroy_process_group()
+
+
+def rec_cp_check(torch, what, arch, smoke, layers, seq, want_launches,
+                 cfg_kw=None, leaf_tol=REC_CP_TOL) -> dict:
+    """Step 0 of a recurrent model on a 1xN mesh against one rank, f32:
+    loss within REC_CP_TOL and every gradient leaf within ``leaf_tol``,
+    every rank's launches exactly ``want_launches``."""
+    import tempfile
+
+    world = REC_SMOKE_WORLD
+    t0 = time.perf_counter()
+    loss1, g1 = step0_grads("float32", layers=layers, seq=seq, arch=arch,
+                            cfg_kw=cfg_kw, smoke=smoke)
+    one_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    backend = cp_backend(torch, world)
+    with tempfile.TemporaryDirectory() as grad_dir:
+        t0 = time.perf_counter()
+        ranks = run_ranks(torch, rec_cp_rank, world, grad_dir, arch, smoke,
+                          layers, seq, cfg_kw)
+        wall = time.perf_counter() - t0
+        leaf = compare_grads(torch.load(Path(grad_dir) / "grads.pt"), g1)
+    del g1
+    d_loss = max(abs(x["loss"] - loss1) / abs(loss1) for x in ranks)
+    out = {"arch": arch, "smoke": smoke, "world": world, "backend": backend,
+           "strategy": "contiguous", "dtype": "float32", "seq_len": seq,
+           "cfg_kw": cfg_kw or {}, "one_rank_loss": loss1,
+           "one_rank_s": one_s, "wall_s": wall, "loss_rel_diff": d_loss,
+           "grad_rel_err": leaf["grad_rel_err"],
+           "worst_leaves": leaf["leaves"][:6], "loss_tol": REC_CP_TOL,
+           "leaf_tol": leaf_tol, "expected_launches": want_launches,
+           "ranks": [{k: x[k] for k in ("rank", "loss", "seconds",
+                                        "launches", "peak_bytes")}
+                     for x in ranks]}
+    emit(what, card=card_line(), **out)
+    if not (d_loss <= REC_CP_TOL
+            and leaf["leaves"][0]["rel_err"] <= leaf_tol):
+        raise AssertionError(f"{what}: loss {d_loss:.3g}, worst leaf "
+                             f"{leaf['leaves'][0]}")
+    if any(x["launches"] != want_launches for x in ranks):
+        raise AssertionError(f"{what}: launches "
+                             f"{[x['launches'] for x in ranks]}, want "
+                             f"{want_launches} per rank")
+    return out
+
+
+def jamba_smoke_phase(torch) -> dict:
+    """jamba at smoke width (one period of 8 layers, d 64), f32: trained
+    REC_SMOKE_STEPS steps through the kernels on the card and through
+    their twins on the CPU from the same parameters (same losses and
+    parameters within SMOKE_TRAIN_TOL; the card's launches (2, 1, 1) a
+    step for its one attention layer); then a 1x4 ``contiguous`` step 0,
+    drop-free, against one rank, leaf by leaf."""
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.models import init_params
+    from repro_torch.optim._slices import leaves
+
+    cfg = reduce_for_smoke(get_config(JAMBA))
+    params_cpu = init_params(cfg, seed=0, device="cpu")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        reset_counts()
+        res = train(train_args("--arch", JAMBA, "--smoke", "--steps",
+                               str(REC_SMOKE_STEPS), "--seq-len", "512",
+                               "--batch", "2", "--device", dev,
+                               "--log-every", "100"),
+                    params=_to(params_cpu, dev))
+        runs[dev] = (res["losses"], [p.detach().float().cpu()
+                                     for p in leaves(res["params"])],
+                     read_counts(), res["step_s"])
+    L = attn_layers(cfg)
+    want = {n: 0 for n in REPLACES} | {
+        "flash_fwd": REC_SMOKE_STEPS * L * 2,
+        "flash_bwd_dq": REC_SMOKE_STEPS * L,
+        "flash_bwd_dkv": REC_SMOKE_STEPS * L}
+    d_loss = max(abs(a - b) / abs(b)
+                 for a, b in zip(runs["cuda"][0], runs["cpu"][0]))
+    d_par = max((a - b).abs().max().item()
+                for a, b in zip(runs["cuda"][1], runs["cpu"][1]))
+    out = {"losses_cuda": runs["cuda"][0], "losses_cpu": runs["cpu"][0],
+           "step_s_cuda": runs["cuda"][3], "loss_rel_diff": d_loss,
+           "param_max_abs_diff": d_par, "tol": SMOKE_TRAIN_TOL,
+           "launches": runs["cuda"][2], "expected_launches": want}
+    emit("jamba_smoke_train_cuda_vs_cpu", card=card_line(), **out)
+    if not (d_loss <= SMOKE_TRAIN_TOL and d_par <= SMOKE_TRAIN_TOL):
+        raise AssertionError("jamba smoke training: cuda and cpu disagree")
+    if runs["cuda"][2] != want:
+        raise AssertionError(f"jamba smoke launches {runs['cuda'][2]}, want "
+                             f"{want}")
+    hops = REC_SMOKE_WORLD            # local KV + N-1 hops a layer
+    cp_want = {n: 0 for n in REPLACES} | {
+        "flash_fwd": 2 * L * hops, "flash_bwd_dq": L * hops,
+        "flash_bwd_dkv": L * hops}
+    out["cp"] = rec_cp_check(
+        torch, "jamba_smoke_cp", JAMBA, True, 0, REC_SMOKE_SEQ, cp_want,
+        cfg_kw={"capacity_factor": float(cfg.num_experts) / cfg.top_k})
+    return out
+
+
+def xlstm_train_phase(torch) -> dict:
+    """xlstm_350m at full width and full depth (24 layers, 0.475 B
+    parameters), bf16 with an fp32 master, one 8192-token wlb_llm
+    sequence a step, XLSTM_STEPS steps (the run asks for flashcp and
+    trains on contiguous): finite losses and no launch of any of the
+    five kernels (the stack has no attention).  Then a 1x4 mesh (ZeRO-3,
+    the chunk-state scans through ``_ssm_island``, the mLSTM's chunk
+    states across the rank boundary through the halo), f32, step 0
+    against one rank: the loss within REC_CP_TOL, every leaf within
+    XLSTM_CP_LEAF_TOL."""
+    import math
+
+    cfg = rec_cfg(XLSTM)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = train(train_args("--arch", XLSTM, "--seq-len", str(SEQ),
+                           "--batch", "1", "--steps", str(XLSTM_STEPS),
+                           "--device", "cuda", "--log-every", "100"))
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    mean_s = statistics.mean(res["step_s"][1:])
+    out = {"arch": XLSTM, "layers": cfg.num_layers,
+           "params": cfg.param_count(), "seq_len": SEQ,
+           "steps": XLSTM_STEPS, "strategy": res["run"].cp_strategy,
+           "wall_s": wall, "losses": res["losses"],
+           "grad_norms": res["grad_norms"], "step_s": res["step_s"],
+           "step_s_after_first": mean_s, "tokens_per_s": SEQ / mean_s,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches}
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("xlstm_train", card=card_line(), **out)
+    if not all(math.isfinite(x) for x in out["losses"] + out["grad_norms"]):
+        raise AssertionError("xLSTM training produced non-finite losses")
+    if any(launches.values()):
+        raise AssertionError(f"xLSTM training launched kernels: {launches}")
+    if out["strategy"] != "contiguous":
+        raise AssertionError(f"xLSTM trained on {out['strategy']}")
+    out["cp"] = rec_cp_check(torch, "xlstm_cp", XLSTM, False, 0, SEQ,
+                             {n: 0 for n in REPLACES},
+                             leaf_tol=XLSTM_CP_LEAF_TOL)
+    return out
+
+
+def xlstm_serve_phase(torch) -> dict:
+    """xlstm_350m at full depth serving the jamba_serve load (dense
+    layout, replay prefill): every request ok, no kernel launched; then
+    a small f32 xLSTM served on the card and on the CPU on 3 slots (so
+    slots are reused): the same greedy tokens."""
+    from repro_torch.configs import reduce_for_smoke
+    from repro_torch.models import init_params
+
+    cfg = rec_cfg(XLSTM)
+    params = init_params(cfg, seed=0, device="cuda")
+    prompts = rec_requests(cfg)
+    eng, _, launches, wall, peak = serve_run(
+        torch, cfg, params, "dense", prompts, REC_GEN, num_slots=REC_SLOTS,
+        prefill_chunk=64)
+    out = {"arch": XLSTM, "layers": cfg.num_layers,
+           "requests": len(prompts), "slots": REC_SLOTS, "gen": REC_GEN,
+           "wall_s": wall, **eng.throughput(),
+           "stats": {k: v for k, v in eng.stats.items()
+                     if not isinstance(v, dict)},
+           "launches": launches, "peak_bytes": peak,
+           "state_bytes": eng.kv_cache_bytes(),
+           "latency": eng.latency_percentiles()}
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    small = reduce_for_smoke(cfg)
+    params_cpu = init_params(small, seed=3, device="cpu")
+    small_prompts = requests(small, n=6, lo=20, hi=60, prefix=0, seed=4)
+    toks = {}
+    for dev, p in (("cuda", _to(params_cpu, "cuda")), ("cpu", params_cpu)):
+        _, res, _, _, _ = serve_run(torch, small, p, "dense", small_prompts,
+                                    12, device=dev, num_slots=3,
+                                    prefill_chunk=16)
+        toks[dev] = {r: e["tokens"].tolist() for r, e in res.items()}
+    out["smoke_cuda_vs_cpu_identical"] = toks["cuda"] == toks["cpu"]
+    emit("xlstm_serve", card=card_line(), **out)
+    if any(launches.values()):
+        raise AssertionError(f"xLSTM serving launched kernels: {launches}")
+    if not out["smoke_cuda_vs_cpu_identical"]:
+        raise AssertionError("xLSTM smoke serving: cuda and cpu tokens "
+                             "differ")
+    return out
+
+
+# ----------------------------------------------------------------------- #
 # the training path
 # ----------------------------------------------------------------------- #
 def train_args(*extra):
@@ -2552,6 +3310,19 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         moe_cp_train_phase(torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        jamba_serve_phase(torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        jamba_layers_phase(torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        jamba_smoke_phase(torch)
+        xlstm_train_phase(torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        xlstm_serve_phase(torch)
         errs = {**kern["err"], **doc["err"]}
         times = {**kern["times"], **doc["times"]}
         for name in REPLACES:

@@ -1,21 +1,21 @@
 """Architecture registry of the port: the dense and MoE attention
-stacks.
+stacks, the Jamba hybrid and the xLSTM SSM stack.
 
-The other families of the reference (hybrid, SSM, audio, VLM) are not
-ported yet, so ``get_config`` resolves only these six.
+The audio and VLM families of the reference are not ported yet, so
+``get_config`` resolves only these eight.
 """
 
 from __future__ import annotations
 
 from .base import ModelConfig, RunConfig, reduce_for_smoke
 
-from . import (dbrx_132b, granite_34b, olmoe_1b_7b, qwen3_32b,
-               starcoder2_3b, starcoder2_7b)
+from . import (dbrx_132b, granite_34b, jamba_v0_1_52b, olmoe_1b_7b,
+               qwen3_32b, starcoder2_3b, starcoder2_7b, xlstm_350m)
 
 ARCHS: dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG
     for m in (starcoder2_3b, starcoder2_7b, granite_34b, qwen3_32b,
-              olmoe_1b_7b, dbrx_132b)
+              olmoe_1b_7b, dbrx_132b, jamba_v0_1_52b, xlstm_350m)
 }
 
 

@@ -1,9 +1,9 @@
 """Model and serving configuration for the PyTorch port.
 
 The port's own copy of the part of the JAX package's config system that
-the ported families read: ``ModelConfig`` with the fields of a dense or
-MoE attention stack, the serving and training fields of ``RunConfig``,
-and ``reduce_for_smoke``.
+the ported families read: ``ModelConfig`` with the fields of the dense,
+MoE, hybrid (Jamba) and SSM (xLSTM) stacks, the serving and training
+fields of ``RunConfig``, and ``reduce_for_smoke``.
 Plain frozen dataclasses; the values of every configuration are the
 same as the reference's.
 """
@@ -35,6 +35,14 @@ class ModelConfig:
     top_k: int = 0
     moe_every: int = 1                # apply MoE FFN every k-th layer
     capacity_factor: float = 1.25
+    # --- hybrid (jamba): 1 attention layer per `attn_every` layers ----- #
+    attn_every: int = 0               # 0 -> attention everywhere
+    attn_offset: int = 4              # which layer inside the period is attn
+    mamba_d_state: int = 16
+    mamba_d_conv: int = 4
+    mamba_expand: int = 2
+    # --- xLSTM --------------------------------------------------------- #
+    slstm_every: int = 0              # 1 sLSTM block per k blocks (rest mLSTM)
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"
     tie_embeddings: bool = False
@@ -43,24 +51,47 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.num_heads
 
+    @property
+    def uses_attention(self) -> bool:
+        return self.family != "ssm"
+
     def _is_moe_layer(self, layer: int) -> bool:
         return self.num_experts > 0 \
             and layer % self.moe_every == self.moe_every - 1
 
     def param_count(self) -> int:
-        """Analytic parameter count of an attention stack with dense or
-        MoE FFNs (embeddings included)."""
+        """Analytic parameter count (embeddings included): attention,
+        Mamba, mLSTM or sLSTM mixers with dense or MoE FFNs."""
         d, dff, L = self.d_model, self.d_ff, self.num_layers
         hd = self.resolved_head_dim
         attn = (d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd
                 + self.num_heads * hd * d)
         ffn = (3 if self.mlp == "glu" else 2) * d * dff
+        di = d * self.mamba_expand
+        dt_rank = max(1, d // 16)
+        mamba = (2 * d * di                               # in_proj
+                 + self.mamba_d_conv * di + di            # conv
+                 + di * (dt_rank + 2 * self.mamba_d_state)    # x_proj
+                 + dt_rank * di + di                      # dt_proj
+                 + di * self.mamba_d_state + di           # A_log, D
+                 + di * d)                                # out_proj
+        mlstm = 2 * d * di + 3 * di * di + 2 * di * self.num_heads + di * d
+        slstm = 5 * d * d
         total = 0
         for layer in range(L):
-            total += attn + 2 * d
+            if self.family == "ssm":
+                is_slstm = self.slstm_every and \
+                    layer % self.slstm_every == self.slstm_every - 1
+                total += slstm if is_slstm else mlstm
+            elif self.attn_every == 0 \
+                    or layer % self.attn_every == self.attn_offset:
+                total += attn
+            else:
+                total += mamba
             if dff > 0:
                 total += self.num_experts * ffn + d * self.num_experts \
                     if self._is_moe_layer(layer) else ffn
+            total += 2 * d                                # norms
         total += self.vocab_size * d
         if not self.tie_embeddings:
             total += self.vocab_size * d
@@ -123,14 +154,16 @@ class RunConfig:
 
 
 def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
-    """Shrink a config to smoke-test size, keeping its GQA ratio and its
-    MoE top-k (at most 4 experts, top-2)."""
+    """Shrink a config to smoke-test size, keeping its GQA ratio, its
+    MoE top-k (at most 4 experts, top-2) and its hybrid interleave (one
+    whole period of ``attn_every`` layers)."""
     kv = max(1, min(cfg.num_kv_heads, 2))
     heads = max(kv, min(cfg.num_heads, 4))
     heads = (heads // kv) * kv or kv
     return dataclasses.replace(
         cfg,
-        num_layers=min(cfg.num_layers, 4),
+        num_layers=min(cfg.num_layers,
+                       4 if cfg.attn_every == 0 else cfg.attn_every),
         d_model=64,
         num_heads=heads,
         num_kv_heads=kv,
@@ -139,5 +172,6 @@ def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
         vocab_size=min(cfg.vocab_size, 512),
         num_experts=min(cfg.num_experts, 4),
         top_k=min(cfg.top_k, 2),
+        mamba_d_state=8,
         dtype="float32",
     )

@@ -44,6 +44,23 @@ the ``model`` axis); the expert FFNs run there, and a second all-to-all
 brings the outputs home for the weighted combine.  ``extras
 ["token_sum"]`` sums a routing statistic over ``world`` (every rank of
 the batch), so the aux loss is that of the whole batch.
+
+The recurrent mixers (Mamba, mLSTM, sLSTM) run the **scan islands**
+(the reference's ``_ssm_island`` and ``_selective_scan_island``): each
+rank scans its own tokens from a zero state, the ranks all-gather one
+(decay product, final state) summary each, and each rank folds the
+summaries of the ranks before it into its carry-in, so the
+communication is O(state) and no rank waits for another's scan.  The
+all-gather's backward is the reduce-scatter that carries each carry-in's
+cotangent back to the ranks it came from.  Where the reference shifts
+a global array by a few positions (Mamba's causal convolution reads the
+``d_conv - 1`` tokens before each token, the mLSTM the chunk state
+before each chunk), its GSPMD partitioner exchanges a halo between
+ranks; here ``extras["halo"]`` brings the previous rank's last entries
+in one ring hop (zeros at rank 0), and a rank would otherwise see zeros
+there.  All of these carry state in rank order, which is token order
+only under an order-preserving planner (``contiguous``): the recurrent
+families train on it (``launch.steps.effective_strategy``).
 """
 
 from __future__ import annotations
@@ -53,7 +70,8 @@ from typing import Any
 
 import torch
 
-from repro_torch.models.context import ExecContext
+from repro_torch.models.context import (ExecContext, local_selective_scan,
+                                        local_ssm_scan)
 from repro_torch.table_layout import table_keys
 from .comm import (CPComm, all_gather_tiled, all_reduce_sum,
                    all_to_all_tiled, hop_start, hop_wait)
@@ -256,6 +274,65 @@ def _moe_island(x, topi, gates, wi, wg, wo, *, comm, kind, capacity_factor,
     return combine_local(y, slot, tok_s, gat_s, keep, n).reshape(b, t, d)
 
 
+def _gathered(x, comm: CPComm):
+    """Every rank's ``x`` stacked on a new leading axis (N, ...), in rank
+    order (``jax.lax.all_gather(x, axis=0)``); backward reduce-scatter."""
+    return all_gather_tiled(x[None].contiguous(), comm, 0)
+
+
+def _carry_in(gA, gS, me: int):
+    """The state entering rank ``me``: the ranks before it folded in
+    order, S <- S_j + A_j S from a zero state.  Every rank's summary
+    enters the graph, selected away where j >= me (as the reference's
+    ``jnp.where``), so every rank's backward runs the reduce-scatter."""
+    S = torch.zeros_like(gS[0])
+    for j in range(gS.shape[0]):
+        take = torch.tensor(j < me, device=S.device)
+        S = torch.where(take, gS[j] + gA[j] * S, S)
+    return S
+
+
+def _selective_scan_island(dt, A, Bm, Cm, xf, reset, *, comm):
+    """The chunked selective scan with the CP rank hand-off: pass 1 makes
+    this rank's (decay product, final state) summary, the summaries are
+    all-gathered and folded into this rank's initial state, and pass 2
+    produces y from it (:func:`~repro_torch.models.context.
+    local_selective_scan`)."""
+    A_rank, S_rank = local_selective_scan(dt, A, Bm, Cm, xf, reset,
+                                          summary_only=True)
+    S0 = _carry_in(_gathered(A_rank, comm), _gathered(S_rank, comm),
+                   comm.rank)
+    return local_selective_scan(dt, A, Bm, Cm, xf, reset, init_state=S0)
+
+
+def _ssm_island(a, x, *, comm):
+    """The cross-rank recurrence h_t = a_t h_{t-1} + x_t: the local scan,
+    plus the carry-in of the ranks before this one through the running
+    decay (kept at ``a``'s, possibly singleton, shape)."""
+    h_loc = local_ssm_scan(a, x)
+    cum_a = local_ssm_scan(a, torch.zeros_like(a),
+                           init=torch.ones_like(a[:, 0]))
+    H_prev = _carry_in(_gathered(cum_a[:, -1], comm),
+                       _gathered(h_loc[:, -1], comm), comm.rank)
+    return h_loc + cum_a * H_prev[:, None]
+
+
+def _make_halo(comm: CPComm):
+    """``halo(x, n)``: the last ``n`` entries along axis 1 of the
+    previous rank's ``x`` (B, T, ...), zeros at rank 0.  One ring hop;
+    its backward sends the cotangent back to the sender (rank 0's,
+    zeroed, still goes, so every rank's backward exchanges)."""
+    def halo(x, n):
+        if x.shape[1] < n:
+            raise ValueError(f"{x.shape[1]} entries a rank cannot carry a "
+                             f"halo of {n}")
+        (prev,) = hop_wait(hop_start(comm, (x[:, -n:].contiguous(),)))
+        first = torch.tensor(comm.rank == 0, device=prev.device)
+        return prev.masked_fill(first, 0.0)
+
+    return halo
+
+
 def _make_ep_dispatch(comm: CPComm | None):
     """``ep_dispatch(x, topi, gates, params, *, kind, capacity_factor)``
     of one rank.  ``params`` is the layer's ``moe`` sub-tree; its expert
@@ -350,13 +427,20 @@ def make_cp_context(plan_arrays: dict[str, Any], *,
     kw = dict(impl=impl, q_chunk=q_chunk, block_q=block_q, block_k=block_k,
               grid=grid)
 
+    @functools.cache
+    def tables():
+        """This rank's tables: (local, hop) sets chunked, else the
+        monolithic set; looked up at the first attention call, so a
+        stack without attention (xLSTM) needs none."""
+        if overlap == "chunked":
+            return (rank_tables("tab_loc_"),
+                    rank_tables("tab_hop_") if N > 1 else None)
+        return rank_tables("tab_")
+
     if overlap == "chunked":
-        loc = rank_tables("tab_loc_")
-        hop = rank_tables("tab_hop_") if N > 1 else None
         part_attn = functools.partial(_partial_masked_attention, scale=scale,
                                       **kw)
     else:
-        mono = rank_tables("tab_")
         masked = functools.partial(_masked_attention, **kw)
 
     flashcp = strategy in _FLASHCP
@@ -367,6 +451,8 @@ def make_cp_context(plan_arrays: dict[str, Any], *,
 
     def attn(q, k, v):
         if overlap == "chunked":
+            loc, hop = tables()
+
             def attend(kc, vc, dc, pc, tables):
                 return part_attn(q, kc, vc, doc_l, pos_l, dc, pc,
                                  tables=tables)
@@ -377,6 +463,7 @@ def make_cp_context(plan_arrays: dict[str, Any], *,
             return _gather_island_chunked(q, k, v, doc_l, pos_l, comm=comm,
                                           attend=attend, loc_tables=loc,
                                           hop_tables=hop)
+        mono = tables()
         if flashcp:
             return _flashcp_island(q, k, v, doc_l, pos_l, sidx, gd, gp,
                                    comm=comm, masked=masked, tables=mono)
@@ -390,4 +477,11 @@ def make_cp_context(plan_arrays: dict[str, Any], *,
     extras = {"ep_dispatch": _make_ep_dispatch(comm)}
     if world is not None:
         extras["token_sum"] = functools.partial(all_reduce_sum, comm=world)
-    return ExecContext(doc=doc_l, pos=pos_l, attn=attn, extras=extras)
+    if comm is None:
+        return ExecContext(doc=doc_l, pos=pos_l, attn=attn, extras=extras)
+    extras["halo"] = _make_halo(comm)
+    return ExecContext(
+        doc=doc_l, pos=pos_l, attn=attn,
+        ssm_scan=functools.partial(_ssm_island, comm=comm),
+        selective_scan=functools.partial(_selective_scan_island, comm=comm),
+        extras=extras)

@@ -29,6 +29,12 @@ MoE archs serve the same way (``--arch olmoe_1b_7b``, all 16 layers fit
 one H100): prefill chunks route drop-free, decode at the config's
 capacity factor over the slot rows, as the reference does.
 
+The recurrent archs (``--arch jamba_v0_1_52b``, ``xlstm_350m``) keep the
+dense layout (``auto`` picks it; ``paged`` is refused) and replay each
+prompt through the decode step at admission.  xlstm_350m serves at full
+size on one H100; jamba's 32 layers (103 GB of bf16 weights) do not fit
+one (``chip_smoke.py`` serves it cut to one period of 8 layers).
+
 ``--attn-shards N`` splits the dense-layout decode cache into N
 LSE-merged segments (``flash_decode`` in partial mode per segment).
 
@@ -143,7 +149,8 @@ def serve(args) -> dict:
     print(f"[serve] prefill: {s['prefill_tokens']} prompt tokens "
           f"({s['prefill_chunk_tokens']} computed, "
           f"{s['prefill_cached_tokens']} prefix-cached) in "
-          f"{s['prefill_steps']} chunk steps, {s['prefill_s']:.2f}s "
+          f"{s['prefill_steps']} chunk steps + "
+          f"{s['prefill_decode_steps']} replay steps, {s['prefill_s']:.2f}s "
           f"({tp['prefill_tok_s']:.1f} computed tok/s, "
           f"{tp['prefill_effective_tok_s']:.1f} effective)")
     print(f"[serve] decode:  {s['decode_tokens']} tokens in "

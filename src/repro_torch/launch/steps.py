@@ -1,5 +1,6 @@
 """The training step (the port of the reference's
-``repro.launch.steps.build_train_step``).
+``repro.launch.steps.build_train_step``) and the strategy a model family
+trains on (:func:`effective_strategy`).
 
 One step is loss + gradients (autograd through the attention context and
 the rematerialized layers), global-norm clipping, optional gradient
@@ -43,9 +44,24 @@ from repro_torch.models.transformer import loss_fn
 from repro_torch.optim import (adamw_update, clip_by_global_norm,
                                compress_tree, warmup_cosine)
 from repro_torch.optim._slices import leaves
+from repro_torch.planner.registry import RECURRENT_FAMILIES, get_planner
 from repro_torch.runtime.sharding import batch_specs, take_shard
 
-__all__ = ["build_train_step", "batch_to_device", "rank_batch"]
+__all__ = ["build_train_step", "batch_to_device", "rank_batch",
+           "effective_strategy"]
+
+
+def effective_strategy(cfg: ModelConfig, requested: str) -> str:
+    """The planner a model family trains on.  Recurrent families (Jamba,
+    xLSTM) carry scan state from rank to rank in token order, so a
+    planner that does not preserve it (``PlannerInfo.
+    preserves_token_order``) is swapped for ``contiguous`` (its
+    sharding-aware communication still applies).  Unknown names raise,
+    listing the registered planners."""
+    keeps = get_planner(requested).info.preserves_token_order
+    if cfg.family in RECURRENT_FAMILIES and not keeps:
+        return "contiguous"
+    return requested
 
 
 def batch_to_device(batch: dict[str, Any], device) -> dict[str, Any]:
@@ -106,7 +122,7 @@ def build_train_step(cfg: ModelConfig, run: RunConfig, *, q_chunk: int = 512,
     ``loss_and_grads(params, batch)``, whose gradients are shards too.
     """
     resolve_device(device)
-    exec_strategy = exec_style_of(run.cp_strategy)
+    exec_strategy = exec_style_of(effective_strategy(cfg, run.cp_strategy))
     groups = 1 if zero is None else zero.axes["data"]
 
     def _ctx_of(batch):

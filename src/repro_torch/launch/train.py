@@ -24,6 +24,14 @@ Full width on one H100 (random weights from the seed):
     PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2_3b \\
         --seq-len 8192 --batch 1 --steps 4
 
+The recurrent archs (``jamba_v0_1_52b``, ``xlstm_350m``) train on the
+``contiguous`` planner whatever ``--strategy`` asks for, unless it
+preserves token order (the scan state crosses the CP ranks in token
+order); xlstm_350m has no attention, so no visit tables are built:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm_350m \\
+        --seq-len 8192 --batch 1 --steps 3
+
 MoE archs (``olmoe_1b_7b``, ``dbrx_132b``) train the same way; on a mesh
 their experts split over ``model`` and each layer's tokens reach them by
 the expert-parallel all-to-all.  The log and the result carry the aux
@@ -52,12 +60,12 @@ import torch
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import RunConfig, get_config, reduce_for_smoke
 from repro_torch.core.comm import CPComm, broadcast_
-from repro_torch.data.pipeline import (PipelineConfig, Prefetcher,
-                                       exec_style_of, make_batch)
+from repro_torch.data.pipeline import PipelineConfig, Prefetcher, make_batch
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import make_local_mesh, mesh_axes
 from repro_torch.launch.ranks import init_rank, spawn_ranks
-from repro_torch.launch.steps import batch_to_device, build_train_step
+from repro_torch.launch.steps import (batch_to_device, build_train_step,
+                                      effective_strategy)
 from repro_torch.models import init_params
 from repro_torch.optim import adamw_init
 from repro_torch.runtime.zero import Zero3, named_leaves, tree_shapes
@@ -176,8 +184,9 @@ def train(args, params=None, mesh=None, device=None) -> dict:
         cfg = reduce_for_smoke(cfg)
     if getattr(args, "layers", 0):
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
-    exec_style_of(args.strategy)    # unknown strategies fail fast
-    run = RunConfig(arch=args.arch, cp_strategy=args.strategy,
+    # unknown strategies fail fast; recurrent families swap for contiguous
+    strategy = effective_strategy(cfg, args.strategy)
+    run = RunConfig(arch=args.arch, cp_strategy=strategy,
                     attention_impl=args.attention_impl,
                     kernel_grid=args.grid, lr=args.lr,
                     total_steps=args.steps,
@@ -188,10 +197,11 @@ def train(args, params=None, mesh=None, device=None) -> dict:
     flash = run.attention_impl == "flash"
     pipe = PipelineConfig(
         dataset=args.dataset, context_len=args.seq_len,
-        batch_per_host=args.batch, cp_size=M, strategy=args.strategy,
+        batch_per_host=args.batch, cp_size=M, strategy=strategy,
         vocab_size=cfg.vocab_size, seed=run.seed,
         # the kernels need block-divisible rank slices
-        align=128 if flash else (1 if M == 1 else 16), emit_tables=flash,
+        align=128 if flash else (1 if M == 1 else 16),
+        emit_tables=flash and cfg.uses_attention,
         table_overlap=run.cp_overlap, table_grid=run.kernel_grid)
     if (args.resume or args.ckpt_every) and not run.checkpoint_dir:
         raise ValueError("--resume and --ckpt-every need --checkpoint-dir")

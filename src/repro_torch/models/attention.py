@@ -100,18 +100,30 @@ def attn_decode(p, cfg, x_t, pos_t, cache, *, impl: str = "flash",
     positions.  The new K/V land in place at ``cache[b, :, pos_t[b]]``
     for the rows in ``write_rows`` (default: every row).
 
+    Every row attends with its own new K/V at ``pos_t``, as in the
+    reference, which writes all rows and masks the cache update
+    afterwards: the other rows' entries are written for the attention
+    and put back after it.  Their outputs matter where rows interact (a
+    MoE layer routes every row, so an idle row takes expert capacity).
+
     ``impl="flash"`` runs the flash-decode kernel per cache shard and
     merges the partials; ``"dense"`` is the softmax oracle."""
     B, _ = x_t.shape
     hd = cfg.resolved_head_dim
     q, k, v = _qkv_roped(p, cfg, x_t[:, None, :], pos_t[:, None])
-    rows = torch.arange(B, device=x_t.device) if write_rows is None \
-        else write_rows
-    at = pos_t.long()[rows]
+    rows = torch.arange(B, device=x_t.device)
+    at = pos_t.long()
+    kept = None
+    if write_rows is not None and write_rows.numel() < B:
+        other = torch.ones(B, dtype=torch.bool, device=x_t.device)
+        other[write_rows] = False
+        idle = other.nonzero().flatten()
+        kept = (idle, at[idle], cache["k"][idle, :, at[idle]].clone(),
+                cache["v"][idle, :, at[idle]].clone())
     # in place, where the reference scatters functionally into a donated
     # buffer
-    cache["k"][rows, :, at] = k[rows, :, 0].to(cache["k"].dtype)
-    cache["v"][rows, :, at] = v[rows, :, 0].to(cache["v"].dtype)
+    cache["k"][rows, :, at] = k[:, :, 0].to(cache["k"].dtype)
+    cache["v"][rows, :, at] = v[:, :, 0].to(cache["v"].dtype)
 
     q1 = q[:, :, 0].contiguous()
     if impl == "flash":
@@ -122,6 +134,10 @@ def attn_decode(p, cfg, x_t, pos_t, cache, *, impl: str = "flash",
                                scale=hd ** -0.5)
     else:
         raise ValueError(f"unknown decode attention impl {impl!r}")
+    if kept is not None:
+        idle, at_idle, k_old, v_old = kept
+        cache["k"][idle, :, at_idle] = k_old
+        cache["v"][idle, :, at_idle] = v_old
     return _out(p, out.reshape(B, -1).to(x_t.dtype)), cache
 
 

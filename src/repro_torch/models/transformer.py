@@ -1,10 +1,12 @@
-"""Decoder stack of attention layers with dense or MoE FFNs: init, the
-training forward and losses, and for serving the caches, chunked
-prefill and decode.
+"""Decoder stacks of the dense, MoE, hybrid (Jamba) and SSM (xLSTM)
+families: init, the training forward and losses, and for serving the
+caches, chunked prefill and decode.
 
 The parameter tree mirrors the JAX package's leaf for leaf: every
 per-layer leaf is stacked on a leading period axis under
-``layers.sub_0`` (a dense attention stack has period 1), beside
+``layers.sub_j`` (a dense attention stack has period 1, Jamba's 7
+Mamba + 1 attention layers period 8, xLSTM's 3 mLSTM + 1 sLSTM period
+4), beside
 ``final_norm``, ``embed`` and ``lm_head``.  Where the reference scans
 over periods, this loops over them in Python and hands each layer views
 of its parameter and cache slices, so cache writes land in place in the
@@ -19,11 +21,19 @@ MoE stacks (``num_experts > 0``) put a :func:`~.moe.moe_apply` FFN on
 every ``moe_every``-th layer of a period; the training forward sums its
 aux loss over the layers, and the losses add ``AUX_LOSS_WEIGHT`` times
 it.  Serving routes prefill chunks drop-free and decode at the config's
-capacity factor, as the reference does.  The hybrid, SSM, audio and VLM
-families raise ``NotImplementedError``.
+capacity factor, as the reference does.
+
+Recurrent mixers (Mamba, mLSTM, sLSTM) keep a dense per-slot scan state
+in the decode cache instead of KV by position, so those stacks have no
+cache-writing prefill and no paged layout
+(:func:`supports_cached_prefill`, :func:`supports_paged_cache`): the
+serving engine replays their prompts through :func:`decode_step`.  The
+audio and VLM families raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -36,11 +46,15 @@ from .attention import (attn_apply, attn_cache_init, attn_decode, attn_decode_pa
 from .layers import (EMBED_STD, chunked_lm_loss, cross_entropy, dense, embed,
                      he_normal, mlp_apply, rmsnorm)
 from .moe import moe_apply, moe_init
+from .ssm import mamba_apply, mamba_cache_init, mamba_decode, mamba_init
+from .xlstm import (mlstm_apply, mlstm_cache_init, mlstm_decode, mlstm_init,
+                    slstm_apply, slstm_cache_init, slstm_decode, slstm_init)
 
 __all__ = ["period_length", "block_kinds", "init_params", "init_cache",
            "init_paged_cache", "inputs_to_embeds", "forward", "loss_fn",
            "loss_fn_chunked_head", "prefill_forward", "decode_step",
-           "torch_dtype", "drop_free_capacity", "AUX_LOSS_WEIGHT"]
+           "torch_dtype", "drop_free_capacity", "supports_cached_prefill",
+           "supports_paged_cache", "AUX_LOSS_WEIGHT"]
 
 AUX_LOSS_WEIGHT = 0.01
 
@@ -50,33 +64,61 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 #: the reference's families that wait for later slices of the port
-UNPORTED_FAMILIES = ("hybrid", "ssm", "audio", "vlm")
+UNPORTED_FAMILIES = ("audio", "vlm")
 
 
 def _require_ported(cfg: ModelConfig) -> None:
     if cfg.family in UNPORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported to "
-            "PyTorch; the port runs dense and MoE attention stacks")
+            "PyTorch; the port runs the dense, MoE, hybrid and SSM "
+            "stacks")
 
 
 def period_length(cfg: ModelConfig) -> int:
     _require_ported(cfg)
+    if cfg.family == "ssm":
+        return max(cfg.slstm_every, 1)
+    if cfg.attn_every > 0:
+        return math.lcm(cfg.attn_every, cfg.moe_every)
     return cfg.moe_every if cfg.num_experts > 0 else 1
 
 
 def block_kinds(cfg: ModelConfig) -> list[tuple[str, str]]:
-    """Per-layer (mixer, ffn) kinds for one period."""
+    """Per-layer (mixer, ffn) kinds for one period: mixer "attn",
+    "mamba", "mlstm" or "slstm"; ffn "dense", "moe" or "none"."""
     kinds = []
     for j in range(period_length(cfg)):
+        if cfg.family == "ssm":
+            mixer = "slstm" if j % cfg.slstm_every == cfg.slstm_every - 1 \
+                else "mlstm"
+        elif cfg.attn_every > 0:
+            mixer = "attn" if j % cfg.attn_every == cfg.attn_offset \
+                else "mamba"
+        else:
+            mixer = "attn"
         if cfg.d_ff == 0:
             ffn = "none"
         elif cfg.num_experts > 0 and j % cfg.moe_every == cfg.moe_every - 1:
             ffn = "moe"
         else:
             ffn = "dense"
-        kinds.append(("attn", ffn))
+        kinds.append((mixer, ffn))
     return kinds
+
+
+def supports_cached_prefill(cfg: ModelConfig) -> bool:
+    """Cache-writing prefill needs every mixer to be attention (KV caches
+    are written by position); the recurrent stacks replay their
+    prompts through :func:`decode_step`."""
+    return all(mixer == "attn" for mixer, _ in block_kinds(cfg))
+
+
+def supports_paged_cache(cfg: ModelConfig) -> bool:
+    """Paged KV needs position-addressed caches in every mixer: a
+    recurrent mixer's per-slot scan state has no block structure, so
+    those stacks keep the dense slot-stripe layout."""
+    return supports_cached_prefill(cfg)
 
 
 def drop_free_capacity(cfg: ModelConfig) -> float:
@@ -137,8 +179,17 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     def ones(*shape):
         return torch.ones(shape, dtype=dtype, device=dev)
 
-    period = {}
-    for j, (_, ffn) in enumerate(kinds):
+    def mixer_init(mixer):
+        if mixer == "mamba":
+            return mamba_init(stacked, d, periods=n_periods,
+                              expand=cfg.mamba_expand,
+                              d_state=cfg.mamba_d_state,
+                              d_conv=cfg.mamba_d_conv, dtype=dtype,
+                              device=dev)
+        if mixer == "mlstm":
+            return mlstm_init(stacked, d, hq, expand=cfg.mamba_expand)
+        if mixer == "slstm":
+            return slstm_init(stacked, d)
         attn = {"wq": stacked((d, hq * hd), d),
                 "wk": stacked((d, hkv * hd), d),
                 "wv": stacked((d, hkv * hd), d),
@@ -146,7 +197,11 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
         if cfg.qk_norm:
             attn["q_norm"] = ones(n_periods, hd)
             attn["k_norm"] = ones(n_periods, hd)
-        sub = {"norm1": {"g": ones(n_periods, d)}, "attn": attn}
+        return attn
+
+    period = {}
+    for j, (mixer, ffn) in enumerate(kinds):
+        sub = {"norm1": {"g": ones(n_periods, d)}, mixer: mixer_init(mixer)}
         if ffn == "moe":
             sub["norm2"] = {"g": ones(n_periods, d)}
             sub["moe"] = moe_init(stacked, d, dff, cfg.num_experts,
@@ -170,19 +225,43 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     return params
 
 
+def _sub_cache_init(cfg: ModelConfig, mixer: str, periods: int, batch: int,
+                    max_len: int, dev):
+    dtype = torch_dtype(cfg)
+    if mixer == "attn":
+        return attn_cache_init(cfg, periods, batch, max_len, dtype, dev)
+    if mixer == "mamba":
+        return mamba_cache_init(periods, batch, cfg.d_model,
+                                expand=cfg.mamba_expand,
+                                d_state=cfg.mamba_d_state,
+                                d_conv=cfg.mamba_d_conv, dtype=dtype,
+                                device=dev)
+    if mixer == "mlstm":
+        return mlstm_cache_init(periods, batch, cfg.d_model, cfg.num_heads,
+                                expand=cfg.mamba_expand, device=dev)
+    return slstm_cache_init(periods, batch, cfg.d_model, device=dev)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device: str | torch.device = "cuda"):
-    """Dense per-slot KV stripes: per sub-layer (P, B, Hkv, S, hd)."""
+    """Dense per-slot caches, per sub-layer: KV stripes (P, B, Hkv, S, hd)
+    for attention, the scan states for a recurrent mixer (Mamba: conv
+    window (P, B, d_conv - 1, di) and SSM state (P, B, di, S) f32; mLSTM:
+    C (P, B, H, dh, dh) and N (P, B, H, dh) f32; sLSTM: c (P, B, d)
+    f32)."""
     dev, P = resolve_device(device), _n_periods(cfg)
-    return {f"sub_{j}": attn_cache_init(cfg, P, batch, max_len,
-                                        torch_dtype(cfg), dev)
-            for j in range(len(block_kinds(cfg)))}
+    return {f"sub_{j}": _sub_cache_init(cfg, mixer, P, batch, max_len, dev)
+            for j, (mixer, _) in enumerate(block_kinds(cfg))}
 
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int, *,
                      device: str | torch.device = "cuda"):
     """Global paged KV pool: per sub-layer (P, Hkv, num_blocks *
-    block_size, hd), no slot axis."""
+    block_size, hd), no slot axis.  Attention-only stacks
+    (:func:`supports_paged_cache`)."""
+    if not supports_paged_cache(cfg):
+        raise ValueError(f"{cfg.name}: paged KV requires attention-only "
+                         "mixers")
     dev, P = resolve_device(device), _n_periods(cfg)
     return {f"sub_{j}": attn_paged_cache_init(cfg, P, num_blocks, block_size,
                                               torch_dtype(cfg), dev)
@@ -220,11 +299,19 @@ def inputs_to_embeds(params, cfg: ModelConfig, batch):
     return embed(params["embed"], batch["tokens"], torch_dtype(cfg))
 
 
-def _apply_sub(sub, cfg: ModelConfig, ctx, x, ffn: str):
+def _apply_sub(sub, cfg: ModelConfig, ctx, x, mixer: str, ffn: str):
     """One sublayer: (x, aux or None)."""
     h = rmsnorm(sub["norm1"], x, cfg.norm_eps)
-    return _ffn(sub, cfg, ffn, x + attn_apply(sub["attn"], cfg, ctx, h),
-                ctx)
+    if mixer == "attn":
+        mx = attn_apply(sub["attn"], cfg, ctx, h)
+    elif mixer == "mamba":
+        mx = mamba_apply(sub["mamba"], h, ctx, d_state=cfg.mamba_d_state,
+                         d_conv=cfg.mamba_d_conv)
+    elif mixer == "mlstm":
+        mx = mlstm_apply(sub["mlstm"], h, ctx, num_heads=cfg.num_heads)
+    else:
+        mx = slstm_apply(sub["slstm"], h, ctx)
+    return _ffn(sub, cfg, ffn, x + mx, ctx)
 
 
 def _whole(prefix: str, tree):
@@ -243,9 +330,10 @@ def _trunk(params, cfg: ModelConfig, ctx, batch, remat: bool, gather):
                          batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in _unbind(params["layers"], _n_periods(cfg)):
-        for j, (_, ffn) in enumerate(kinds):
-            def apply(sub, x, ffn=ffn, name=f"layers/sub_{j}"):
-                return _apply_sub(gather(name, sub), cfg, ctx, x, ffn)
+        for j, (mixer, ffn) in enumerate(kinds):
+            def apply(sub, x, mixer=mixer, ffn=ffn, name=f"layers/sub_{j}"):
+                return _apply_sub(gather(name, sub), cfg, ctx, x, mixer,
+                                  ffn)
             sub = lp[f"sub_{j}"]
             x, a = checkpoint(apply, sub, x, use_reentrant=False) if remat \
                 else apply(sub, x)
@@ -305,7 +393,11 @@ def prefill_forward(params, cfg: ModelConfig, cache, batch, pos, active, *,
     ``block_tables`` (B, nk) selects the paged pool layout, attending
     the request's gathered logical prefix of ``view_blocks`` blocks.
     Returns (logits (B, T, vocab) or None when ``with_logits`` is False,
-    cache).  MoE layers route drop-free (:func:`drop_free_capacity`)."""
+    cache).  MoE layers route drop-free (:func:`drop_free_capacity`).
+    Attention-only stacks (:func:`supports_cached_prefill`)."""
+    if not supports_cached_prefill(cfg):
+        raise ValueError(f"{cfg.name}: cache-writing prefill requires "
+                         "attention-only mixers")
     kinds = block_kinds(cfg)
     cf = drop_free_capacity(cfg)
     x = embed(params["embed"], batch["tokens"], torch_dtype(cfg))
@@ -351,17 +443,39 @@ def decode_step(params, cfg: ModelConfig, cache, batch, pos_t, *,
     rows = None if write_mask is None else write_mask.nonzero().flatten()
     for i in range(_n_periods(cfg)):
         lp, lc = _index(params["layers"], i), _index(cache, i)
-        for j, (_, ffn) in enumerate(kinds):
-            sub = lp[f"sub_{j}"]
+        for j, (mixer, ffn) in enumerate(kinds):
+            sub, c = lp[f"sub_{j}"], lc[f"sub_{j}"]
             h = rmsnorm(sub["norm1"], x, cfg.norm_eps)
-            if block_tables is not None:
+            if mixer != "attn":
+                mx = _recurrent_decode(sub, cfg, mixer, h, c, rows)
+            elif block_tables is not None:
                 mx, _ = attn_decode_paged(
-                    sub["attn"], cfg, h, pos_t, lc[f"sub_{j}"],
-                    block_tables, write_mask, impl=attn_impl,
-                    block_size=block_size, write_rows=rows)
+                    sub["attn"], cfg, h, pos_t, c, block_tables, write_mask,
+                    impl=attn_impl, block_size=block_size, write_rows=rows)
             else:
-                mx, _ = attn_decode(sub["attn"], cfg, h, pos_t,
-                                    lc[f"sub_{j}"], impl=attn_impl,
-                                    shards=attn_shards, write_rows=rows)
+                mx, _ = attn_decode(sub["attn"], cfg, h, pos_t, c,
+                                    impl=attn_impl, shards=attn_shards,
+                                    write_rows=rows)
             x, _ = _ffn(sub, cfg, ffn, x + mx)
     return _head(params, cfg, x), cache
+
+
+def _recurrent_decode(sub, cfg: ModelConfig, mixer: str, h, cache, rows):
+    """One token through a recurrent mixer; its new states are written
+    into ``cache`` (views of the stacked leaves) on ``rows`` (None: every
+    row), as the reference masks the rows of its functional update."""
+    if mixer == "mamba":
+        mx, new = mamba_decode(sub["mamba"], h, cache,
+                               d_state=cfg.mamba_d_state,
+                               d_conv=cfg.mamba_d_conv)
+    elif mixer == "mlstm":
+        mx, new = mlstm_decode(sub["mlstm"], h, cache,
+                               num_heads=cfg.num_heads)
+    else:
+        mx, new = slstm_decode(sub["slstm"], h, cache)
+    for name, leaf in cache.items():
+        if rows is None:
+            leaf.copy_(new[name])
+        else:
+            leaf[rows] = new[name][rows].to(leaf.dtype)
+    return mx

@@ -14,7 +14,17 @@ The PyTorch port of the reference engine (DESIGN.md §7).  KV layouts
   greedy decodes agree.  Decode runs ``flash_decode`` in partial mode
   and finalizes on the online-LSE merge substrate; ``attn_shards`` N
   splits each stripe into N segments, one partial each, LSE-merged
-  (``flash_decode_sharded``).
+  (``flash_decode_sharded``).  The recurrent stacks (Jamba, xLSTM) keep
+  this layout: their per-slot scan states have no block structure.
+
+Attention-only stacks prefill in cache-writing chunks.  A recurrent
+stack has no such prefill (its scan states would have to come out of
+the training scan), so at admission it **replays** the prompt through
+the decode step one token at a time, the updates written to the
+admitted slot's row only, as the reference does.  The replay starts
+from a zeroed row: the reference's carries the previous request's
+recurrent state into a reused slot, which changes that request's tokens
+(ROADMAP.md, Queue 3, F3).
 
 Each :meth:`step` spends one token budget (``scheduler.plan_step``):
 decode-ready slots get their decode token first, the remainder buys
@@ -51,7 +61,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import (decode_step, init_cache, init_paged_cache,
-                                init_params, prefill_forward)
+                                init_params, prefill_forward,
+                                supports_cached_prefill, supports_paged_cache)
 from .block_pool import BlockPool
 from .prefix import PrefixCache
 from .resilience import (AdmissionConfig, ChaosInjector, Watchdog,
@@ -78,7 +89,8 @@ class ServeEngine:
     kernels) or "dense" (the softmax oracle).  ``attn_shards`` splits
     the dense decode cache into that many LSE-merged segments; it is a
     dense-layout feature, so "auto" then picks dense and "paged" is
-    refused.
+    refused.  "auto" picks dense for a recurrent stack too, and "paged"
+    is refused there.
 
     Resilience: ``max_queue`` bounds the queue (0 = unbounded),
     ``admission`` picks the overload policy ("fifo" or "deadline"),
@@ -108,10 +120,17 @@ class ServeEngine:
         if decode_impl not in ("flash", "dense"):
             raise ValueError(f"unknown decode_impl {decode_impl!r}")
         self.decode_impl = decode_impl
+        self.cached_prefill = supports_cached_prefill(cfg)
         if kv_layout == "auto":
-            # sharded decode (LSE-merged stripe segments) is a
-            # dense-layout feature
-            kv_layout = "paged" if attn_shards == 1 else "dense"
+            # paged where the arch can (attention-only mixers); sharded
+            # decode (LSE-merged stripe segments) is a dense-layout
+            # feature
+            kv_layout = "paged" if supports_paged_cache(cfg) \
+                and attn_shards == 1 else "dense"
+        elif kv_layout == "paged" and not supports_paged_cache(cfg):
+            raise ValueError(
+                f"{cfg.name}: paged KV requires attention-only mixers "
+                "(recurrent scan states have no block structure)")
         elif kv_layout not in ("paged", "dense"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
         if kv_layout == "paged" and attn_shards > 1:
@@ -154,7 +173,7 @@ class ServeEngine:
         self.stats: dict[str, Any] = {
             "prefill_tokens": 0, "prefill_chunk_tokens": 0,
             "prefill_cached_tokens": 0, "prefill_steps": 0,
-            "prefill_s": 0.0,
+            "prefill_decode_steps": 0, "prefill_s": 0.0,
             "decode_tokens": 0, "decode_steps": 0, "decode_s": 0.0,
             "admitted": 0, "retired": 0, "steps": 0,
             "stalled_decode_steps": 0, "cow_copies": 0,
@@ -370,6 +389,43 @@ class ServeEngine:
         self.stats["prefill_s"] += time.perf_counter() - t0
         return True
 
+    def _prefill_replay(self, slot: int, req: Request) -> bool:
+        """The recurrent stacks' prefill (dense layout): the whole prompt
+        through the decode step one token at a time at admission, cache
+        writes restricted to this slot's row (the other rows ride along,
+        as in the reference, so a MoE layer routes them too).  The
+        slot's row starts zeroed.  Returns False when the slot was
+        aborted (non-finite final logits)."""
+        t0 = time.perf_counter()
+        B = self.num_slots
+        for sub in self.cache.values():
+            for leaf in sub.values():
+                leaf[:, slot].zero_()
+        onehot = np.zeros((B,), bool)
+        onehot[slot] = True
+        mask = self._tensor(onehot)
+        tok = np.zeros((B,), np.int64)
+        pos = np.zeros((B,), np.int32)
+        logits = None
+        for t in range(req.prompt_len):
+            tok[slot], pos[slot] = req.tokens[t], t
+            logits = self._decode(self._tensor(tok), self._tensor(pos), mask,
+                                  None)
+            self.stats["prefill_decode_steps"] += 1
+        row = logits[slot]
+        if self._poisoned(req.rid):
+            row = torch.full_like(row, float("nan"))
+        self._sync()
+        self.stats["prefill_tokens"] += req.prompt_len
+        self.stats["prefill_chunk_tokens"] += req.prompt_len
+        self.stats["prefill_s"] += time.perf_counter() - t0
+        if self.watchdog is not None and not bool(torch.isfinite(row).all()):
+            self.sched.abort(slot, "non-finite prefill logits at step "
+                             f"{self.stats['steps']}", kind="nan_logits")
+            return False
+        self.sched.start(slot, self._first_token(req, row))
+        return True
+
     # ------------------------------------------------------------- #
     def _poisoned(self, rid: int) -> bool:
         return self.chaos is not None \
@@ -378,7 +434,8 @@ class ServeEngine:
     def _decode(self, tok, lengths, dmask, poison):
         """One batched decode step; returns (B, vocab) fp32 logits, NaN on
         the ``poison`` rows (chaos lands after the forward, before the
-        sampler: a corrupted KV page as the sampler sees it)."""
+        sampler: a corrupted KV page as the sampler sees it; None: no
+        row)."""
         kw = {"attn_impl": self.decode_impl, "write_mask": dmask}
         if self.layout == "paged":
             kw.update(block_tables=self._tensor(self._tables_matrix()),
@@ -387,6 +444,8 @@ class ServeEngine:
             kw.update(attn_shards=self.attn_shards)
         logits, _ = decode_step(self.params, self.cfg, self.cache,
                                 {"tokens": tok}, lengths, **kw)
+        if poison is None:
+            return logits.float()
         return torch.where(poison[:, None], float("nan"), logits.float())
 
     def _decode_once(self, decode_slots: list[int]) -> list[int]:
@@ -445,6 +504,9 @@ class ServeEngine:
                 self.stats["chaos_delay_s"] += d
         placed = sc.admit(self._place)
         self.stats["admitted"] += len(placed)
+        if not self.cached_prefill:
+            for slot, req in placed:
+                self._prefill_replay(slot, req)
         if sc.queue and not placed and not sc.active_slots:
             # the head backed off even into an idle engine (its block
             # working set exceeds the pool after full prefix-cache
@@ -530,13 +592,17 @@ class ServeEngine:
     # ------------------------------------------------------------- #
     def warmup(self) -> None:
         """Run one all-inactive decode step and one all-inactive prefill
-        chunk, outside any timed window: builds and loads the kernels
-        and initialises the device libraries.  Inactive rows and tokens
-        write nothing, so the cache is left as it was."""
+        chunk (a recurrent stack's replay is that decode step), outside
+        any timed window: builds and loads the kernels and initialises
+        the device libraries.  Inactive rows and tokens write nothing,
+        so the cache is left as it was."""
         B, C = self.num_slots, self.prefill_chunk
         zi = self._tensor(np.zeros((B,), np.int64))
         zb = self._tensor(np.zeros((B,), bool))
         self._decode(zi, self._tensor(np.zeros((B,), np.int32)), zb, zb)
+        if not self.cached_prefill:
+            self._sync()
+            return
         self._prefill(0, self._tensor(np.zeros((1, C), np.int64)),
                       self._tensor(np.arange(C, dtype=np.int32)[None]),
                       self._tensor(np.zeros((1, C), bool)), True,

@@ -97,8 +97,9 @@ def test_init_params_has_the_reference_layout(arch):
 
 def test_non_dense_families_are_refused():
     _, tcfg = _cfgs("starcoder2_3b")
-    # the MoE family is ported (tests/test_torch_moe.py); the rest wait
-    for family in ("hybrid", "ssm", "audio", "vlm"):
+    # the MoE family (tests/test_torch_moe.py) and the recurrent ones
+    # (tests/test_torch_hybrid.py) are ported; the rest wait
+    for family in ("audio", "vlm"):
         cfg = dataclasses.replace(tcfg, family=family)
         with pytest.raises(NotImplementedError, match=family):
             tm.block_kinds(cfg)
