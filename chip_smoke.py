@@ -34,8 +34,8 @@ launch count set to 0 just before and read just after:
   to 4 layers for 3 steps, step 0 against one rank (``cp_train``);
 * the distributed training loop: a 2x2 mesh (rows over ``data``, tokens
   over ``model``, parameters and optimizer state sharded over both)
-  training the same 4-layer model on 2 rows of 16384 tokens for 3 steps
-  against one rank, then the f32 smoke model checkpointed on 2x2 and
+  training the same model cut to 2 layers on 2 rows of 16384 tokens for
+  3 steps against one rank, then the f32 smoke model checkpointed on 2x2 and
   resumed on 1x4 (``dp_train``); and all 30 layers on a 2x1 mesh for one
   step against one rank (``dp_full``).  Every rank checks that it holds
   exactly its ZeRO-3 shards.  The ranks are spawned after the build;
@@ -77,7 +77,28 @@ launch count set to 0 just before and read just after:
   (``jamba_smoke``); xlstm_350m at full width and depth trained 3 steps
   on 8192 tokens with no kernel launched, then a 1x4 step 0 against one
   rank (``xlstm_train``), and served the jamba load, a small f32 xLSTM
-  card vs CPU (``xlstm_serve``).
+  card vs CPU (``xlstm_serve``);
+* the audio and VLM frontends: all five kernels at musicgen_medium's
+  heads (24 over 24 KV heads, D 64: GQA group 1) and internvl2_1b's (14
+  over 2, D 64: group 7) against their plain versions in f32 and bf16,
+  timed beside their bounds, plain versions and SDPA
+  (``frontend_kernels``); each model at full width and depth (48 and 24
+  layers) trained 3 steps on one 8192-token sequence through
+  ``build_train_step`` with its frame or patch embeddings drawn from the
+  seed in plan order (finite losses, layers x (2, 1, 1) launches a
+  step), and serving the main path's 12 requests on both layouts, the
+  audio prompts with their own frames (launches, paged vs dense tokens,
+  a smoke f32 model card vs CPU);
+* adaptive dispatch and elastic recovery: starcoder2_3b at full width
+  cut to 2 layers on a 2x2 mesh of ranks sharing the card, 4 rows of
+  4096 tokens a step, whose CP degree changes between steps (each
+  switch reshards the ZeRO-3 state): its losses against one rank's
+  run of the same stream, its doc-kernel launches per rank those of
+  its degrees; the same run losing host 1 (ranks 2 and 3) at step 3,
+  shrunk to 1x2 with 2 micro-batches a step from the step-3 checkpoint,
+  and (on one rank) restarted at step 3, each against the same losses;
+  and with host 1 twice as slow, every rank making rank 0's placements
+  (``dispatch``).
 
 Run from the repository root:
 
@@ -85,7 +106,8 @@ Run from the repository root:
     python3 chip_smoke.py --quick    # build + parity of all five kernels
                                      # (and the doc kernels at a hop shape)
 
-Prints one JSON line per phase, the card's name and power limit, the
+Prints one JSON line per phase (and each phase's wall time as a
+``phase_seconds`` line), the card's name and power limit, the
 kernel table, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero, with no result line, when a phase fails or there is no
@@ -180,16 +202,16 @@ F2 = ("not a fault of the port: the reference rounds the same way on the "
       "CPU (tests/test_torch_zero.py::test_bf16_embedding_grad_matches_"
       "reference_bit_for_bit); what its TPU does is not known")
 # the distributed loop: a 2x2 mesh (4 ranks) training full-width
-# starcoder2_3b cut to 4 layers on 2 rows of 16384 tokens (8192 per
-# rank), 3 steps, against one rank on the same global batch; step 0's
+# starcoder2_3b cut to 2 layers (4 until the dispatch phase needed the
+# time) on 2 rows of 16384 tokens (8192 per rank), 3 steps, against one rank on the same global batch; step 0's
 # loss relative, grad norm and every leaf but the embedding table's as
 # in cp_train
-DP_MESH, DP_LAYERS, DP_SEQ, DP_BATCH, DP_STEPS = (2, 2), 4, 16384, 2, 3
+DP_MESH, DP_LAYERS, DP_SEQ, DP_BATCH, DP_STEPS = (2, 2), 2, 16384, 2, 3
 DP_LOSS_TOL, DP_TOL = 1e-4, 1e-2
 # the smoke model (f32, on the card): a checkpoint written at step 2 on
 # 2x2 and resumed on 1x4 against the uninterrupted 4-step run
 DP_RESUME_AT, DP_RESUME_STEPS, DP_RESUME_TOL = 2, 4, 1e-5
-# the 2x2 run's final checkpoint (full width, 4 layers) restored on the
+# the 2x2 run's final checkpoint (full width, 2 layers) restored on the
 # same mesh: each rank's shards bit for bit, and the device's peak over
 # the restore within this many bytes of the rank's state (the allocator's
 # rounding; the whole state is 4x it)
@@ -219,11 +241,12 @@ MOE_DECODE_TOL = 1e-3
 # MoE over 4 EP/CP ranks (1x4, ZeRO-3, experts split over model): (a) the
 # gate at 2 layers, f32, at the drop-free capacity factor E / top_k on
 # one 8192-token sequence, step 0 against one rank, loss and every
-# gradient leaf; (b) the model's own capacity factor at 4 layers on one
-# 32768-token sequence, 2 steps
+# gradient leaf; (b) the model's own capacity factor at 2 layers (4
+# until the dispatch phase needed the time) on one 32768-token
+# sequence, 2 steps
 MOE_CP_WORLD, MOE_GATE_LAYERS, MOE_CP_GATE_TOL = 4, 2, 1e-3
 MOE_DROP_FREE = {"capacity_factor": 8.0}
-MOE_CP_LAYERS, MOE_CP_STEPS = 4, 2
+MOE_CP_LAYERS, MOE_CP_STEPS = 2, 2
 # the recurrent families.  jamba_v0_1_52b at full width (d 4096, 32 heads
 # of 128 over 8 KV heads, d_inner 8192, d_state 16, 16 experts top-2) cut
 # to one period of 8 layers (7 Mamba + 1 attention, 4 MoE; 13.30 B
@@ -254,6 +277,37 @@ SCAN_WORLD, SCAN_SEQ, REC_SMOKE_WORLD, REC_CP_TOL = 4, 32768, 4, 1e-4
 # (its loss still at REC_CP_TOL)
 XLSTM_CP_LEAF_TOL = 2e-2
 REC_SMOKE_SEQ, REC_SMOKE_STEPS, XLSTM_STEPS = 1024, 3, 3
+# the audio and VLM frontends at full width and depth: musicgen_medium
+# (48 layers, d 1536, 24 heads over 24 KV heads of 64: GQA group 1, 1.36 B
+# parameters held) and internvl2_1b (24 layers, d 896, 14 heads over 2 of
+# 64: group 7, vocab 151655).  The kernels at those heads (D 64) against
+# their plain versions at the main path's shapes; training FRONT_STEPS
+# steps of one SEQ-token sequence; serving the main path's 12 requests
+# with FRONT_GEN tokens each.
+FRONT_HEADS = (("musicgen_medium", 24, 24), ("internvl2_1b", 14, 2))
+FRONT_D, FRONT_STEPS, FRONT_GEN = 64, 3, 32
+# adaptive dispatch and elastic recovery: full-width starcoder2_3b cut to
+# DISPATCH_LAYERS layers on a 2x2 mesh of ranks sharing the card, 4 rows
+# of DISPATCH_SEQ tokens a step; seed DISPATCH_SEED's stream dispatches
+# at CP degrees 1, 2, 2, 2 (found on the host: the dispatcher is numpy).
+# Losses of the 2x2 runs against one rank's run of the same stream,
+# relative: bf16 sums in other orders over 4 optimizer steps.  The ranks
+# move the ZeRO-3 state through host memory (gloo) at each step, degree
+# switch, checkpoint (7.4 GB at 2 layers) and restore: at 4 layers the
+# phase took 500 s of the script's 1200 s, so it runs at 2 layers, the
+# restart at one rank, the shrink and the restart checkpoint every 2
+# steps (the same step-3 restore, one save fewer) and the straggler run
+# 3 steps.
+DISPATCH_MESH, DISPATCH_LAYERS, DISPATCH_SEQ = (2, 2), 2, 4096
+DISPATCH_BATCH, DISPATCH_STEPS, DISPATCH_SEED = 4, 4, 1
+DISPATCH_LOSS_TOL = 1e-2
+DISPATCH_TIMEOUT = 600
+# the 2x2 runs ("{ckpt}" is the run's checkpoint directory)
+DISPATCH_RUNS = (
+    ("dispatch", ()),
+    ("shrink", ("--hosts", "2", "--fail-at", "3:1", "--checkpoint-dir",
+                "{ckpt}", "--ckpt-every", "2")),
+    ("straggle", ("--hosts", "2", "--straggle", "1:2.0", "--steps", "3")))
 
 
 def emit(phase: str, **kw) -> None:
@@ -304,26 +358,26 @@ def bound_ms(read_bytes: int, write_bytes: int, flops: int, dtype: str):
 # ----------------------------------------------------------------------- #
 # kernels: parity and timing
 # ----------------------------------------------------------------------- #
-def dense_case(torch, dtype, gen):
-    q = torch.randn((B, HQ, D), generator=gen, device="cuda").to(dtype)
-    k = torch.randn((B, HKV, S_DENSE, D), generator=gen,
+def dense_case(torch, dtype, gen, hq=HQ, hkv=HKV, d=D):
+    q = torch.randn((B, hq, d), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, hkv, S_DENSE, d), generator=gen,
                     device="cuda").to(dtype)
-    v = torch.randn((B, HKV, S_DENSE, D), generator=gen,
+    v = torch.randn((B, hkv, S_DENSE, d), generator=gen,
                     device="cuda").to(dtype)
     lengths = torch.tensor([-1, 0, S_DENSE - 1, 517, 800, 1023],
                            dtype=torch.int32, device="cuda")
     return q, k, v, lengths
 
 
-def paged_case(torch, dtype, gen):
+def paged_case(torch, dtype, gen, hq=HQ, hkv=HKV, d=D):
     """Pool of 6 * 66 + 8 blocks of 16; tables drawn from a shuffled
     pool, row 1 sharing row 0's first two blocks, table slots past each
     length left 0, and an empty row."""
     nk = S_DENSE // BLOCK
     nb = B * nk + 8
-    k_pool = torch.randn((HKV, nb * BLOCK, D), generator=gen,
+    k_pool = torch.randn((hkv, nb * BLOCK, d), generator=gen,
                          device="cuda").to(dtype)
-    v_pool = torch.randn((HKV, nb * BLOCK, D), generator=gen,
+    v_pool = torch.randn((hkv, nb * BLOCK, d), generator=gen,
                          device="cuda").to(dtype)
     lengths = [1000, 700, S_DENSE - 1, 0, 333, -1]
     perm = torch.randperm(nb, generator=gen, device="cuda").cpu().tolist()
@@ -332,25 +386,25 @@ def paged_case(torch, dtype, gen):
         need = ln // BLOCK + 1 if ln >= 0 else 0
         tables[b, :need] = torch.tensor(perm[b * nk:b * nk + need])
     tables[1, :2] = tables[0, :2]
-    q = torch.randn((B, HQ, D), generator=gen, device="cuda").to(dtype)
+    q = torch.randn((B, hq, d), generator=gen, device="cuda").to(dtype)
     return (q, k_pool, v_pool,
             torch.tensor(lengths, dtype=torch.int32, device="cuda"),
             tables.to("cuda"))
 
 
-def paged_split(torch, tables):
+def paged_split(torch, tables, hkv=HKV):
     """The (pages_per_split, n_split) the paged wrapper picks here."""
     from repro_torch.kernels import flash_decode as fd
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return fd.paged_split_plan(B, HKV, tables.shape[1], BLOCK, sms)
+    return fd.paged_split_plan(B, hkv, tables.shape[1], BLOCK, sms)
 
 
-def dense_split(torch, S):
+def dense_split(torch, S, hkv=HKV):
     """The (pages_per_split, n_split) the dense wrapper picks here, over
     tiles of fd.DENSE_TILE positions."""
     from repro_torch.kernels import flash_decode as fd
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return fd.dense_split_plan(B, HKV, S, sms)
+    return fd.dense_split_plan(B, hkv, S, sms)
 
 
 def achieved(ms: float, nbytes: int, flops: int, bms: float) -> dict:
@@ -363,8 +417,63 @@ def visible_positions(lengths) -> int:
     return int(sum(max(int(x) + 1, 0) for x in lengths.tolist()))
 
 
-def kernel_phase(torch, timer, quick: bool) -> dict:
+def decode_times(torch, timer, gen, hq=HQ, hkv=HKV, d=D, *,
+                 normalized: bool = True, phase: str = "kernel_time",
+                 **tag) -> dict:
+    """bf16 times of the decode kernels at (hq, hkv, d) on the serving
+    batch (the dense kernel in partial mode, with ``normalized`` also
+    normalized, and the paged kernel), each beside its bound, its plain
+    version and one SDPA call; emitted as ``phase`` lines with ``tag``."""
     import torch.nn.functional as F
+    from repro_torch.kernels import flash_decode as fd
+
+    dt, esize = torch.bfloat16, 2
+    q, k, v, ln = dense_case(torch, dt, gen, hq, hkv, d)
+    qp, kp, vp, lp, tp = paged_case(torch, dt, gen, hq, hkv, d)
+    kv_view = fd.gather_paged_kv(kp, tp, BLOCK), fd.gather_paged_kv(vp, tp,
+                                                                    BLOCK)
+    pos = torch.arange(S_DENSE, device="cuda")
+
+    def sdpa(qq, kk, vv, lens):
+        mask = (pos[None, :] <= lens[:, None].long())[:, None, None, :]
+        return F.scaled_dot_product_attention(qq[:, :, None], kk, vv,
+                                              attn_mask=mask,
+                                              enable_gqa=True)
+
+    cases = [
+        ("flash_decode",
+         lambda: fd.flash_decode(q, k, v, ln, partial=True),
+         lambda: fd.decode_partial_reference(q, k, v, ln),
+         lambda: sdpa(q, k, v, ln), ln, 0, B * hq * (d + 2) * 4),
+        ("flash_decode_normalized",
+         lambda: fd.flash_decode(q, k, v, ln),
+         lambda: fd.decode_reference(q, k, v, ln),
+         lambda: sdpa(q, k, v, ln), ln, 0, B * hq * d * esize),
+        ("flash_decode_paged",
+         lambda: fd.flash_decode_paged(qp, kp, vp, lp, tp,
+                                       block_size=BLOCK),
+         lambda: fd.paged_decode_reference(qp, kp, vp, lp, tp,
+                                           block_size=BLOCK),
+         lambda: sdpa(qp, *kv_view, lp), lp, tp.numel() * 4,
+         B * hq * d * esize)]
+    times = {}
+    for name, call, plain, lib, lens, extra_in, out_b in cases:
+        if name == "flash_decode_normalized" and not normalized:
+            continue
+        vis = visible_positions(lens)
+        read = (B * hq * d + 2 * vis * hkv * d) * esize + B * 4 + extra_in
+        flops = 4 * vis * hq * d
+        bms, by = bound_ms(read, out_b, flops, "bfloat16")
+        ms = timer(call)
+        times[name] = {"ms": ms, "plain_ms": timer(plain),
+                       "library_ms": timer(lib), "bound_ms": bms,
+                       "bound_by": by, "bytes": read + out_b,
+                       **achieved(ms, read + out_b, flops, bms)}
+        emit(phase, **tag, name=name, dtype="bfloat16", **times[name])
+    return times
+
+
+def kernel_phase(torch, timer, quick: bool) -> dict:
     from repro_torch.core.merge import finalize_partial
     from repro_torch.kernels import flash_decode as fd
 
@@ -436,47 +545,7 @@ def kernel_phase(torch, timer, quick: bool) -> dict:
         return {"err": err}
 
     # times at the same shapes in the model dtype (bf16)
-    dt, esize = torch.bfloat16, 2
-    q, k, v, ln = dense_case(torch, dt, gen)
-    qp, kp, vp, lp, tp = paged_case(torch, dt, gen)
-    kv_view = fd.gather_paged_kv(kp, tp, BLOCK), fd.gather_paged_kv(vp, tp,
-                                                                    BLOCK)
-    pos = torch.arange(S_DENSE, device="cuda")
-
-    def sdpa(qq, kk, vv, lens):
-        mask = (pos[None, :] <= lens[:, None].long())[:, None, None, :]
-        return F.scaled_dot_product_attention(qq[:, :, None], kk, vv,
-                                              attn_mask=mask,
-                                              enable_gqa=True)
-
-    times = {}
-    for name, call, plain, lib, lens, extra_in, out_b in (
-            ("flash_decode",
-             lambda: fd.flash_decode(q, k, v, ln, partial=True),
-             lambda: fd.decode_partial_reference(q, k, v, ln),
-             lambda: sdpa(q, k, v, ln), ln, 0, B * HQ * (D + 2) * 4),
-            ("flash_decode_normalized",
-             lambda: fd.flash_decode(q, k, v, ln),
-             lambda: fd.decode_reference(q, k, v, ln),
-             lambda: sdpa(q, k, v, ln), ln, 0, B * HQ * D * esize),
-            ("flash_decode_paged",
-             lambda: fd.flash_decode_paged(qp, kp, vp, lp, tp,
-                                           block_size=BLOCK),
-             lambda: fd.paged_decode_reference(qp, kp, vp, lp, tp,
-                                               block_size=BLOCK),
-             lambda: sdpa(qp, *kv_view, lp), lp, tp.numel() * 4,
-             B * HQ * D * esize)):
-        vis = visible_positions(lens)
-        read = (B * HQ * D + 2 * vis * HKV * D) * esize + B * 4 + extra_in
-        flops = 4 * vis * HQ * D
-        bms, by = bound_ms(read, out_b, flops, "bfloat16")
-        ms = timer(call)
-        times[name] = {"ms": ms, "plain_ms": timer(plain),
-                       "library_ms": timer(lib), "bound_ms": bms,
-                       "bound_by": by, "bytes": read + out_b,
-                       **achieved(ms, read + out_b, flops, bms)}
-        emit("kernel_time", name=name, dtype="bfloat16", **times[name])
-    return {"err": err, "times": times}
+    return {"err": err, "times": decode_times(torch, timer, gen)}
 
 
 # ----------------------------------------------------------------------- #
@@ -514,15 +583,16 @@ def read_counts() -> dict:
 
 
 def serve_run(torch, cfg, params, layout, prompts, gen, device="cuda",
-              **kw):
+              frames=None, **kw):
     from repro_torch.serve import ServeEngine
 
     max_len = max(len(p) for p in prompts) + gen
     eng = ServeEngine(cfg, params, device=device, kv_layout=layout,
                       max_len=max_len, prefix_cache=True, **kw)
     eng.warmup()
-    for p in prompts:
-        eng.submit(p, max_new=gen)
+    for i, p in enumerate(prompts):
+        eng.submit(p, max_new=gen,
+                   frames=None if frames is None else frames[i])
     if device == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -710,9 +780,9 @@ def visits_of(batch) -> int:
     return int(((flags & 4) != 0).sum())
 
 
-def doc_inputs(torch, gen, dtype):
-    shape_q = (1, T_HQ, SEQ, T_D)
-    shape_k = (1, T_HKV, SEQ, T_D)
+def doc_inputs(torch, gen, dtype, hq=T_HQ, hkv=T_HKV, d=T_D):
+    shape_q = (1, hq, SEQ, d)
+    shape_k = (1, hkv, SEQ, d)
     return [torch.randn(s, generator=gen, device="cuda").to(dtype)
             for s in (shape_q, shape_k, shape_k, shape_q)]
 
@@ -721,14 +791,80 @@ def _err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
+def doc_times(torch, timer, gen, hq=T_HQ, hkv=T_HKV, d=T_D, *,
+              phase: str = "kernel_time", **tag) -> dict:
+    """bf16 times of the three doc kernels at (hq, hkv, d) on the main
+    path's schedule (flat grid, an unpadded SEQ-token batch), bounds from
+    this batch's visited blocks, each beside its plain version and SDPA;
+    emitted as ``phase`` lines with ``tag``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import doc_attention as da
+    from repro_torch.kernels.ref import doc_mask
+
+    batch = doc_batch()
+    meta = [batch[k] for k in ("doc", "pos", "doc", "pos")]
+    fwd_t, rev_t = doc_tables(batch, "flat")
+    q, k, v, do = doc_inputs(torch, gen, torch.bfloat16, hq, hkv, d)
+    kw = dict(scale=d ** -0.5, block_q=T_BLOCK, block_k=T_BLOCK,
+              grid="flat")
+    o, lse = da.flash_fwd(q, k, v, *meta, fwd_t, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    visits = visits_of(batch)
+    mask = doc_mask(batch["doc"], batch["pos"], batch["doc"],
+                    batch["pos"])[:, None]
+    qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    sd_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                            enable_gqa=True)
+    lib = {"flash_fwd": lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=True)}
+    lib["flash_bwd_dq"] = lib["flash_bwd_dkv"] = lambda: torch.autograd.grad(
+        sd_out, (qg, kg, vg), do, retain_graph=True)
+    nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
+    qkv_b = nbytes(q, k, v)
+    meta_b = nbytes(*meta)
+    calls = {
+        "flash_fwd": (lambda: da.flash_fwd(q, k, v, *meta, fwd_t, **kw),
+                      lambda: da.flash_fwd_plain(q, k, v, *meta, fwd_t,
+                                                 **kw),
+                      qkv_b + meta_b + nbytes(*fwd_t), nbytes(o, lse)),
+        "flash_bwd_dq": (
+            lambda: da.flash_bwd_dq(q, k, v, do, lse, delta, *meta, fwd_t,
+                                    **kw),
+            lambda: da.flash_bwd_dq_plain(q, k, v, do, lse, delta, *meta,
+                                          fwd_t, **kw),
+            qkv_b + nbytes(do, lse, delta) + meta_b + nbytes(*fwd_t),
+            nbytes(q)),
+        "flash_bwd_dkv": (
+            lambda: da.flash_bwd_dkv(q, k, v, do, lse, delta, *meta, rev_t,
+                                     **kw),
+            lambda: da.flash_bwd_dkv_plain(q, k, v, do, lse, delta, *meta,
+                                           rev_t, **kw),
+            qkv_b + nbytes(do, lse, delta) + meta_b + nbytes(*rev_t),
+            nbytes(k, v))}
+    times = {}
+    for name, (call, plain, rb, wb) in calls.items():
+        flops = visits * hq * MATMULS[name] * 2 * T_BLOCK * T_BLOCK * d
+        bms, by = bound_ms(rb, wb, flops, "bfloat16")
+        ms = timer(call, reps=20)
+        times[name] = {"ms": ms, "plain_ms": timer(plain, reps=20),
+                       "library_ms": timer(lib[name], reps=20),
+                       "bound_ms": bms, "bound_by": by, "flops": flops,
+                       "bytes": rb + wb, "visits": visits,
+                       **achieved(ms, rb + wb, flops, bms)}
+        emit(phase, **tag, name=name, dtype="bfloat16", **times[name],
+             library=("scaled_dot_product_attention forward"
+                      if name == "flash_fwd" else
+                      "scaled_dot_product_attention backward (dq, dk, dv "
+                      "together; shared by both backward rows)"))
+    return times
+
+
 def doc_kernel_phase(torch, timer, quick: bool) -> dict:
     """Each doc kernel vs its twin on a real batch at the training head
     geometry (Hq 24, Hkv 2, D 128, SEQ tokens, blocks 128): f32 and bf16
     on the flat grid with 300 padding tokens (two empty q-block rows and
     a part-empty one), f32 on the rect grid; then bf16 times."""
-    import torch.nn.functional as F
     from repro_torch.kernels import doc_attention as da
-    from repro_torch.kernels.ref import doc_mask
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4321)
@@ -786,63 +922,7 @@ def doc_kernel_phase(torch, timer, quick: bool) -> dict:
 
     # times in the model dtype on the main path's schedule (flat grid, an
     # unpadded batch), bounds from this batch's visited blocks
-    dt, es = torch.bfloat16, 2
-    batch = doc_batch()
-    meta = [batch[k] for k in ("doc", "pos", "doc", "pos")]
-    fwd_t, rev_t = doc_tables(batch, "flat")
-    q, k, v, do = doc_inputs(torch, gen, dt)
-    kw = dict(scale=T_D ** -0.5, block_q=T_BLOCK, block_k=T_BLOCK,
-              grid="flat")
-    o, lse = da.flash_fwd(q, k, v, *meta, fwd_t, **kw)
-    delta = (do.float() * o.float()).sum(-1)
-    visits = visits_of(batch)
-    mask = doc_mask(batch["doc"], batch["pos"], batch["doc"],
-                    batch["pos"])[:, None]
-    qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
-    sd_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
-                                            enable_gqa=True)
-    lib = {"flash_fwd": lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask, enable_gqa=True)}
-    lib["flash_bwd_dq"] = lib["flash_bwd_dkv"] = lambda: torch.autograd.grad(
-        sd_out, (qg, kg, vg), do, retain_graph=True)
-    nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
-    qkv_b = nbytes(q, k, v)
-    meta_b = nbytes(*meta)
-    calls = {
-        "flash_fwd": (lambda: da.flash_fwd(q, k, v, *meta, fwd_t, **kw),
-                      lambda: da.flash_fwd_plain(q, k, v, *meta, fwd_t,
-                                                 **kw),
-                      qkv_b + meta_b + nbytes(*fwd_t), nbytes(o, lse)),
-        "flash_bwd_dq": (
-            lambda: da.flash_bwd_dq(q, k, v, do, lse, delta, *meta, fwd_t,
-                                    **kw),
-            lambda: da.flash_bwd_dq_plain(q, k, v, do, lse, delta, *meta,
-                                          fwd_t, **kw),
-            qkv_b + nbytes(do, lse, delta) + meta_b + nbytes(*fwd_t),
-            nbytes(q)),
-        "flash_bwd_dkv": (
-            lambda: da.flash_bwd_dkv(q, k, v, do, lse, delta, *meta, rev_t,
-                                     **kw),
-            lambda: da.flash_bwd_dkv_plain(q, k, v, do, lse, delta, *meta,
-                                           rev_t, **kw),
-            qkv_b + nbytes(do, lse, delta) + meta_b + nbytes(*rev_t),
-            nbytes(k, v))}
-    times = {}
-    for name, (call, plain, rb, wb) in calls.items():
-        flops = visits * T_HQ * MATMULS[name] * 2 * T_BLOCK * T_BLOCK * T_D
-        bms, by = bound_ms(rb, wb, flops, "bfloat16")
-        ms = timer(call, reps=20)
-        times[name] = {"ms": ms, "plain_ms": timer(plain, reps=20),
-                       "library_ms": timer(lib[name], reps=20),
-                       "bound_ms": bms, "bound_by": by, "flops": flops,
-                       "bytes": rb + wb, "visits": visits,
-                       **achieved(ms, rb + wb, flops, bms)}
-        emit("kernel_time", name=name, dtype="bfloat16", **times[name],
-             library=("scaled_dot_product_attention forward"
-                      if name == "flash_fwd" else
-                      "scaled_dot_product_attention backward (dq, dk, dv "
-                      "together; shared by both backward rows)"))
-    return {"err": err, "times": times}
+    return {"err": err, "times": doc_times(torch, timer, gen)}
 
 
 def cp_batch(cp: int, strategy: str = "flashcp", overlap: str = "chunked",
@@ -1050,7 +1130,7 @@ def cp_island_rank(rank, world, backend, store, out_dir, ref_path, cases):
         dist.destroy_process_group()
 
 
-def run_ranks(torch, fn, world: int, *args) -> list:
+def run_ranks(torch, fn, world: int, *args, timeout=RANK_TIMEOUT) -> list:
     """Spawn ``world`` ranks of ``fn`` on this host (the kernels are
     built already); their JSON results, by rank."""
     import tempfile
@@ -1059,7 +1139,7 @@ def run_ranks(torch, fn, world: int, *args) -> list:
     backend = cp_backend(torch, world)
     with tempfile.TemporaryDirectory() as tmp:
         spawn_ranks(fn, world, args=(world, backend, f"{tmp}/store", tmp,
-                                     *args), timeout=RANK_TIMEOUT)
+                                     *args), timeout=timeout)
         out = []
         for r in range(world):
             with open(Path(tmp) / f"rank{r}.json") as f:
@@ -3236,6 +3316,462 @@ def _to(tree, device):
     return tree.to(device)
 
 
+# ----------------------------------------------------------------------- #
+# the audio and VLM frontends: musicgen_medium and internvl2_1b
+# ----------------------------------------------------------------------- #
+def frontend_inputs(cfg, perm, seed: int) -> dict:
+    """The family's frontend keys for a batch in plan order ``perm`` (B,
+    C): embeddings drawn from ``seed`` in natural token order and put
+    through ``perm`` as the pipeline puts tokens (padding zeros); the
+    first ``num_patch_tokens`` natural positions of a row are patches.
+    No data source of the repo makes these inputs."""
+    import numpy as np
+    if cfg.frontend == "none":
+        return {}
+    rng = np.random.default_rng(seed)
+    valid = perm >= 0
+    emb = rng.standard_normal((*perm.shape, cfg.d_model)).astype(np.float32)
+    plan = np.take_along_axis(emb, np.where(valid, perm, 0)[..., None],
+                              axis=1)
+    plan[~valid] = 0.0
+    if cfg.frontend == "audio_frames":
+        return {"frame_embeds": plan}
+    return {"patch_embeds": plan,
+            "patch_mask": valid & (perm < cfg.num_patch_tokens)}
+
+
+def decode_kernel_checks(torch, timer, gen, hq, hkv, d, tag) -> dict:
+    """Both decode kernels at (hq, hkv, d) on the serving batch of B rows
+    (lengths <= S_DENSE): f32 and bf16 against their plain versions and
+    split twins; bf16 times beside the bound, the plain version and one
+    SDPA call."""
+    from repro_torch.core.merge import finalize_partial
+    from repro_torch.kernels import flash_decode as fd
+
+    err = {"flash_decode": 0.0, "flash_decode_paged": 0.0}
+    for name in ("float32", "bfloat16"):
+        dtype, tol = getattr(torch, name), TOL[name]
+        q, k, v, ln = dense_case(torch, dtype, gen, hq, hkv, d)
+        out = fd.flash_decode(q, k, v, ln)
+        o, m, l = fd.flash_decode(q, k, v, ln, partial=True)
+        torch.cuda.synchronize()
+        ref = fd.decode_reference(q, k, v, ln)
+        e_norm = _err(out, ref)
+        e_part = _err(finalize_partial((o, m, l), torch.float32), ref)
+        dpps, _ = dense_split(torch, S_DENSE, hkv)
+        tw = fd.decode_split_plain(q, k, v, ln, tile=fd.DENSE_TILE,
+                                   pages_per_split=dpps, partial=True)
+        e_dtwin = _err(finalize_partial((o, m, l), torch.float32),
+                       finalize_partial(tw, torch.float32))
+        qp, kp, vp, lp, tp = paged_case(torch, dtype, gen, hq, hkv, d)
+        outp = fd.flash_decode_paged(qp, kp, vp, lp, tp, block_size=BLOCK)
+        torch.cuda.synchronize()
+        e_paged = _err(outp, fd.paged_decode_reference(
+            qp, kp, vp, lp, tp, block_size=BLOCK))
+        pps, _ = paged_split(torch, tp, hkv)
+        e_ptwin = _err(outp, fd.paged_decode_split_plain(
+            qp, kp, vp, lp, tp, block_size=BLOCK, pages_per_split=pps))
+        emit("frontend_decode_parity", arch=tag, heads=f"{hq}/{hkv}", d=d,
+             dtype=name, tol=tol, flash_decode_err=e_norm,
+             flash_decode_partial_err=e_part,
+             flash_decode_vs_split_twin_err=e_dtwin,
+             flash_decode_paged_err=e_paged,
+             flash_decode_paged_vs_split_twin_err=e_ptwin)
+        if max(e_norm, e_part, e_dtwin, e_paged, e_ptwin) > tol:
+            raise AssertionError(f"decode kernels at {hq}/{hkv} heads, D "
+                                 f"{d}, {name}: parity failed")
+        err["flash_decode"] = max(err["flash_decode"], e_norm, e_part,
+                                  e_dtwin)
+        err["flash_decode_paged"] = max(err["flash_decode_paged"], e_paged,
+                                        e_ptwin)
+    return {"err": err, "times": decode_times(
+        torch, timer, gen, hq, hkv, d, normalized=False,
+        phase="frontend_kernel_time", arch=tag, heads=f"{hq}/{hkv}",
+        head_dim=d)}
+
+
+def doc_kernel_checks(torch, timer, gen, hq, hkv, d, tag) -> dict:
+    """The three doc kernels at (hq, hkv, d) on one SEQ-token wlb_llm
+    sequence (blocks 128, flat tables): f32 and bf16 against their twins
+    on the batch with 300 padding tokens; bf16 times on the unpadded one
+    beside the bound, the twin and SDPA."""
+    from repro_torch.kernels import doc_attention as da
+
+    err = {n: 0.0 for n in DOC_KERNELS}
+    kw = dict(scale=d ** -0.5, block_q=T_BLOCK, block_k=T_BLOCK,
+              grid="flat")
+    for name in ("float32", "bfloat16"):
+        dtype, tol = getattr(torch, name), DOC_TOL[name]
+        batch = doc_batch(pad=300)
+        meta = [batch[x] for x in ("doc", "pos", "doc", "pos")]
+        fwd_t, rev_t = doc_tables(batch, "flat")
+        q, k, v, do = doc_inputs(torch, gen, dtype, hq, hkv, d)
+        o, lse = da.flash_fwd(q, k, v, *meta, fwd_t, **kw)
+        po, plse = da.flash_fwd_plain(q, k, v, *meta, fwd_t, **kw)
+        fin = ~torch.isinf(plse)
+        e_o = _err(o, po)
+        e_lse = (lse[fin] - plse[fin]).abs().max().item()
+        delta = (do.float() * po.float()).sum(-1)
+        dq = da.flash_bwd_dq(q, k, v, do, plse, delta, *meta, fwd_t, **kw)
+        dk, dv = da.flash_bwd_dkv(q, k, v, do, plse, delta, *meta, rev_t,
+                                  **kw)
+        torch.cuda.synchronize()
+        pdq = da.flash_bwd_dq_plain(q, k, v, do, plse, delta, *meta, fwd_t,
+                                    **kw)
+        pdk, pdv = da.flash_bwd_dkv_plain(q, k, v, do, plse, delta, *meta,
+                                          rev_t, **kw)
+        grads = {"dq": (dq, pdq), "dk": (dk, pdk), "dv": (dv, pdv)}
+        rel = {n: _err(a, b) / max(b.float().abs().max().item(), 1e-30)
+               for n, (a, b) in grads.items()}
+        dkv_tol = DKV_BF16_TOL if name == "bfloat16" else tol
+        emit("frontend_doc_parity", arch=tag, heads=f"{hq}/{hkv}", d=d,
+             dtype=name, tol=tol, dkv_tol=dkv_tol, o_err=e_o, lse_err=e_lse,
+             grad_rel_err=rel)
+        if max(e_o, e_lse, rel["dq"]) > tol \
+                or max(rel["dk"], rel["dv"]) > dkv_tol:
+            raise AssertionError(f"doc kernels at {hq}/{hkv} heads, D {d}, "
+                                 f"{name}: parity failed")
+        err["flash_fwd"] = max(err["flash_fwd"], e_o)
+        err["flash_bwd_dq"] = max(err["flash_bwd_dq"], _err(dq, pdq))
+        err["flash_bwd_dkv"] = max(err["flash_bwd_dkv"], _err(dk, pdk),
+                                   _err(dv, pdv))
+        del q, k, v, do, o, po, dq, dk, dv, pdq, pdk, pdv, grads
+    return {"err": err, "times": doc_times(
+        torch, timer, gen, hq, hkv, d, phase="frontend_kernel_time",
+        arch=tag, heads=f"{hq}/{hkv}", head_dim=d)}
+
+
+def frontend_kernels_phase(torch, timer) -> dict:
+    """All five kernels at the frontends' heads, D 64: musicgen's 24 query
+    heads over 24 KV heads (group 1) and internvl's 14 over 2 (group 7,
+    an odd group for dK/dV's sum over the group)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2024)
+    out = {}
+    for arch, hq, hkv in FRONT_HEADS:
+        out[arch] = {
+            "decode": decode_kernel_checks(torch, timer, gen, hq, hkv,
+                                           FRONT_D, arch),
+            "doc": doc_kernel_checks(torch, timer, gen, hq, hkv, FRONT_D,
+                                     arch)}
+    return out
+
+
+def frontend_train_phase(torch, arch: str) -> dict:
+    """``arch`` at full width and depth, bf16 with an fp32 master, through
+    ``build_train_step`` (the CLI refuses the family: no data source makes
+    its inputs) for FRONT_STEPS steps of one SEQ-token wlb_llm sequence,
+    the frontend keys drawn from the seed in plan order: finite losses
+    and layers x (2, 1, 1) doc-kernel launches each step."""
+    import math
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.data.pipeline import PipelineConfig, make_batch
+    from repro_torch.launch.steps import batch_to_device, build_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+
+    cfg = get_config(arch)
+    L = cfg.num_layers
+    params = init_params(cfg, seed=0, device="cuda")
+    opt = adamw_init(params)
+    step_fn = build_train_step(
+        cfg, RunConfig(arch=arch, total_steps=FRONT_STEPS, warmup_steps=1),
+        device="cuda")
+    pipe = PipelineConfig(dataset="wlb_llm", context_len=SEQ,
+                          batch_per_host=1, cp_size=1,
+                          vocab_size=cfg.vocab_size, align=T_BLOCK,
+                          emit_tables=True)
+    want = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s, launches = [], [], []
+    for step in range(FRONT_STEPS):
+        batch = make_batch(pipe, step)
+        batch.update(frontend_inputs(cfg, batch["perm"], seed=100 + step))
+        batch = batch_to_device(batch, "cuda")
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = step_fn(params, opt, batch, step)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        launches.append(read_counts())
+    mean_s = statistics.mean(step_s[1:])
+    out = {"arch": arch, "params": sum(x.numel() for x in
+                                       _tree_leaves(params)),
+           "layers": L, "seq_len": SEQ, "steps": FRONT_STEPS,
+           "losses": losses, "step_s": step_s, "step_s_after_first": mean_s,
+           "tokens_per_s": SEQ / mean_s,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "launches_per_step": launches, "expected_launches": want}
+    emit(f"{arch}_train", **out)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{arch}: non-finite training losses")
+    if any(c[n] != want[n] for c in launches for n in want):
+        raise AssertionError(f"{arch}: launches {launches}, want {want}")
+    return out
+
+
+def _tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tree_leaves(tree[k])]
+    return [tree]
+
+
+def frontend_frames(cfg, prompts, seed: int):
+    """Each audio prompt's own frame embeddings (None for a token
+    family)."""
+    import numpy as np
+    if cfg.frontend != "audio_frames":
+        return None
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((len(p), cfg.d_model)).astype(np.float32)
+            for p in prompts]
+
+
+def frontend_serve_phase(torch, arch: str) -> dict:
+    """``arch`` at full width and depth serving the main path's 12
+    requests on 6 slots (the audio prompts with their own frames), paged
+    and dense: every request ok, the layout's decode kernel launched
+    decode steps x layers times; paged vs dense identical requests
+    reported; then the smoke-width f32 model on the card and on the CPU:
+    the same greedy tokens on both layouts."""
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.models import init_params
+
+    cfg = get_config(arch)
+    params = init_params(cfg, seed=0, device="cuda")
+    prompts = requests(cfg)
+    frames = frontend_frames(cfg, prompts, seed=7)
+    kw = dict(num_slots=6, prefill_chunk=128, block_size=16)
+    tokens, out = {}, {}
+    for layout, kernel in (("paged", "flash_decode_paged"),
+                           ("dense", "flash_decode")):
+        eng, res, launches, wall, peak = serve_run(
+            torch, cfg, params, layout, prompts, FRONT_GEN, frames=frames,
+            **kw)
+        s = eng.stats
+        want = s["decode_steps"] * cfg.num_layers
+        tp = eng.throughput()
+        out[layout] = {"wall_s": wall, **tp, "peak_bytes": peak,
+                       "launches": launches[kernel],
+                       "expected_launches": want,
+                       "prefill_cached_tokens": s["prefill_cached_tokens"],
+                       "latency": eng.latency_percentiles()}
+        emit(f"{arch}_serve_{layout}", **out[layout])
+        if launches[kernel] != want or not want:
+            raise AssertionError(f"{arch} {layout}: {kernel} launched "
+                                 f"{launches[kernel]} times, want {want}")
+        if frames is not None and s["prefill_cached_tokens"]:
+            raise AssertionError(f"{arch}: audio prompts shared KV blocks")
+        tokens[layout] = {r: e["tokens"] for r, e in res.items()}
+        del eng
+    agree = sum(int((tokens["paged"][r] == tokens["dense"][r]).all())
+                for r in tokens["paged"])
+    emit(f"{arch}_paged_vs_dense_tokens", identical_requests=agree,
+         of=len(prompts))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    small = reduce_for_smoke(cfg)
+    p_cpu = init_params(small, seed=3, device="cpu")
+    p_gpu = _to(p_cpu, "cuda")
+    sp = requests(small, n=6, lo=20, hi=60, prefix=16, seed=4)
+    sf = frontend_frames(small, sp, seed=8)
+    skw = dict(num_slots=3, prefill_chunk=16, block_size=16)
+    for layout in ("paged", "dense"):
+        toks = {}
+        for dev, prm in (("cuda", p_gpu), ("cpu", p_cpu)):
+            _, res, launches, _, _ = serve_run(torch, small, prm, layout, sp,
+                                               12, device=dev, frames=sf,
+                                               **skw)
+            toks[dev] = {r: e["tokens"].tolist() for r, e in res.items()}
+            if dev == "cuda" and not sum(launches.values()):
+                raise AssertionError("smoke serving launched no kernel")
+        same = toks["cuda"] == toks["cpu"]
+        emit(f"{arch}_smoke_cuda_vs_cpu_tokens", layout=layout,
+             identical=same)
+        if not same:
+            raise AssertionError(f"{arch} {layout}: cuda and cpu tokens "
+                                 "differ")
+    return out
+
+
+# ----------------------------------------------------------------------- #
+# adaptive dispatch and elastic recovery over ranks sharing the card
+# ----------------------------------------------------------------------- #
+def dispatch_args(*extra):
+    return train_args("--arch", ARCH, "--layers", str(DISPATCH_LAYERS),
+                      "--seq-len", str(DISPATCH_SEQ), "--batch",
+                      str(DISPATCH_BATCH), "--steps", str(DISPATCH_STEPS),
+                      "--seed", str(DISPATCH_SEED), "--device", "cuda",
+                      "--dispatch", "--dispatch-bin-quantum",
+                      str(DISPATCH_MESH[1]), "--log-every", "1", *extra)
+
+
+def dispatch_launches(degrees) -> dict:
+    """Each doc kernel's launches on one rank over steps at CP
+    ``degrees``: layers x degree x (2, 1, 1) a step (local + hops,
+    the forward twice under remat)."""
+    per = {"flash_fwd": 2, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    return {n: sum(DISPATCH_LAYERS * g * k for g in degrees)
+            for n, k in per.items()}
+
+
+def dispatch_rank(rank, world, backend, store, out_dir, ckpt_root):
+    """One rank of the 2x2 runs, one after the other in this process:
+    the dispatched run, the run that loses host 1 at step 3 and the run
+    with host 1 twice as slow; each run's outcome, launch counts and
+    peak memory."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.ranks import init_rank
+
+    _, dev = init_rank(rank, world, backend, store, "cuda")
+    try:
+        mesh = make_local_mesh(*DISPATCH_MESH, device_type="cuda")
+        out = {"rank": rank}
+        for name, extra in DISPATCH_RUNS:
+            extra = [x.replace("{ckpt}", f"{ckpt_root}/{name}")
+                     for x in extra]
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_counts()
+            t0 = time.perf_counter()
+            res = train(dispatch_args("--mesh", "x".join(map(str,
+                                                              DISPATCH_MESH)),
+                                      "--dist-backend", backend, *extra),
+                        mesh=mesh, device=dev)
+            counts = read_counts()
+            out[name] = {
+                "wall_s": time.perf_counter() - t0,
+                "launches": {n: counts[n] for n in DOC_KERNELS},
+                "peak_bytes": torch.cuda.max_memory_allocated(dev),
+                **{k: res[k] for k in (
+                    "losses", "step_s", "degrees", "targets", "mesh",
+                    "accum", "dead_hosts", "recoveries", "left",
+                    "degree_switches", "final_step")},
+                "placements": [[d["cp_degree"], d["group_tokens"],
+                                d.get("group_speeds")]
+                               for d in res["dispatch"]]}
+            del res
+        with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def dispatch_phase(torch) -> dict:
+    """``--dispatch`` and the elastic supervisor on full-width
+    starcoder2_3b cut to DISPATCH_LAYERS layers, bf16, 4 rows of
+    DISPATCH_SEQ tokens a step, seed DISPATCH_SEED (whose CP degrees are
+    1, 2, 2, 2: the ranks reshard at the switch), on a 2x2 mesh of
+    ranks sharing the card; bins packed alike at every degree, so the
+    data do not depend on the degree.  Gates: the dispatched run switches
+    degree and its losses match one rank's run of the same stream
+    (DISPATCH_LOSS_TOL); each rank's doc-kernel launches are those of
+    its degrees; the run that loses host 1 (ranks 2, 3) at step 3 shrinks
+    to 1x2 with accum 2 and matches the dispatched run; the one-rank run
+    restarted at step 3 from its checkpoint matches the one-rank run;
+    under --straggle 1:2.0 every rank makes rank 0's targets and
+    placements, and none hangs."""
+    import math
+    import tempfile
+
+    def one_rank(*extra) -> dict:
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = train(dispatch_args("--mesh", "1x1", *extra))
+        out = {"wall_s": time.perf_counter() - t0,
+               "launches": {n: read_counts()[n] for n in DOC_KERNELS},
+               "peak_bytes": torch.cuda.max_memory_allocated(),
+               **{k: res[k] for k in ("losses", "step_s", "degrees",
+                                      "recoveries")}}
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    one_out = one_rank()
+    emit("dispatch_one_rank", **one_out)
+    if one_out["launches"] != dispatch_launches(one_out["degrees"]):
+        raise AssertionError(f"one rank launched {one_out['launches']}")
+    with tempfile.TemporaryDirectory() as ckpt:
+        restart = one_rank("--fail-at", "3", "--checkpoint-dir", ckpt,
+                           "--ckpt-every", "2")
+    restart["loss_rel_diff"] = max(
+        abs(x - y) / abs(y) for x, y in zip(restart["losses"],
+                                            one_out["losses"]))
+    emit("dispatch_restart", **restart, tol=DISPATCH_LOSS_TOL)
+    if restart["recoveries"] != 1 \
+            or len(restart["losses"]) != len(one_out["losses"]) \
+            or restart["loss_rel_diff"] > DISPATCH_LOSS_TOL:
+        raise AssertionError(f"restart: {restart}")
+    world = DISPATCH_MESH[0] * DISPATCH_MESH[1]
+    with tempfile.TemporaryDirectory() as ckpt_root:
+        t0 = time.perf_counter()
+        ranks = run_ranks(torch, dispatch_rank, world, ckpt_root,
+                          timeout=DISPATCH_TIMEOUT)
+    ranks_s = time.perf_counter() - t0
+
+    def rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    ref = one_out["losses"]
+    res = {"ranks_s": ranks_s, "one_rank": one_out, "restart": restart}
+    for name, _ in DISPATCH_RUNS:
+        r0 = ranks[0][name]
+        res[name] = {k: r0[k] for k in (
+            "wall_s", "losses", "step_s", "degrees", "targets", "mesh",
+            "accum", "dead_hosts", "recoveries", "degree_switches",
+            "peak_bytes", "launches")}
+        res[name]["loss_rel_diff"] = rel(r0["losses"], ref) \
+            if len(r0["losses"]) == len(ref) else None
+        emit(f"dispatch_{name}", **res[name], tol=DISPATCH_LOSS_TOL,
+             left=[x[name]["left"] for x in ranks],
+             peak_bytes_by_rank=[x[name]["peak_bytes"] for x in ranks])
+        if not all(math.isfinite(x) for x in r0["losses"]):
+            raise AssertionError(f"{name}: non-finite losses")
+    d = ranks[0]["dispatch"]
+    if d["degree_switches"] < 1 or len(set(d["degrees"])) < 2:
+        raise AssertionError(f"dispatch switched no degree: {d['degrees']}")
+    for name in ("dispatch", "shrink"):
+        r = res[name]
+        if r["loss_rel_diff"] is None \
+                or r["loss_rel_diff"] > DISPATCH_LOSS_TOL:
+            raise AssertionError(f"{name}: losses {r['losses']} against one "
+                                 f"rank's {ref}")
+    for x in ranks:
+        for name in ("dispatch", "straggle"):
+            want = dispatch_launches(x[name]["degrees"])
+            if x[name]["launches"] != want:
+                raise AssertionError(f"rank {x['rank']} {name}: launches "
+                                     f"{x[name]['launches']}, want {want}")
+    s = [x["shrink"] for x in ranks]
+    if not (all(tuple(x["mesh"]) == (1, DISPATCH_MESH[1]) and x["accum"] == 2
+                and x["dead_hosts"] == [1] and x["recoveries"] == 1
+                for x in s)
+            and [x["left"] for x in s] == [False, False, True, True]):
+        raise AssertionError(f"shrink: {s}")
+    st = [x["straggle"] for x in ranks]
+    if any(x[k] != st[0][k] for x in st for k in ("degrees", "targets",
+                                                  "placements")) \
+            or not any(p[2] for p in st[0]["placements"]):
+        raise AssertionError("straggle: the ranks decided differently")
+    return res
+
+
+def timed(fn, *args):
+    """``fn(*args)``, its wall time emitted as a ``phase_seconds`` line."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    emit("phase_seconds", name=fn.__name__, seconds=time.perf_counter() - t0)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -3267,62 +3803,75 @@ def main() -> int:
          sources=[KERNEL_SOURCE, DOC_SOURCE])
 
     timer = Timer(torch)
-    kern = kernel_phase(torch, timer, args.quick)
-    doc = doc_kernel_phase(torch, timer, args.quick)
+    kern = timed(kernel_phase, torch, timer, args.quick)
+    doc = timed(doc_kernel_phase, torch, timer, args.quick)
     kernels = []
     if not args.quick:
-        serving = main_path_phase(torch)
+        serving = timed(main_path_phase, torch)
         launches = {name: serving[layout]["launches"]
                     for name, layout in (("flash_decode", "dense"),
                                          ("flash_decode_paged", "paged"))}
-        serve_resilience_phase(torch, serving)
-        serve_sharded_phase(torch, serving)
+        timed(serve_resilience_phase, torch, serving)
+        timed(serve_sharded_phase, torch, serving)
         del serving
         gc.collect()
         torch.cuda.empty_cache()
-        smoke_parity_phase(torch)
+        timed(smoke_parity_phase, torch)
         gc.collect()
         torch.cuda.empty_cache()
-        trained, res = train_phase(torch)
+        trained, res = timed(train_phase, torch)
         launches.update({n: trained["launches"][n] for n in DOC_KERNELS})
         res["opt_state"] = None       # the parity step needs no optimizer
         gc.collect()
         torch.cuda.empty_cache()
-        step_parity_phase(torch, res)
+        timed(step_parity_phase, torch, res)
         del res
         gc.collect()
         torch.cuda.empty_cache()
-        smoke_train_phase(torch)
+        timed(smoke_train_phase, torch)
         gc.collect()
         torch.cuda.empty_cache()
-        cp_islands_phase(torch)
-        cp_train_phase(torch)
+        timed(cp_islands_phase, torch)
+        timed(cp_train_phase, torch)
         gc.collect()
         torch.cuda.empty_cache()
-        dp_train_phase(torch)
-        dp_full_phase(torch)
+        timed(dp_train_phase, torch)
+        timed(dp_full_phase, torch)
         gc.collect()
         torch.cuda.empty_cache()
-        moe_serve_phase(torch)
+        timed(moe_serve_phase, torch)
         gc.collect()
         torch.cuda.empty_cache()
-        moe_train_phase(torch)
+        timed(moe_train_phase, torch)
         gc.collect()
         torch.cuda.empty_cache()
-        moe_cp_train_phase(torch)
+        timed(moe_cp_train_phase, torch)
         gc.collect()
         torch.cuda.empty_cache()
-        jamba_serve_phase(torch)
+        timed(jamba_serve_phase, torch)
         gc.collect()
         torch.cuda.empty_cache()
-        jamba_layers_phase(torch)
+        timed(jamba_layers_phase, torch)
         gc.collect()
         torch.cuda.empty_cache()
-        jamba_smoke_phase(torch)
-        xlstm_train_phase(torch)
+        timed(jamba_smoke_phase, torch)
+        timed(xlstm_train_phase, torch)
         gc.collect()
         torch.cuda.empty_cache()
-        xlstm_serve_phase(torch)
+        timed(xlstm_serve_phase, torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        timed(frontend_kernels_phase, torch, timer)
+        for arch, _, _ in FRONT_HEADS:
+            gc.collect()
+            torch.cuda.empty_cache()
+            timed(frontend_train_phase, torch, arch)
+            gc.collect()
+            torch.cuda.empty_cache()
+            timed(frontend_serve_phase, torch, arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        timed(dispatch_phase, torch)
         errs = {**kern["err"], **doc["err"]}
         times = {**kern["times"], **doc["times"]}
         for name in REPLACES:

@@ -1,21 +1,22 @@
-"""Architecture registry of the port: the dense and MoE attention
-stacks, the Jamba hybrid and the xLSTM SSM stack.
-
-The audio and VLM families of the reference are not ported yet, so
-``get_config`` resolves only these eight.
+"""Architecture registry of the port: all ten architectures of the
+reference (the dense and MoE attention stacks, the Jamba hybrid, the
+xLSTM SSM stack, the musicgen audio stack and the internvl VLM
+backbone), resolved by ``--arch`` name.
 """
 
 from __future__ import annotations
 
 from .base import ModelConfig, RunConfig, reduce_for_smoke
 
-from . import (dbrx_132b, granite_34b, jamba_v0_1_52b, olmoe_1b_7b,
-               qwen3_32b, starcoder2_3b, starcoder2_7b, xlstm_350m)
+from . import (dbrx_132b, granite_34b, internvl2_1b, jamba_v0_1_52b,
+               musicgen_medium, olmoe_1b_7b, qwen3_32b, starcoder2_3b,
+               starcoder2_7b, xlstm_350m)
 
 ARCHS: dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG
     for m in (starcoder2_3b, starcoder2_7b, granite_34b, qwen3_32b,
-              olmoe_1b_7b, dbrx_132b, jamba_v0_1_52b, xlstm_350m)
+              olmoe_1b_7b, dbrx_132b, jamba_v0_1_52b, xlstm_350m,
+              musicgen_medium, internvl2_1b)
 }
 
 

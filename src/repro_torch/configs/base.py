@@ -2,8 +2,10 @@
 
 The port's own copy of the part of the JAX package's config system that
 the ported families read: ``ModelConfig`` with the fields of the dense,
-MoE, hybrid (Jamba) and SSM (xLSTM) stacks, the serving and training
-fields of ``RunConfig``, and ``reduce_for_smoke``.
+MoE, hybrid (Jamba), SSM (xLSTM), audio (frame embeddings in place of
+tokens) and VLM (patch embeddings at masked positions) stacks, the
+serving, training and dispatch fields of ``RunConfig``, and
+``reduce_for_smoke``.
 Plain frozen dataclasses; the values of every configuration are the
 same as the reference's.
 """
@@ -43,6 +45,9 @@ class ModelConfig:
     mamba_expand: int = 2
     # --- xLSTM --------------------------------------------------------- #
     slstm_every: int = 0              # 1 sLSTM block per k blocks (rest mLSTM)
+    # --- modality frontend (precomputed embeddings from the batch) ---- #
+    frontend: Literal["none", "audio_frames", "vit_patches"] = "none"
+    num_patch_tokens: int = 256       # vlm: image tokens at sequence start
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"
     tie_embeddings: bool = False
@@ -123,6 +128,12 @@ class RunConfig:
     # kernel schedule: flat = work queue in LPT row order; rect = the
     # padded rectangular visit lists
     kernel_grid: Literal["flat", "rect"] = "flat"
+    # adaptive DP x CP dispatch: "adaptive" re-tiles the mesh into CP
+    # groups of a degree sized per batch and LPT-balances the documents
+    # over them (ragged rows; the loss stays the global masked mean)
+    dispatch: Literal["off", "adaptive"] = "off"
+    dispatch_target_imbalance: float = 1.1
+    dispatch_min_cp: int = 1
     # optimizer
     lr: float = 3e-4
     weight_decay: float = 0.1
@@ -155,8 +166,9 @@ class RunConfig:
 
 def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
     """Shrink a config to smoke-test size, keeping its GQA ratio, its
-    MoE top-k (at most 4 experts, top-2) and its hybrid interleave (one
-    whole period of ``attn_every`` layers)."""
+    MoE top-k (at most 4 experts, top-2), its hybrid interleave (one
+    whole period of ``attn_every`` layers) and its frontend (at most 16
+    patch tokens)."""
     kv = max(1, min(cfg.num_kv_heads, 2))
     heads = max(kv, min(cfg.num_heads, 4))
     heads = (heads // kv) * kv or kv
@@ -172,6 +184,7 @@ def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
         vocab_size=min(cfg.vocab_size, 512),
         num_experts=min(cfg.num_experts, 4),
         top_k=min(cfg.top_k, 2),
+        num_patch_tokens=min(cfg.num_patch_tokens, 16),
         mamba_d_state=8,
         dtype="float32",
     )

@@ -17,11 +17,20 @@ The stream for (seed, dp_rank, step) draws from the same seeded
 of the same planners, so batches match it bit for bit at any CP size
 (the reference with its default planner settings and serial planning).
 The reference's planner knobs are constants here until a caller of the
-port needs another value: the Eq.-5 bucket is chosen per batch, the
-target imbalance is :data:`TARGET_IMBALANCE`, and the plan cache holds
-:data:`PLAN_CACHE_ENTRIES` exact signatures.  :class:`Prefetcher` builds
-the stream ahead on a background thread.  Global dispatch waits for a
-later slice of the port.
+port needs another value: the Eq.-5 bucket is chosen per batch and the
+plan cache holds :data:`PLAN_CACHE_ENTRIES` exact signatures; the target
+imbalance is ``PipelineConfig.target_imbalance`` (the straggler monitor
+tightens it).  :class:`Prefetcher` builds the stream ahead on a
+background thread.
+
+**Global dispatch** (:func:`make_dispatch_batch`, DESIGN.md §Dispatch):
+one seeded pool of documents per global step, which the
+:mod:`repro_torch.dispatch` dispatcher sizes CP groups for and
+LPT-balances over them; rows come group-major, so the batch rows split
+contiguously over the re-tiled mesh's group axis.  Rows are ragged (bins
+keep documents whole): each carries its valid-token count in
+``seq_tokens``, and padding stays masked (``labels == -1``).  Every rank
+builds the same global batch, bit for bit as the reference does.
 """
 
 from __future__ import annotations
@@ -38,13 +47,15 @@ from repro_torch.core.cp_attention import resolve_overlap
 from repro_torch.planner import (PlanCache, emit_visit_tables,
                                  encode_plan_batch, get_planner)
 from .distributions import make_rng
-from .packing import pack_sequence
+from .packing import pack_sequence, sample_doc_pool
 
-__all__ = ["PipelineConfig", "make_batch", "exec_style_of", "data_iterator",
+__all__ = ["PipelineConfig", "make_batch", "make_dispatch_batch",
+           "exec_style_of", "data_iterator", "dispatch_iterator",
            "Prefetcher"]
 
-# the FlashCP heuristic's target max/mean load ratio (planners that take one)
-TARGET_IMBALANCE = 1.05
+#: the dp_rank of the global-dispatch stream: real ranks are >= 0, so a
+#: dispatch batch never draws a per-rank stream
+DISPATCH_RANK = -1
 # least-recently-used plans kept per pipeline configuration
 PLAN_CACHE_ENTRIES = 256
 
@@ -59,6 +70,9 @@ class PipelineConfig:
     vocab_size: int = 50304
     seed: int = 0
     align: int = 128             # T_loc alignment (kernel block size)
+    # the FlashCP heuristic's target max/mean load ratio (planners that
+    # take one)
+    target_imbalance: float = 1.05
     # visit-table emission (attention_impl="flash" steps)
     emit_tables: bool = False
     table_overlap: str = "chunked"   # matches RunConfig.cp_overlap
@@ -76,11 +90,13 @@ def exec_style_of(strategy: str) -> str:
 
 @functools.lru_cache(maxsize=32)
 def _plan_cache(cfg: PipelineConfig) -> PlanCache:
-    """The plan cache of a config, made once."""
+    """The plan cache of a config, made once (a config differs by its
+    CP size, its strategy and its target imbalance: each keeps its own
+    plans)."""
     planner = get_planner(cfg.strategy)
     kwargs = {}
     if planner.info.supports_target_ratio:
-        kwargs["target_ratio"] = TARGET_IMBALANCE
+        kwargs["target_ratio"] = cfg.target_imbalance
     return PlanCache(planner, cfg.cp_size, max_entries=PLAN_CACHE_ENTRIES,
                      planner_kwargs=kwargs)
 
@@ -111,13 +127,17 @@ def _synthesize_row(tokens_row, labels_row, lens, perm, rng,
                                            len(packed) - 1)]
 
 
-def _synthesize_tokens(doc_lens_list, perm_stack, rng,
+def _synthesize_tokens(doc_lens_list, perm_stack, rngs,
                        vocab_size: int) -> tuple[np.ndarray, np.ndarray]:
-    """Batch token synthesis from one shared Generator, rows in order."""
+    """Batch token synthesis.  ``rngs`` is one shared Generator (the
+    per-rank stream: rows draw in row order) or a list of per-row
+    Generators (dispatch: each row's stream is keyed to its content, so
+    tokens do not depend on the row order or the CP degree)."""
     B, C_pad = perm_stack.shape
     tokens = np.full((B, C_pad), -1, np.int32)
     labels = np.full((B, C_pad), -1, np.int32)
     for b, lens in enumerate(doc_lens_list):
+        rng = rngs[b] if isinstance(rngs, list) else rngs
         _synthesize_row(tokens[b], labels[b], lens, perm_stack[b], rng,
                         vocab_size)
     return tokens, labels
@@ -169,6 +189,63 @@ def make_batch(cfg: PipelineConfig, step: int,
     return batch
 
 
+def make_dispatch_batch(cfg: PipelineConfig, dcfg, step: int,
+                        device_speeds=None) -> dict[str, Any]:
+    """One *global* batch through the adaptive DP x CP dispatcher.
+
+    One seeded document pool per step (every rank draws the same), sized
+    and placed by :func:`repro_torch.dispatch.dispatch_step`: the CP
+    degree follows the pool's length profile, rows come group-major (row
+    ``r`` belongs to group ``r // seqs_per_group`` of the re-tiled mesh),
+    and each row plans and encodes through the registry at the chosen
+    degree.  ``t_loc`` is pinned to ``C / cp``, so a degree keeps one
+    shape however ragged its bins; ``cfg.cp_size`` is not read.
+
+    Beyond :func:`make_batch`'s keys: ``seq_tokens`` (per-row valid
+    tokens), ``group_id`` (per-row group) and ``stats["dispatch"]`` (the
+    decision, imbalances, candidates and pool profile).
+    ``device_speeds`` (length ``data * model``, from the straggler
+    monitor) makes the dispatcher balance completion time, with bins
+    sized to each group's speed; the row streams are content-keyed, so
+    only the placement moves."""
+    from repro_torch.dispatch import dispatch_step
+
+    exec_style_of(cfg.strategy)
+    rng = make_rng(hash((cfg.seed, DISPATCH_RANK, step)) % (2 ** 63))
+    pool = sample_doc_pool(cfg.dataset, dcfg.seqs * cfg.context_len, rng,
+                           max_doc_len=cfg.context_len, min_docs=dcfg.seqs)
+    dplan = dispatch_step(pool, dcfg, cfg.context_len,
+                          device_speeds=device_speeds)
+    g = dplan.cp_degree
+    if not all(len(r) for r in dplan.rows):
+        raise ValueError("dispatch made an empty sequence bin (the pool "
+                         "is too small for the batch)")
+    gcfg = dataclasses.replace(cfg, cp_size=g)
+    cache = _plan_cache(gcfg)
+    plans = [cache.plan(lens) for lens in dplan.rows]
+    stack, encs = encode_plan_batch(plans, t_loc=cfg.context_len // g,
+                                    align=cfg.align)
+    # per-row streams keyed to the row's pool documents (int tuples hash
+    # the same in every process)
+    row_rngs = [make_rng(hash((cfg.seed, DISPATCH_RANK, step)
+                              + tuple(int(i) for i in docs)) % (2 ** 63))
+                for docs in dplan.row_docs]
+    tokens, labels = _synthesize_tokens(dplan.rows, stack["perm"],
+                                        row_rngs, cfg.vocab_size)
+    batch = dict(stack)
+    if cfg.emit_tables:
+        batch.update(_emit_tables(cfg, stack, g))
+    batch["tokens"] = tokens
+    batch["labels"] = labels
+    batch["seq_tokens"] = np.asarray([int(r.sum()) for r in dplan.rows],
+                                     np.int32)
+    batch["group_id"] = dplan.group_of_row.astype(np.int32)
+    batch["stats"] = _batch_stats(encs, dplan.rows, cache)
+    batch["stats"]["dispatch"] = {**dplan.stats(),
+                                  "profile": dplan.profile.as_dict()}
+    return batch
+
+
 def data_iterator(cfg: PipelineConfig, start_step: int = 0,
                   dp_rank: int = 0) -> Iterator[dict[str, Any]]:
     """``make_batch(cfg, step, dp_rank)`` for step = start_step, ..."""
@@ -178,20 +255,38 @@ def data_iterator(cfg: PipelineConfig, start_step: int = 0,
         step += 1
 
 
+def dispatch_iterator(cfg: PipelineConfig, dcfg, start_step: int = 0,
+                      speeds_fn=None) -> Iterator[dict[str, Any]]:
+    """``make_dispatch_batch`` for step = start_step, ...; ``speeds_fn``
+    (no arguments, returns the device speeds or None) is sampled once a
+    batch."""
+    step = start_step
+    while True:
+        speeds = speeds_fn() if speeds_fn is not None else None
+        yield make_dispatch_batch(cfg, dcfg, step, device_speeds=speeds)
+        step += 1
+
+
 class Prefetcher:
-    """The batches of :func:`data_iterator`, built ahead on a background
-    thread into a queue of ``prefetch`` batches.  A failure of the
-    thread is raised by the ``next()`` that would have returned its
-    batch; ``close()`` stops the thread and joins it."""
+    """The batches of :func:`data_iterator` (or, given ``dispatch``, a
+    ``DispatchConfig``, of :func:`dispatch_iterator` with ``speeds_fn``;
+    ``dp_rank`` is then not read), built ahead on a background thread
+    into a queue of ``prefetch`` batches.  A failure of the thread is
+    raised by the ``next()`` that would have returned its batch;
+    ``close()`` stops the thread and joins it."""
 
     _POLL_S = 0.1
 
     def __init__(self, cfg: PipelineConfig, start_step: int = 0,
-                 dp_rank: int = 0, prefetch: int = 2):
+                 dp_rank: int = 0, prefetch: int = 2, dispatch=None,
+                 speeds_fn=None):
         self._q: queue.Queue = queue.Queue(maxsize=prefetch)
         self._stop = threading.Event()
-        self._thread = threading.Thread(
-            target=self._run, args=(cfg, start_step, dp_rank), daemon=True)
+        it = dispatch_iterator(cfg, dispatch, start_step, speeds_fn) \
+            if dispatch is not None else \
+            data_iterator(cfg, start_step, dp_rank)
+        self._thread = threading.Thread(target=self._run, args=(it,),
+                                        daemon=True)
         self._thread.start()
 
     def _put(self, item) -> bool:
@@ -204,9 +299,9 @@ class Prefetcher:
                 continue
         return False
 
-    def _run(self, cfg, start_step, dp_rank):
+    def _run(self, it):
         try:
-            for batch in data_iterator(cfg, start_step, dp_rank):
+            for batch in it:
                 if not self._put(batch):
                     return
         except Exception as err:  # noqa: BLE001 - handed to the consumer

@@ -1,11 +1,20 @@
 """The training mesh (the port of the reference's ``repro.launch.mesh``).
 
-A ``data x model`` grid of the ranks of the default process group, with
+A ``data x model`` grid of ranks of the default process group, with
 axes ``("data", "model")``: ``model`` is the context-parallel (CP) axis,
 and a rank's CP group is its ``model`` row; ``data`` carries the batch
 rows.  Parameters are sharded over both (ZeRO-3,
-:mod:`repro_torch.runtime.zero`).  Rank r sits at ``(r // model,
-r % model)``.
+:mod:`repro_torch.runtime.zero`).  The grid's ``ranks`` are every rank
+in order by default, so rank r sits at ``(r // model, r % model)``; an
+explicit list lays a grid over a subset of the ranks (the survivors of
+an elastic shrink, DESIGN.md §Recovery).  :func:`make_group_mesh`
+re-tiles a grid into CP groups of a smaller degree (the adaptive
+dispatcher's tilings, DESIGN.md §Dispatch).
+
+``dist.new_group`` is collective over the default group: every rank,
+inside the grid or not, makes every group of every grid in the same
+order.  So every rank calls these functions with the same arguments in
+the same order, and a rank outside a grid gets None.
 """
 
 from __future__ import annotations
@@ -14,38 +23,71 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-__all__ = ["AXES", "make_local_mesh", "mesh_axes", "mesh_coords"]
+__all__ = ["AXES", "make_local_mesh", "make_group_mesh", "mesh_axes",
+           "mesh_coords", "mesh_world"]
 
 AXES = ("data", "model")
 
+# the group of every rank of a grid over a subset of the ranks, by the
+# id of its mesh (the mesh is kept alive with it)
+_WORLDS: dict[int, tuple[DeviceMesh, object]] = {}
 
-def make_local_mesh(data: int, model: int, *, device_type: str) -> DeviceMesh:
-    """The ``data x model`` mesh of the default process group (which
-    must hold ``data * model`` ranks), on ``device_type`` ("cuda" or
-    "cpu").
+
+def make_local_mesh(data: int, model: int, *, device_type: str,
+                    ranks=None) -> DeviceMesh | None:
+    """The ``data x model`` mesh of ``ranks`` (default: the whole
+    default process group, which must then hold ``data * model`` ranks),
+    on ``device_type`` ("cuda" or "cpu"); None on a rank outside it.
 
     Its groups are made here with ``dist.new_group``, the ``model`` rows
-    first and then the ``data`` columns, each in index order, so every
-    rank creates every group in the same order and in the backend of the
+    first and then the ``data`` columns, each in index order (then, for
+    a subset of the ranks, the group of the whole grid), so every rank
+    creates every group in the same order and in the backend of the
     default group (gloo where ranks share a card; ``init_device_mesh``
     would pick a backend by device type).  Collectives over them go
     through :class:`repro_torch.core.comm.CPComm` with the backend the
     caller names."""
     world = dist.get_world_size()
-    if data * model != world:
+    ranks = list(range(world)) if ranks is None else [int(r) for r in ranks]
+    if data * model != len(ranks):
         raise ValueError(f"a {data}x{model} mesh needs {data * model} ranks, "
-                         f"the process group has {world}")
-    grid = torch.arange(world).reshape(data, model)
+                         f"got {len(ranks)}")
+    if len(set(ranks)) != len(ranks) or not all(0 <= r < world
+                                                  for r in ranks):
+        raise ValueError(f"mesh ranks {ranks} are not distinct ranks of "
+                         f"a world of {world}")
+    grid = torch.tensor(ranks).reshape(data, model)
     me = dist.get_rank()
     mine = {}
     for axis, lines in (("model", grid), ("data", grid.T)):
         for line in lines:
-            ranks = line.tolist()
-            group = dist.new_group(ranks)
-            if me in ranks:
+            members = line.tolist()
+            group = dist.new_group(members)
+            if me in members:
                 mine[axis] = group
-    return DeviceMesh.from_group([mine[a] for a in AXES], device_type,
+    whole = dist.new_group(ranks) if len(ranks) < world else None
+    if me not in ranks:
+        return None
+    mesh = DeviceMesh.from_group([mine[a] for a in AXES], device_type,
                                  mesh=grid, mesh_dim_names=AXES)
+    if whole is not None:
+        _WORLDS[id(mesh)] = (mesh, whole)
+    return mesh
+
+
+def make_group_mesh(data: int, model: int, cp_degree: int, *,
+                    device_type: str, ranks=None) -> DeviceMesh | None:
+    """The ``data x model`` grid re-tiled into CP groups of ``cp_degree``
+    ranks: a ``(data * model / cp_degree) x cp_degree`` mesh of the same
+    ranks, keeping the axis names, so the ZeRO-3 layout, the batch specs
+    and the CP islands work unchanged (the group axis is its ``data``
+    axis).  ``cp_degree`` divides ``model``, so a group is a contiguous
+    slice of one CP row and never straddles two data rows."""
+    if cp_degree < 1 or model % cp_degree:
+        raise ValueError(f"cp_degree {cp_degree} does not divide model "
+                         f"axis {model}")
+    return make_local_mesh(data * model // cp_degree, cp_degree,
+                           device_type=device_type, ranks=ranks)
 
 
 def mesh_axes(mesh: DeviceMesh) -> dict:
@@ -56,3 +98,10 @@ def mesh_axes(mesh: DeviceMesh) -> dict:
 def mesh_coords(mesh: DeviceMesh) -> dict:
     """This rank's ``{axis: index}``."""
     return dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+
+
+def mesh_world(mesh: DeviceMesh):
+    """The process group of every rank of ``mesh``: None (the default
+    group) for a mesh of the whole world."""
+    entry = _WORLDS.get(id(mesh))
+    return None if entry is None else entry[1]

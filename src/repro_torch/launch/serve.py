@@ -35,6 +35,12 @@ prompt through the decode step at admission.  xlstm_350m serves at full
 size on one H100; jamba's 32 layers (103 GB of bf16 weights) do not fit
 one (``chip_smoke.py`` serves it cut to one period of 8 layers).
 
+The audio arch (``--arch musicgen_medium``) gives each request its own
+frame embeddings, drawn from the seed: prompts prefill from them (and
+share no prefix-cache blocks), decode steps feed zero frames.  The VLM
+arch (``--arch internvl2_1b``) serves token prompts, prefilled with zero
+patches.
+
 ``--attn-shards N`` splits the dense-layout decode cache into N
 LSE-merged segments (``flash_decode`` in partial mode per segment).
 
@@ -105,12 +111,18 @@ def serve(args) -> dict:
     sys_prompt = rng.integers(0, cfg.vocab_size, args.shared_prefix) \
         .astype(np.int32)
     for i in range(B):
+        frames = None
+        if cfg.frontend == "audio_frames":
+            # the request's own frame embeddings reach the KV cache
+            # through prefill (drawn as the reference draws them)
+            frames = rng.standard_normal(
+                (int(lens[i]), cfg.d_model)).astype(np.float32)
         toks = rng.integers(0, cfg.vocab_size,
                             int(lens[i]) - args.shared_prefix) \
             .astype(np.int32)
         eng.submit(np.concatenate([sys_prompt, toks]), max_new=gen,
                    temperature=args.temperature, top_k=args.top_k,
-                   deadline_steps=args.deadline)
+                   frames=frames, deadline_steps=args.deadline)
 
     t0 = time.perf_counter()
     restored_from = None

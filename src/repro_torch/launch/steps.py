@@ -48,7 +48,7 @@ from repro_torch.planner.registry import RECURRENT_FAMILIES, get_planner
 from repro_torch.runtime.sharding import batch_specs, take_shard
 
 __all__ = ["build_train_step", "batch_to_device", "rank_batch",
-           "effective_strategy"]
+           "effective_strategy", "frontend_keys"]
 
 
 def effective_strategy(cfg: ModelConfig, requested: str) -> str:
@@ -90,17 +90,33 @@ def _unflatten(like, flat):
     return go(like)
 
 
+#: the keys whose token columns a rank takes itself (the plan keys stay
+#: whole: the CP context takes this rank's slices of them)
+MODEL_INPUTS = ("tokens", "labels", "frame_embeds", "patch_embeds",
+                "patch_mask")
+
+
+def frontend_keys(cfg: ModelConfig) -> tuple[str, ...]:
+    """The per-token embedding keys the family's training batch carries
+    (as the reference's input specs name them): none for the token
+    families."""
+    return {"audio_frames": ("frame_embeds",),
+            "vit_patches": ("patch_embeds", "patch_mask")}.get(
+                cfg.frontend, ())
+
+
 def rank_batch(batch, axes: dict, coords: dict) -> dict:
     """The rank at ``coords``'s part of the whole batch under
     :func:`~repro_torch.runtime.sharding.batch_specs`: its rows of every
-    key, and its token columns of ``tokens`` and ``labels``.  The plan
-    keys keep their token and rank axes whole: the CP context takes this
-    rank's slices of them itself."""
+    key, and its token columns of the model inputs (tokens, labels and
+    the frontends' per-token keys).  The plan keys keep their token and
+    rank axes whole: the CP context takes this rank's slices of them
+    itself."""
     specs = batch_specs(axes, {k: tuple(v.shape) for k, v in batch.items()})
     out = {}
     for k, v in batch.items():
         spec = specs[k]
-        if k not in ("tokens", "labels"):
+        if k not in MODEL_INPUTS:
             spec = spec[:1]
         out[k] = take_shard(v, spec, axes, coords)
     return out
@@ -115,10 +131,15 @@ def build_train_step(cfg: ModelConfig, run: RunConfig, *, q_chunk: int = 512,
 
     ``batch`` is a dict of tensors on ``device`` (:func:`batch_to_device`),
     the whole batch on every rank; with ``attention_impl="flash"`` it
-    carries the visit tables.  ``zero`` is this rank's ZeRO-3 layout
-    when the step runs on a mesh of more than one rank (the batch then
-    planned for its ``model`` axis); ``params`` and ``opt_state`` are
-    then this rank's shards.  The callable also exposes
+    carries the visit tables.  The audio and VLM families also need
+    their frontend keys (:func:`frontend_keys`: ``frame_embeds`` (B, C,
+    d), ``patch_embeds`` (B, C, d) and ``patch_mask`` (B, C)), per token
+    in the batch's plan order like ``tokens``; the audio family's
+    ``tokens`` are dropped (its inputs are the frames).
+
+    ``zero`` is this rank's ZeRO-3 layout when the step runs on a mesh
+    of more than one rank (the batch then planned for its ``model``
+    axis); ``params`` and ``opt_state`` are then this rank's shards.  The callable also exposes
     ``loss_and_grads(params, batch)``, whose gradients are shards too.
     """
     resolve_device(device)
@@ -134,8 +155,17 @@ def build_train_step(cfg: ModelConfig, run: RunConfig, *, q_chunk: int = 512,
             comm=None if zero is None else zero.cp,
             world=None if zero is None else zero.world)
 
+    need = frontend_keys(cfg)
+
     def loss_and_grads(params, batch):
         """((loss, metrics), grads) of the global masked CE mean."""
+        missing = [k for k in need if k not in batch]
+        if missing:
+            raise KeyError(f"{cfg.name} ({cfg.family}) trains on "
+                           f"{', '.join(need)}: the batch lacks "
+                           f"{', '.join(missing)}")
+        if cfg.frontend == "audio_frames":
+            batch = {k: v for k, v in batch.items() if k != "tokens"}
         flat = leaves(params)
         for p in flat:
             p.requires_grad_(True)

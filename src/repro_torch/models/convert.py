@@ -7,7 +7,8 @@ moe.{router,wi,wg?,wo}}`` stacked on a leading period axis, the mixer
 one of ``attn.{wq,wk,wv,wo,q_norm?,k_norm?}``, ``mamba.{in_proj,conv_w,
 conv_b,x_proj,dt_proj,dt_bias,A_log,D,out_proj}``,
 ``mlstm.{up,wq,wk,wv,wf,wi,down}`` or ``slstm.{wz,wi,wf,wo,down}``,
-plus ``final_norm.g``, ``embed.e``, ``lm_head.w``), and the same
+plus ``final_norm.g``, ``embed.e`` (absent in the audio family, whose
+inputs are frame embeddings) and ``lm_head.w``), and the same
 matmul layout (``x @ w`` with w of shape (d_in, d_out); an expert leaf
 is (E, d_in, d_out)).  So conversion is leaf
 for leaf and exact, bfloat16 included.  The caller turns the JAX arrays

@@ -1,5 +1,5 @@
-"""Decoder stacks of the dense, MoE, hybrid (Jamba) and SSM (xLSTM)
-families: init, the training forward and losses, and for serving the
+"""Decoder stacks of the dense, MoE, hybrid (Jamba), SSM (xLSTM), audio
+(musicgen) and VLM (internvl) families: init, the training forward and losses, and for serving the
 caches, chunked prefill and decode.
 
 The parameter tree mirrors the JAX package's leaf for leaf: every
@@ -27,8 +27,14 @@ Recurrent mixers (Mamba, mLSTM, sLSTM) keep a dense per-slot scan state
 in the decode cache instead of KV by position, so those stacks have no
 cache-writing prefill and no paged layout
 (:func:`supports_cached_prefill`, :func:`supports_paged_cache`): the
-serving engine replays their prompts through :func:`decode_step`.  The
-audio and VLM families raise ``NotImplementedError``.
+serving engine replays their prompts through :func:`decode_step`.
+
+The audio and VLM stacks are attention stacks whose inputs carry
+precomputed embeddings (:func:`inputs_to_embeds`): the audio family
+reads ``frame_embeds`` in place of token ids (it has no embedding table
+and always its own lm_head), the VLM family puts ``patch_embeds`` in
+place of the token embeddings where ``patch_mask`` is set.  Each is per
+token, so under CP it travels in plan order like ``tokens``.
 """
 
 from __future__ import annotations
@@ -63,20 +69,7 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
 
 
-#: the reference's families that wait for later slices of the port
-UNPORTED_FAMILIES = ("audio", "vlm")
-
-
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family in UNPORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported to "
-            "PyTorch; the port runs the dense, MoE, hybrid and SSM "
-            "stacks")
-
-
 def period_length(cfg: ModelConfig) -> int:
-    _require_ported(cfg)
     if cfg.family == "ssm":
         return max(cfg.slstm_every, 1)
     if cfg.attn_every > 0:
@@ -215,11 +208,12 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
             sub["mlp"] = mlp
         period[f"sub_{j}"] = sub
 
-    emb = torch.randn((cfg.vocab_size, d), generator=gen, device=dev,
-                      dtype=torch.float32).mul_(EMBED_STD)
-    params = {"layers": period, "final_norm": {"g": ones(d)},
-              "embed": {"e": emb.to(dtype)}}
-    if not cfg.tie_embeddings:
+    params = {"layers": period, "final_norm": {"g": ones(d)}}
+    if cfg.family != "audio":
+        emb = torch.randn((cfg.vocab_size, d), generator=gen, device=dev,
+                          dtype=torch.float32).mul_(EMBED_STD)
+        params["embed"] = {"e": emb.to(dtype)}
+    if not cfg.tie_embeddings or cfg.family == "audio":
         w = he_normal((d, cfg.vocab_size), d, generator=gen, device=dev)
         params["lm_head"] = {"w": w.to(dtype)}
     return params
@@ -295,8 +289,18 @@ def _ffn(sub, cfg: ModelConfig, ffn: str, x, ctx=None,
 
 
 def inputs_to_embeds(params, cfg: ModelConfig, batch):
-    """Token embeddings (the dense families read tokens only)."""
-    return embed(params["embed"], batch["tokens"], torch_dtype(cfg))
+    """The stack's input embeddings: the audio family's ``frame_embeds``
+    (B, T, d) cast to the model dtype; else the token embeddings, with
+    the VLM family's ``patch_embeds`` (B, T, d) where ``patch_mask`` (B,
+    T) is set.  ``params`` needs ``embed`` only where tokens are read."""
+    dtype = torch_dtype(cfg)
+    if cfg.frontend == "audio_frames":
+        return batch["frame_embeds"].to(dtype)
+    x = embed(params["embed"], batch["tokens"], dtype)
+    if cfg.frontend == "vit_patches":
+        x = torch.where(batch["patch_mask"][..., None],
+                        batch["patch_embeds"].to(dtype), x)
+    return x
 
 
 def _apply_sub(sub, cfg: ModelConfig, ctx, x, mixer: str, ffn: str):
@@ -326,8 +330,8 @@ def _trunk(params, cfg: ModelConfig, ctx, batch, remat: bool, gather):
     are used; a layer's runs inside its rematerialized function, so the
     backward gathers the layer again instead of keeping it."""
     kinds = block_kinds(cfg)
-    x = inputs_to_embeds({"embed": gather("embed", params["embed"])}, cfg,
-                         batch)
+    x = inputs_to_embeds({k: gather(k, params[k]) for k in ("embed",)
+                          if k in params}, cfg, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in _unbind(params["layers"], _n_periods(cfg)):
         for j, (mixer, ffn) in enumerate(kinds):
@@ -388,7 +392,9 @@ def prefill_forward(params, cfg: ModelConfig, cache, batch, pos, active, *,
                     block_size: int = 0, view_blocks: int = 0):
     """Forward one prompt chunk and write its KV into ``cache`` in place.
 
-    batch {"tokens": (B, T)}; pos (B, T) global cache positions; active
+    batch: the forward's inputs for a (B, T) chunk ("tokens", or the
+    frontend keys of :func:`inputs_to_embeds`); pos (B, T) global cache
+    positions; active
     (B, T) bool (False = padding: no cache write, no influence).
     ``block_tables`` (B, nk) selects the paged pool layout, attending
     the request's gathered logical prefix of ``view_blocks`` blocks.
@@ -400,7 +406,7 @@ def prefill_forward(params, cfg: ModelConfig, cache, batch, pos, active, *,
                          "attention-only mixers")
     kinds = block_kinds(cfg)
     cf = drop_free_capacity(cfg)
-    x = embed(params["embed"], batch["tokens"], torch_dtype(cfg))
+    x = inputs_to_embeds(params, cfg, batch)
     write_idx = active.nonzero(as_tuple=True)
     for i in range(_n_periods(cfg)):
         lp, lc = _index(params["layers"], i), _index(cache, i)
@@ -425,9 +431,9 @@ def prefill_forward(params, cfg: ModelConfig, cache, batch, pos, active, *,
 def decode_step(params, cfg: ModelConfig, cache, batch, pos_t, *,
                 attn_impl: str = "flash", attn_shards: int = 1,
                 block_tables=None, block_size: int = 0, write_mask=None):
-    """One decode step.  batch {"tokens": (B,)}; pos_t (B,) int32 current
-    positions.  Returns (logits (B, vocab), cache), the cache updated in
-    place.
+    """One decode step.  batch {"tokens": (B,)}, or {"frame_embeds": (B,
+    d)} for the audio family; pos_t (B,) int32 current positions.
+    Returns (logits (B, vocab), cache), the cache updated in place.
 
     ``attn_impl`` "flash" runs the flash-decode kernels, "dense" the
     softmax oracle.  ``block_tables`` (B, nk) selects the paged pool.
@@ -436,7 +442,10 @@ def decode_step(params, cfg: ModelConfig, cache, batch, pos_t, *,
     every row.  MoE layers route the B rows (idle ones too) at the
     config's capacity factor, as the reference's decode does."""
     kinds = block_kinds(cfg)
-    x = embed(params["embed"], batch["tokens"], torch_dtype(cfg))
+    if cfg.frontend == "audio_frames":
+        x = batch["frame_embeds"].to(torch_dtype(cfg))
+    else:
+        x = embed(params["embed"], batch["tokens"], torch_dtype(cfg))
     if block_tables is not None and write_mask is None:
         write_mask = torch.ones(x.shape[0], dtype=torch.bool,
                                 device=x.device)

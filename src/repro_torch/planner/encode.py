@@ -219,20 +219,26 @@ def plan_shape_hints(plan: ShardingPlan, *, align: int = 1
 def encode_plan_batch(
     plans: list[ShardingPlan],
     *,
+    t_loc: int | None = None,
     align: int = 1,
 ) -> tuple[dict[str, np.ndarray], list[PlanEncoding]]:
     """Encode a batch of per-sample plans with a common bucket.
 
     Returns (stacked arrays dict, per-sample encodings).  All samples share
-    ``t_loc`` (max over batch, aligned) and ``buf_len`` (bucketed max),
-    derived from the plans' accounting arrays; the samples are encoded one
-    after the other, each straight into its row of the stacked output.
+    ``t_loc`` (max over batch, aligned — or the explicit ``t_loc``, which
+    the dispatcher pins to ``C / cp`` so ragged per-group batches keep one
+    shape per degree) and ``buf_len`` (bucketed max), derived from the
+    plans' accounting arrays; the samples are encoded one after the
+    other, each straight into its row of the stacked output.
     """
     N = plans[0].num_workers
     assert all(p.num_workers == N for p in plans)
 
     hints = [plan_shape_hints(p, align=align) for p in plans]
-    t_loc = max(h[0] for h in hints)
+    need_t = max(h[0] for h in hints)
+    if t_loc is None:
+        t_loc = need_t
+    assert t_loc >= need_t, (t_loc, need_t)
     buf_len = max(h[1] for h in hints)
 
     B = len(plans)

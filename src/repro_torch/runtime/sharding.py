@@ -20,9 +20,15 @@ from __future__ import annotations
 
 import math
 
-__all__ = ["leaf_spec", "expert_spec", "is_expert_leaf", "param_specs",
+__all__ = ["TOKEN_KEYS", "leaf_spec", "expert_spec", "is_expert_leaf", "param_specs",
            "batch_specs", "spec_axes", "replicated_axes", "shard_index",
            "shard_shape", "take_shard"]
+
+
+#: batch keys with one entry per token: (B, C) or (B, C, d), their
+#: columns split over ``model``
+TOKEN_KEYS = ("tokens", "labels", "doc", "pos", "perm", "frame_embeds",
+              "patch_embeds", "patch_mask")
 
 
 def _size(axes: dict, entry) -> int:
@@ -102,17 +108,18 @@ def param_specs(axes: dict, shapes: dict) -> dict:
 
 def batch_specs(axes: dict, batch_shapes: dict) -> dict:
     """Specs of the training batch's keys (the reference's
-    ``batch_specs`` for the dense families' keys): rows over ``data``
-    unless the row count does not divide by it (then every data rank
-    takes every row), token columns and the per-rank table and
-    ``send_idx`` axis over ``model``."""
+    ``batch_specs``): rows over ``data`` unless the row count does not
+    divide by it (then every data rank takes every row), token columns
+    (of the token keys and of the frontends' per-token embeddings and
+    mask) and the per-rank table and ``send_idx`` axis over ``model``;
+    a dispatch batch's per-row ``seq_tokens`` and ``group_id`` by row."""
     specs = {}
     for key, shape in batch_shapes.items():
         ndim = len(shape)
         rows = shape[0] if ndim else 1
         b = "data" if rows % axes["data"] == 0 else None
-        if key in ("tokens", "labels", "doc", "pos", "perm"):
-            specs[key] = (b, "model")
+        if key in TOKEN_KEYS:
+            specs[key] = (b, "model") + (None,) * (ndim - 2)
         elif key == "send_idx":
             specs[key] = (b, "model", None)
         elif key in ("gath_doc", "gath_pos"):

@@ -32,7 +32,7 @@ import math
 import torch
 
 from repro_torch.core.comm import CPComm, all_gather_tiled, all_reduce_
-from repro_torch.launch.mesh import AXES, mesh_axes, mesh_coords
+from repro_torch.launch.mesh import AXES, mesh_axes, mesh_coords, mesh_world
 from repro_torch.optim.clipping import sum_of_squares
 from .sharding import (is_expert_leaf, param_specs, replicated_axes,
                        shard_shape, take_shard)
@@ -62,15 +62,16 @@ def _map(tree, fn, prefix: str = ""):
 class Zero3:
     """The ZeRO-3 layout of a parameter tree on this rank of ``mesh``,
     with the collectives that gather, reduce and measure its shards over
-    ``backend``.  ``shapes`` are the whole leaves' ``{path: shape}`` in
-    leaf order (:func:`tree_shapes`); the methods that take a list of
-    shards take them in that order (``optim._slices.leaves``)."""
+    ``backend`` (the sums over the world run over the mesh's ranks).
+    ``shapes`` are the whole leaves' ``{path: shape}`` in leaf order
+    (:func:`tree_shapes`); the methods that take a list of shards take
+    them in that order (``optim._slices.leaves``)."""
 
     def __init__(self, mesh, backend: str, shapes: dict):
         self.axes, self.coords = mesh_axes(mesh), mesh_coords(mesh)
         self.comms = {a: CPComm(backend, mesh.get_group(a))
                       for a in AXES if self.axes[a] > 1}
-        self.world = CPComm(backend)
+        self.world = CPComm(backend, mesh_world(mesh))
         self.shapes = dict(shapes)
         self.paths = list(self.shapes)
         self.specs = param_specs(self.axes, self.shapes)
@@ -156,6 +157,19 @@ class Zero3:
         whole["count"] = opt["count"].cpu()
         out = {"params": _map(state["params"], one), "opt": whole}
         return out if keep else None
+
+    @torch.no_grad()
+    def reshard_state(self, state: dict, other: "Zero3") -> dict:
+        """``{"params", "opt"}`` of this layout's shards -> the same in
+        ``other``'s layout of the same ranks (a dispatch degree switch),
+        leaf by leaf: each leaf is gathered whole on the device, cut to
+        this rank's new shard and dropped before the next (every rank
+        must call it)."""
+        def one(p, x):
+            return other.shard_leaf(p, self._gather_leaf(x, self.specs[p]))
+        opt = {k: v if k == "count" else _map(v, one)
+               for k, v in state["opt"].items()}
+        return {"params": _map(state["params"], one), "opt": opt}
 
     def reduce_grads_(self, grads: list) -> None:
         """Sum each gradient shard over the axes its leaf is whole on, in

@@ -26,6 +26,16 @@ from a zeroed row: the reference's carries the previous request's
 recurrent state into a reused slot, which changes that request's tokens
 (ROADMAP.md, Queue 3, F3).
 
+The audio family's prompts carry their own frame embeddings
+(``submit(frames=)``): they prefill from those frames, and each decode
+step feeds zero frames (the stubbed codec frontend has no embedder for
+generated tokens), as the reference does.  The VLM family prefills with
+zero patches under an all-false mask, so its prompts are tokens.  A
+request that carries frames matches no prefix-cache blocks and inserts
+none: its KV comes from its frames, which the token trie does not see.
+The reference's trie matches such prompts on token ids alone and shares
+KV between prompts whose frames differ (ROADMAP.md, Queue 3, F5).
+
 Each :meth:`step` spends one token budget (``scheduler.plan_step``):
 decode-ready slots get their decode token first, the remainder buys
 prompt chunks, so a long prompt prefills alongside in-flight decodes.
@@ -212,19 +222,23 @@ class ServeEngine:
 
     # ------------------------------------------------------------- #
     def submit(self, tokens, *, max_new: int = 16, temperature: float = 0.0,
-               top_k: int = 0, eos_id: int = -1, deadline_steps: int = -1,
-               priority: int = 0) -> int:
+               top_k: int = 0, eos_id: int = -1, frames=None,
+               deadline_steps: int = -1, priority: int = 0) -> int:
         """Queue one request; returns its request id.  Oversized
         requests land in the results with status "rejected", overload
-        victims (bounded queue) with status "shed".  ``deadline_steps``
-        is the engine-step budget the request must finish within (-1 =
-        none); lower ``priority`` sheds first."""
+        victims (bounded queue) with status "shed".  ``frames`` (Tp,
+        d_model): an audio prompt's frame embeddings (its ``tokens``
+        then only count and key it).  ``deadline_steps`` is the
+        engine-step budget the request must finish within (-1 = none);
+        lower ``priority`` sheds first."""
         rid = self._next_rid
         self._next_rid += 1
         self.sched.clock = self.stats["steps"]
         self.sched.submit(Request(
             rid=rid, tokens=np.asarray(tokens, np.int32), max_new=max_new,
             temperature=temperature, top_k=top_k, eos_id=eos_id,
+            frames=None if frames is None
+            else np.asarray(frames, np.float32),
             deadline_steps=deadline_steps, priority=priority))
         return rid
 
@@ -239,7 +253,8 @@ class ServeEngine:
             return {}
         bs = self.block_size
         Tp, mn = req.prompt_len, req.max_new
-        matched = [] if self.prefix is None \
+        # a prompt of frames shares nothing: the trie keys token ids
+        matched = [] if self.prefix is None or req.frames is not None \
             else self.prefix.match(req.tokens)
         nk_req = -(-(Tp + mn - 1) // bs)
         while True:
@@ -323,10 +338,24 @@ class ServeEngine:
                                   [req.temperature], [req.top_k])
         return int(tok[0])
 
-    def _prefill(self, slot: int, toks, pos, active, with_logits: bool,
-                 view: int):
-        """One prefill chunk through the model, cache written in place."""
+    def _chunk_batch(self, toks, frames) -> dict:
+        """A prefill chunk's model inputs: the audio family's frames (1,
+        C, d), or tokens (the VLM family's with zero patches under an
+        all-false mask)."""
+        if self.cfg.frontend == "audio_frames":
+            return {"frame_embeds": frames}
         batch = {"tokens": toks}
+        if self.cfg.frontend == "vit_patches":
+            batch["patch_embeds"] = torch.zeros(
+                (*toks.shape, self.cfg.d_model), device=self.device)
+            batch["patch_mask"] = torch.zeros(toks.shape, dtype=torch.bool,
+                                              device=self.device)
+        return batch
+
+    def _prefill(self, slot: int, toks, pos, active, with_logits: bool,
+                 view: int, frames=None):
+        """One prefill chunk through the model, cache written in place."""
+        batch = self._chunk_batch(toks, frames)
         if self.layout == "paged":
             table = self._tensor(self._tables_matrix()[slot][None])
             return prefill_forward(
@@ -354,6 +383,12 @@ class ServeEngine:
         t0 = time.perf_counter()
         toks = np.zeros((1, C), np.int32)
         toks[0, :n] = req.tokens[start:start + n]
+        frames = None
+        if self.cfg.frontend == "audio_frames":
+            frames = np.zeros((1, C, self.cfg.d_model), np.float32)
+            if req.frames is not None:
+                frames[0, :n] = req.frames[start:start + n]
+            frames = self._tensor(frames)
         pos = np.arange(start, start + C, dtype=np.int32)[None]
         active = (np.arange(C) < n)[None]
         with_logits = start + n >= Tp
@@ -363,7 +398,8 @@ class ServeEngine:
             self._ensure_private(st, start // self.block_size)
         logits = self._prefill(slot, self._tensor(toks, torch.long),
                                self._tensor(pos), self._tensor(active),
-                               with_logits, self._view_bucket(start + C))
+                               with_logits, self._view_bucket(start + C),
+                               frames)
         self._sync()
         sc.note_prefill(slot, n)
         self.stats["prefill_steps"] += 1
@@ -378,7 +414,8 @@ class ServeEngine:
                 sc.abort(slot, "non-finite prefill logits at step "
                          f"{self.stats['steps']}", kind="nan_logits")
                 return False
-            if self.layout == "paged" and self.prefix is not None:
+            if self.layout == "paged" and self.prefix is not None \
+                    and req.frames is None:
                 nfull = Tp // self.block_size
                 if nfull:
                     self.prefix.insert(req.tokens[:nfull * self.block_size],
@@ -406,11 +443,14 @@ class ServeEngine:
         mask = self._tensor(onehot)
         tok = np.zeros((B,), np.int64)
         pos = np.zeros((B,), np.int32)
+        frames = np.zeros((B, self.cfg.d_model), np.float32)
         logits = None
         for t in range(req.prompt_len):
             tok[slot], pos[slot] = req.tokens[t], t
+            if req.frames is not None:
+                frames[slot] = req.frames[t]
             logits = self._decode(self._tensor(tok), self._tensor(pos), mask,
-                                  None)
+                                  None, self._tensor(frames))
             self.stats["prefill_decode_steps"] += 1
         row = logits[slot]
         if self._poisoned(req.rid):
@@ -431,19 +471,27 @@ class ServeEngine:
         return self.chaos is not None \
             and self.chaos.poisons(rid, self.stats["steps"])
 
-    def _decode(self, tok, lengths, dmask, poison):
+    def _decode(self, tok, lengths, dmask, poison, frames=None):
         """One batched decode step; returns (B, vocab) fp32 logits, NaN on
         the ``poison`` rows (chaos lands after the forward, before the
         sampler: a corrupted KV page as the sampler sees it; None: no
-        row)."""
+        row).  The audio family reads ``frames`` (B, d), zeros when None
+        (a generated step has no frame embedder)."""
         kw = {"attn_impl": self.decode_impl, "write_mask": dmask}
         if self.layout == "paged":
             kw.update(block_tables=self._tensor(self._tables_matrix()),
                       block_size=self.block_size)
         else:
             kw.update(attn_shards=self.attn_shards)
-        logits, _ = decode_step(self.params, self.cfg, self.cache,
-                                {"tokens": tok}, lengths, **kw)
+        if self.cfg.frontend == "audio_frames":
+            if frames is None:
+                frames = torch.zeros((tok.shape[0], self.cfg.d_model),
+                                     device=self.device)
+            batch = {"frame_embeds": frames}
+        else:
+            batch = {"tokens": tok}
+        logits, _ = decode_step(self.params, self.cfg, self.cache, batch,
+                                lengths, **kw)
         if poison is None:
             return logits.float()
         return torch.where(poison[:, None], float("nan"), logits.float())
@@ -606,7 +654,9 @@ class ServeEngine:
         self._prefill(0, self._tensor(np.zeros((1, C), np.int64)),
                       self._tensor(np.arange(C, dtype=np.int32)[None]),
                       self._tensor(np.zeros((1, C), bool)), True,
-                      self._view_bucket(C))
+                      self._view_bucket(C),
+                      self._tensor(np.zeros((1, C, self.cfg.d_model),
+                                            np.float32)))
         self._sync()
 
     # ------------------------------------------------------------- #

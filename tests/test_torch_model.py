@@ -95,18 +95,6 @@ def test_init_params_has_the_reference_layout(arch):
     assert torch.all(got["final_norm.g"] == 1)
 
 
-def test_non_dense_families_are_refused():
-    _, tcfg = _cfgs("starcoder2_3b")
-    # the MoE family (tests/test_torch_moe.py) and the recurrent ones
-    # (tests/test_torch_hybrid.py) are ported; the rest wait
-    for family in ("audio", "vlm"):
-        cfg = dataclasses.replace(tcfg, family=family)
-        with pytest.raises(NotImplementedError, match=family):
-            tm.block_kinds(cfg)
-        with pytest.raises(NotImplementedError):
-            tm.init_params(cfg, device="cpu")
-
-
 def _setup(arch, seed=0):
     jcfg, tcfg = _cfgs(arch)
     jparams = jm.init_params(jax.random.PRNGKey(seed), jcfg)
