@@ -29,9 +29,13 @@ launch count set to 0 just before and read just after:
   kernels at a CP hop's shape (``doc_hop_shapes``, with the kernel
   parity); the CP islands at N = 4 (flashcp chunked and monolithic,
   llama3, ring_zigzag) and N = 2 (flashcp), f32 and bf16, each rank's
-  outputs and gradients against the one-rank path (``cp_islands``); and
+  outputs and gradients against the one-rank path, and the same on the
+  int8 KV wire (flashcp chunked and monolithic, llama3 at N = 4, flashcp
+  chunked at N = 2) within the reference's int8 bounds of the one-rank
+  path and with the native wire's launches, the K/V bytes each rank
+  hands to its ``CPComm`` beside the Eq. 5 figure (``cp_islands``); and
   4 CP ranks (a 1x4 mesh, ZeRO-3) training full-width starcoder2_3b cut
-  to 4 layers for 3 steps, step 0 against one rank (``cp_train``);
+  to 2 layers for 3 steps, step 0 against one rank (``cp_train``);
 * the distributed training loop: a 2x2 mesh (rows over ``data``, tokens
   over ``model``, parameters and optimizer state sharded over both)
   training the same model cut to 2 layers on 2 rows of 16384 tokens for
@@ -50,7 +54,12 @@ launch count set to 0 just before and read just after:
   (``serve_resilience``); the dense layout at ``attn_shards`` 2 and 4:
   one bf16 decode step's logits within a rounding of one shard's, and
   in f32 tokens equal to one shard's and ``flash_decode`` launched
-  steps x 30 x shards times (``serve_sharded``);
+  steps x 30 x shards times (``serve_sharded``); then, in the spawn of
+  ``cp_islands``, the main path's dense cache (layer 0) split along S
+  over 2 and over 4 ranks joined through env://, each rank one
+  ``flash_decode`` partial a step on its slice, merged over the ranks
+  (``merge_partials_axis``), against one rank's normalized
+  ``flash_decode`` in f32 and bf16 (``serve_sharded_ranks``);
 * the MoE family, olmoe_1b_7b at full width (64 experts, top-8): served
   at full depth (16 layers) on both layouts, launch counts, one f32
   decode step flash vs dense oracle, and a small f32 MoE model card vs
@@ -90,7 +99,7 @@ launch count set to 0 just before and read just after:
   audio prompts with their own frames (launches, paged vs dense tokens,
   a smoke f32 model card vs CPU);
 * adaptive dispatch and elastic recovery: starcoder2_3b at full width
-  cut to 2 layers on a 2x2 mesh of ranks sharing the card, 4 rows of
+  cut to 1 layer on a 2x2 mesh of ranks sharing the card, 4 rows of
   4096 tokens a step, whose CP degree changes between steps (each
   switch reshards the ZeRO-3 state): its losses against one rank's
   run of the same stream, its doc-kernel launches per rank those of
@@ -183,12 +192,20 @@ CP_SEQ, CP_STEP = 32768, 6
 CP_ISLANDS = ((4, "flashcp", "chunked"), (4, "flashcp", "none"),
               (4, "llama3", "chunked"), (4, "ring_zigzag", "chunked"),
               (2, "flashcp", "chunked"))
+# the same islands on the int8 KV wire (RunConfig.kv_comm_dtype)
+CP_INT8 = ((4, "flashcp", "chunked"), (4, "flashcp", "none"),
+           (4, "llama3", "chunked"), (2, "flashcp", "chunked"))
 # islands vs the one-rank path, relative to the largest entry: the same
 # kernels over other KV subsets, merged by online LSE in another order
 CP_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
-# CP training: depth cut to 4 layers, 3 steps; step 0's loss and grad
-# norm vs the one-rank step, relative
-CP_TRAIN_WORLD, CP_TRAIN_LAYERS, CP_TRAIN_STEPS = 4, 4, 3
+# the int8 wire vs the one-rank path, relative to the largest entry, in
+# both dtypes: the reference's own int8 bounds (output, gradients;
+# tests/multidevice/cp_check.py)
+CP_INT8_TOL = {"o": 3e-2, "dq": 5e-2, "dk": 5e-2, "dv": 5e-2}
+# CP training: depth cut to 2 layers (4 until the script needed the time:
+# the ranks spend it gathering the ZeRO-3 state through host memory), 3
+# steps; step 0's loss and grad norm vs the one-rank step, relative
+CP_TRAIN_WORLD, CP_TRAIN_LAYERS, CP_TRAIN_STEPS = 4, 2, 3
 CP_TRAIN_TOL = 1e-2
 # ... and every step-0 gradient leaf within CP_TRAIN_TOL (relative norm of
 # the difference) but the embedding table's: its backward scatter-adds
@@ -226,7 +243,8 @@ RANK_TIMEOUT = 300
 # stuck slot, the latency spike, and the snapshot period of the killed run
 RES_PATIENCE, RES_DELAY_STEP, RES_DELAY_S = 8, 3, 0.25
 RES_SNAPSHOT_EVERY = 20
-# sharded dense decode: segments per stripe
+# sharded dense decode: segments per stripe, and ranks the cache's S is
+# split over (flash_decode_ranks)
 SHARDS = (2, 4)
 # the MoE family: olmoe_1b_7b at full width (d 2048, 16 heads of 128, 64
 # experts of d_ff 1024, top-8, vocab 50304).  Training cuts depth to 4
@@ -293,12 +311,12 @@ FRONT_D, FRONT_STEPS, FRONT_GEN = 64, 3, 32
 # Losses of the 2x2 runs against one rank's run of the same stream,
 # relative: bf16 sums in other orders over 4 optimizer steps.  The ranks
 # move the ZeRO-3 state through host memory (gloo) at each step, degree
-# switch, checkpoint (7.4 GB at 2 layers) and restore: at 4 layers the
-# phase took 500 s of the script's 1200 s, so it runs at 2 layers, the
-# restart at one rank, the shrink and the restart checkpoint every 2
-# steps (the same step-3 restore, one save fewer) and the straggler run
-# 3 steps.
-DISPATCH_MESH, DISPATCH_LAYERS, DISPATCH_SEQ = (2, 2), 2, 4096
+# switch, checkpoint (6.9 GB of state at 2 layers, 5.6 GB at 1) and
+# restore: at 4 layers the phase took 500 s of the script's 1200 s, at 2
+# layers 189-251 s over runs, so it runs at 1 layer, the restart at one
+# rank, the shrink and the restart checkpoint every 2 steps (the same
+# step-3 restore, one save fewer) and the straggler run 3 steps.
+DISPATCH_MESH, DISPATCH_LAYERS, DISPATCH_SEQ = (2, 2), 1, 4096
 DISPATCH_BATCH, DISPATCH_STEPS, DISPATCH_SEED = 4, 4, 1
 DISPATCH_LOSS_TOL = 1e-2
 DISPATCH_TIMEOUT = 600
@@ -1035,19 +1053,22 @@ def plan_order(torch, x, perm):
     return out * (p >= 0)[None, None, :, None].to(x.dtype)
 
 
-def island_run(torch, batch, q, k, v, w, strategy, overlap, comm):
-    """One rank's island forward and backward on the card: (o, dq, dk,
-    dv) of this rank's token slice, and the seconds it took."""
+def island_run(torch, batch, q, k, v, w, strategy, overlap, comm,
+               wire="native"):
+    """One rank's island forward and backward on the card on the K/V
+    ``wire``: (o, dq, dk, dv) of this rank's token slice, and the
+    seconds it took."""
     from repro_torch.core.cp_attention import make_cp_context
     from repro_torch.data.pipeline import exec_style_of
     from repro_torch.launch.steps import batch_to_device
 
     arrays = batch_to_device({k_: v_ for k_, v_ in batch.items()
-                              if k_ not in ("tokens", "labels")}, "cuda")
+                              if k_ not in ("tokens", "labels", "stats")},
+                             "cuda")
     ctx = make_cp_context(arrays, strategy=exec_style_of(strategy),
                           impl="flash", head_dim=T_D, overlap=overlap,
                           block_q=T_BLOCK, block_k=T_BLOCK, grid="flat",
-                          comm=comm)
+                          kv_comm_dtype=wire, comm=comm)
     q, k, v = (x.clone().requires_grad_(True) for x in (q, k, v))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1080,29 +1101,71 @@ def cp_reference(torch, path: str) -> None:
     torch.save(ref, path)
 
 
-def cp_island_rank(rank, world, backend, store, out_dir, ref_path, cases):
-    """One rank of the island checks: each case in f32 and bf16 on this
-    rank's token slice, its outputs and gradients held against the
-    one-rank path at the same packed positions."""
-    import torch
-    import torch.distributed as dist
+def join_env(rank: int, world: int, backend: str, port: int):
+    """Join the default group through env://, with the variables a
+    launcher such as torchrun sets; this rank's CP group of the whole
+    world and its device."""
+    import os
     from repro_torch.launch.ranks import init_rank
 
-    comm, _ = init_rank(rank, world, backend, store, "cuda")
+    os.environ.update({"RANK": str(rank), "WORLD_SIZE": str(world),
+                       "LOCAL_RANK": str(rank),
+                       "LOCAL_WORLD_SIZE": str(world),
+                       "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)})
+    return init_rank(rank, world, backend, None, "cuda")
+
+
+def first_ranks_comms(comm, backend: str, sizes) -> dict:
+    """{n: the CP group of ranks 0..n-1} for each of ``sizes``, made on
+    every rank in one order (``dist.new_group`` is collective over the
+    default group); None on a rank outside it."""
+    import torch.distributed as dist
+    from repro_torch.core.comm import CPComm
+
+    out = {}
+    for n in sorted(set(sizes)):
+        if n == comm.size:
+            out[n] = comm
+            continue
+        group = dist.new_group(list(range(n)))
+        out[n] = CPComm(backend, group) if comm.rank < n else None
+    return out
+
+
+def cp_island_rank(rank, world, backend, port, out_dir, ref_path, cases,
+                   decode_path):
+    """One rank of the island checks, joined through env://: each (N,
+    strategy, overlap, wire) case on the first N ranks, in f32 and bf16
+    on this rank's token slice, its outputs and gradients held against
+    the one-rank path at the same packed positions, and the K/V bytes
+    this rank handed to its ``CPComm`` per pass; then, in the same
+    group, the sharded decode of ``decode_path`` (``serve_sharded``'s,
+    :func:`sharded_decode_rows`)."""
+    import torch
+    import torch.distributed as dist
+
+    comm, dev = join_env(rank, world, backend, port)
     try:
+        comms = first_ranks_comms(comm, backend,
+                                  [c[0] for c in cases] + list(SHARDS))
         ref = torch.load(ref_path)
         q0, k0, v0, w0 = cp_inputs(torch)
         out = []
-        for strategy, overlap in cases:
-            batch = cp_batch(world, strategy, overlap)
+        for n, strategy, overlap, wire in cases:
+            cn = comms[n]
+            if cn is None:
+                continue
+            batch = cp_batch(n, strategy, overlap)
             perm = batch["perm"]
-            t_loc = perm.shape[1] // world
+            t_loc = perm.shape[1] // n
             my = slice(rank * t_loc, (rank + 1) * t_loc)
             pm = torch.from_numpy(perm[0, my])
             ok = pm >= 0
             hop = batch.get("tab_hop_fq_flags")
-            info = {"strategy": strategy, "overlap": overlap, "rank": rank,
-                    "t_loc": t_loc, "tokens": int(ok.sum()),
+            info = {"world": n, "strategy": strategy, "overlap": overlap,
+                    "wire": wire, "rank": rank, "t_loc": t_loc,
+                    "tokens": int(ok.sum()),
+                    "plan_comm_tokens": batch["stats"]["comm_tokens"],
                     "buf_len": batch["send_idx"].shape[-1],
                     "comm_tokens": int((batch["send_idx"][0, rank]
                                         >= 0).sum()),
@@ -1113,19 +1176,22 @@ def cp_island_rank(rank, world, backend, store, out_dir, ref_path, cases):
                 xs = [plan_order(torch, x, perm[0, my]).to("cuda", dtype)
                       for x in (q0, k0, v0, w0)]
                 reset_counts()
+                cn.wire_bytes = {"forward": 0, "backward": 0}
                 outs, sec = island_run(torch, batch, *xs, strategy,
-                                       overlap, comm)
+                                       overlap, cn, wire)
                 rel = {}
-                for n, x in zip(("o", "dq", "dk", "dv"), outs):
-                    want = ref[f"{name}/{n}"]
+                for x_, x in zip(("o", "dq", "dk", "dv"), outs):
+                    want = ref[f"{name}/{x_}"]
                     got = x.float()[:, :, ok.to("cuda")].cpu()
-                    rel[n] = (got - want[:, :, pm[ok]]).abs().max().item() \
+                    rel[x_] = (got - want[:, :, pm[ok]]).abs().max().item() \
                         / max(want.abs().max().item(), 1e-30)
                 out.append({**info, "dtype": name, "rel_err": rel,
-                            "seconds": sec, "launches": read_counts()})
+                            "seconds": sec, "launches": read_counts(),
+                            "wire_bytes": dict(cn.wire_bytes)})
                 del xs, outs
+        decode = sharded_decode_rows(torch, rank, comms, dev, decode_path)
         with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
-            json.dump(out, f)
+            json.dump({"islands": out, "decode": decode}, f)
     finally:
         dist.destroy_process_group()
 
@@ -1147,6 +1213,32 @@ def run_ranks(torch, fn, world: int, *args, timeout=RANK_TIMEOUT) -> list:
     return out
 
 
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_ranks_env(torch, fn, world: int, *args,
+                  timeout=RANK_TIMEOUT) -> list:
+    """:func:`run_ranks` for ranks ``fn(rank, world, backend, port,
+    out_dir, *args)`` that join through env:// (:func:`join_env`) on a
+    free localhost port."""
+    import tempfile
+    from repro_torch.launch.ranks import spawn_ranks
+
+    backend = cp_backend(torch, world)
+    with tempfile.TemporaryDirectory() as tmp:
+        spawn_ranks(fn, world, args=(world, backend, free_port(), tmp,
+                                     *args), timeout=timeout)
+        out = []
+        for r in range(world):
+            with open(Path(tmp) / f"rank{r}.json") as f:
+                out.append(json.load(f))
+    return out
+
+
 def island_launches(world: int, overlap: str) -> dict:
     """Each doc kernel's launches on one rank for one island forward and
     backward: once on the local KV and once per hop (chunked), or once
@@ -1155,14 +1247,31 @@ def island_launches(world: int, overlap: str) -> dict:
     return {name: n for name in DOC_KERNELS}
 
 
-def cp_islands_phase(torch) -> None:
+def island_gate(rows, tol: dict, what: str) -> dict:
+    """The largest relative error of each of o, dq, dk, dv over the
+    ranks' ``rows``; raises past ``tol``."""
+    err = {n: max(x["rel_err"][n] for x in rows) for n in tol}
+    if any(err[n] > tol[n] for n in tol):
+        raise AssertionError(f"CP island {what} disagrees with one rank: "
+                             f"{err}")
+    return err
+
+
+def cp_islands_phase(torch, decode_inputs: dict) -> None:
     """The CP islands at full-width starcoder2_3b attention (Hq 24, Hkv 2,
     D 128, flat tables, the CUDA kernels in partial mode) on one 32768-
-    token sequence, f32 and bf16, each case against the one-rank path;
-    per rank its tokens, Eq.-5 bucket, sent tokens and visits per hop,
-    and the K/V bytes the exchange moves (flashcp: the Eq.-5 buckets)
-    against a full-KV all-gather's."""
+    token sequence, f32 and bf16, each case against the one-rank path,
+    on the native K/V wire and (``CP_INT8``) on the int8 wire; per rank its tokens, Eq.-5 bucket, sent tokens, visits
+    per hop and the K/V bytes it handed to its ``CPComm`` (counted from
+    the tensors sent, each pass), beside the plan's Eq. 5 figure and the
+    Eq. 4 one of a full-KV exchange (``repro_torch.core.workload``).  An
+    int8 case also has its native case's launches, and sends (D + 4) /
+    (esize D) of its forward bytes and all of its backward's.  Every case
+    runs in one spawn of 4 ranks joined through env:// (N = 2 on its
+    first two ranks), which then runs ``serve_sharded``'s sharded decode
+    of ``decode_inputs`` (:func:`sharded_decode_report` gates it)."""
     import tempfile
+    from repro_torch.core.workload import comm_bytes, comm_tokens_static
 
     with tempfile.TemporaryDirectory() as tmp:
         ref = f"{tmp}/ref.pt"
@@ -1172,49 +1281,77 @@ def cp_islands_phase(torch) -> None:
         torch.cuda.empty_cache()
         emit("cp_reference", seq=CP_SEQ, step=CP_STEP,
              seconds=time.perf_counter() - t0)
-        for world in sorted({w for w, _, _ in CP_ISLANDS}, reverse=True):
-            cases = [(s, o) for w, s, o in CP_ISLANDS if w == world]
-            t0 = time.perf_counter()
-            results = [x for rank in run_ranks(torch, cp_island_rank, world,
-                                               ref, cases) for x in rank]
-            backend = cp_backend(torch, world)
-            for strategy, overlap in cases:
-                for name in ("float32", "bfloat16"):
-                    rows = [x for x in results if x["strategy"] == strategy
-                            and x["overlap"] == overlap
-                            and x["dtype"] == name]
-                    err = {n: max(x["rel_err"][n] for x in rows)
-                           for n in ("o", "dq", "dk", "dv")}
-                    buf, t_loc = rows[0]["buf_len"], rows[0]["t_loc"]
-                    esize = 4 if name == "float32" else 2
-                    kv = 2 * T_HKV * T_D * esize      # K and V of one token
-                    # a hop carries the Eq.-5 bucket (flashcp) or the
-                    # whole local KV (llama3, ring)
-                    seg = buf if strategy == "flashcp" else t_loc
-                    emit("cp_islands", world=world, backend=backend,
-                         exchange=("gloo through host memory, not NVLink"
-                                   if backend == "gloo" else "nccl"),
-                         strategy=strategy, overlap=overlap, dtype=name,
-                         tol=CP_TOL[name], rel_err=err,
-                         wire_bytes=(world - 1) * world * seg * kv,
-                         allgather_bytes=(world - 1) * world * t_loc * kv,
-                         ranks=[{k: x[k] for k in (
-                             "rank", "tokens", "t_loc", "buf_len",
-                             "comm_tokens", "visits_per_hop", "seconds",
-                             "launches")} for x in rows])
-                    if max(err.values()) > CP_TOL[name]:
-                        raise AssertionError(
-                            f"CP island {strategy}/{overlap} at N={world} "
-                            f"({name}) disagrees with one rank: {err}")
-                    want = island_launches(world, overlap)
-                    if any(x["launches"][n] != want[n] for x in rows
-                           for n in want):
-                        raise AssertionError(
-                            f"CP island {strategy}/{overlap} at N={world} "
-                            f"launched {[x['launches'] for x in rows]}, "
-                            f"want {want} per rank")
-            emit("cp_islands_spawn", world=world, backend=backend,
-                 seconds=time.perf_counter() - t0)
+        # every case in one spawn of the largest world, joined through
+        # env://; a smaller N runs on its first N ranks
+        cases = [(w, s, o, "native") for w, s, o in CP_ISLANDS] + \
+            [(w, s, o, "int8") for w, s, o in CP_INT8]
+        world = max(w for w, _, _, _ in cases)
+        torch.save(decode_inputs, f"{tmp}/decode.pt")
+        t0 = time.perf_counter()
+        ranks = run_ranks_env(torch, cp_island_rank, world, ref, cases,
+                              f"{tmp}/decode.pt")
+    backend = cp_backend(torch, world)
+    emit("cp_islands_spawn", world=world, backend=backend,
+         rendezvous="env://", seconds=time.perf_counter() - t0)
+    results = [x for r in ranks for x in r["islands"]]
+    sharded_decode_report([x for r in ranks for x in r["decode"]],
+                          decode_inputs)
+    for n, strategy, overlap, wire in cases:
+        for name in ("float32", "bfloat16"):
+            def rows_of(w):
+                return [x for x in results if x["world"] == n
+                        and x["strategy"] == strategy
+                        and x["overlap"] == overlap
+                        and x["wire"] == w and x["dtype"] == name]
+            rows = rows_of(wire)
+            what = f"{strategy}/{overlap} at N={n} ({name}, {wire} wire)"
+            tol = CP_INT8_TOL if wire == "int8" else \
+                {x: CP_TOL[name] for x in CP_INT8_TOL}
+            esize = 4 if name == "float32" else 2
+            kw = dict(dtype_bytes=esize)
+            emit("cp_islands", world=n, backend=backend,
+                 exchange=("gloo through host memory, not NVLink"
+                           if backend == "gloo" else "nccl"),
+                 strategy=strategy, overlap=overlap, wire=wire, dtype=name,
+                 tol=tol,
+                 rel_err={x: max(r["rel_err"][x] for r in rows)
+                          for x in tol},
+                 wire_bytes={p: sum(r["wire_bytes"][p] for r in rows)
+                             for p in ("forward", "backward")},
+                 eq5_bytes=comm_bytes(rows[0]["plan_comm_tokens"], n, T_HKV,
+                                      T_D, **kw),
+                 eq4_bytes=comm_bytes(comm_tokens_static(CP_SEQ, n), n,
+                                      T_HKV, T_D, **kw),
+                 seconds=max(r["seconds"] for r in rows),
+                 ranks=[{k: r[k] for k in (
+                     "rank", "tokens", "t_loc", "buf_len", "comm_tokens",
+                     "visits_per_hop", "seconds", "launches",
+                     "wire_bytes")} for r in rows])
+            if len(rows) != n:
+                raise AssertionError(f"CP island {what}: {len(rows)} ranks "
+                                     "reported")
+            island_gate(rows, tol, what)
+            want = island_launches(n, overlap)
+            if any(r["launches"][k] != want[k] for r in rows for k in want):
+                raise AssertionError(
+                    f"CP island {what} launched "
+                    f"{[r['launches'] for r in rows]}, want {want} per rank")
+            if wire == "native":
+                continue
+            native = rows_of("native")
+            if [r["launches"] for r in rows] != \
+                    [r["launches"] for r in native]:
+                raise AssertionError(f"CP island {what}: launches differ "
+                                     "from the native wire")
+            for r, y in zip(rows, native):
+                q8, nat = r["wire_bytes"], y["wire_bytes"]
+                if q8["forward"] * esize * T_D != \
+                        nat["forward"] * (T_D + 4) or \
+                        q8["backward"] != nat["backward"] or \
+                        not nat["forward"]:
+                    raise AssertionError(
+                        f"CP island {what}: rank {r['rank']} sent {q8} "
+                        f"against the native wire's {nat}")
 
 
 def cp_train_args(*extra):
@@ -2017,7 +2154,116 @@ def serve_sharded_phase(torch, serving) -> dict:
         out[shards] = launches["flash_decode"]
         del eng
     del params
+    # the sharded decode across ranks runs in cp_islands' spawn
+    out["decode_inputs"] = sharded_decode_inputs(torch, base)
     return out
+
+
+def sharded_decode_rows(torch, rank, comms, dev, inputs_path) -> list:
+    """This rank's part of the sharded decode of
+    :func:`sharded_decode_inputs`: for each rank count n in SHARDS (the
+    first n ranks, ``comms[n]``) and dtype, its S-slice of the cache and
+    per step one ``flash_decode_ranks`` call, its output held against one
+    rank's over the whole cache, its launches and seconds."""
+    from repro_torch.kernels.flash_decode import (flash_decode_ranks,
+                                                  local_lengths)
+
+    inp = torch.load(inputs_path)
+    out = []
+    for n in SHARDS:
+        if comms[n] is None:
+            continue
+        for name in ("float32", "bfloat16"):
+            q = inp[f"{name}/q"].to(dev)
+            S_l = inp[f"{name}/k"].shape[2] // n
+            ks, vs = (inp[f"{name}/{x}"][:, :, rank * S_l:(rank + 1) * S_l]
+                      .contiguous().to(dev) for x in "kv")
+            for step, lens in enumerate(inp["lengths"]):
+                ln = lens.to(dev)
+                reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                o = flash_decode_ranks(q, ks, vs, ln, comm=comms[n])
+                torch.cuda.synchronize()
+                sec = time.perf_counter() - t0
+                launches = read_counts()
+                want = inp[f"{name}/want{step}"].to(dev).float()
+                rel = (o.float() - want).abs().max().item() \
+                    / max(want.abs().max().item(), 1e-30)
+                out.append({
+                    "ranks": n, "rank": rank, "dtype": name, "step": step,
+                    "rel_err": rel, "seconds": sec, "launches": launches,
+                    "backend": comms[n].backend,
+                    "local_lengths": local_lengths(lens, rank * S_l,
+                                                   S_l).tolist()})
+    return out
+
+
+def sharded_decode_inputs(torch, base) -> dict:
+    """The sharded decode's inputs, on the host: the main path's dense
+    cache (layer 0's stripes: B 6, Hkv 2, S the engine's padded to split
+    over 4, D 128; q at Hq 24 from a seed) in f32 and bf16, two steps of
+    lengths (the main path's with row 0 moved wholly onto the first
+    shard, so the other ranks see nothing of it; then every row within
+    the first quarter, so the ranks past the first see nothing at all),
+    and one rank's normalized ``flash_decode`` over the whole cache for
+    each."""
+    from repro_torch.kernels.flash_decode import flash_decode
+
+    k0, v0 = base.cache["sub_0"]["k"][0], base.cache["sub_0"]["v"][0]
+    world = max(SHARDS)
+    pad = -k0.shape[2] % world
+    k0, v0 = (torch.nn.functional.pad(x, (0, 0, 0, pad)) for x in (k0, v0))
+    step0 = torch.tensor([100, 400, 600, 800, 1000, 1054],
+                         dtype=torch.int32)
+    lengths = [step0, step0 % (k0.shape[2] // world)]
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q0 = torch.randn((k0.shape[0], HQ, k0.shape[3]), generator=gen,
+                     device="cuda")
+    inp = {"lengths": lengths}
+    for name in ("float32", "bfloat16"):
+        dtype = getattr(torch, name)
+        q, k, v = (x.to(dtype).contiguous() for x in (q0, k0, v0))
+        inp.update({f"{name}/q": q.cpu(), f"{name}/k": k.cpu(),
+                    f"{name}/v": v.cpu()})
+        for step, lens in enumerate(lengths):
+            inp[f"{name}/want{step}"] = flash_decode(
+                q, k, v, lens.to("cuda")).cpu()
+    return inp
+
+
+def sharded_decode_report(rows, inputs: dict) -> None:
+    """Gate the sharded decode's rows: each rank's output against one
+    rank's, f32 within TOL and bf16 within DECODE_STEP_BF16_TOL, relative
+    to the largest entry; exactly one ``flash_decode`` launch per rank
+    per step; some rank saw nothing of some row."""
+    backend = rows[0]["backend"]
+    lengths = inputs["lengths"]
+    _, hkv, S, d = inputs["float32/k"].shape
+    tol = {"float32": TOL["float32"], "bfloat16": DECODE_STEP_BF16_TOL}
+    for n in SHARDS:
+        for name in ("float32", "bfloat16"):
+            mine = [x for x in rows if x["ranks"] == n
+                    and x["dtype"] == name]
+            err = max(x["rel_err"] for x in mine)
+            emit("serve_sharded_ranks", ranks=n, dtype=name,
+                 backend=backend, rendezvous="env://",
+                 exchange=("gloo through host memory, not NVLink"
+                           if backend == "gloo" else "nccl"),
+                 heads=[HQ, hkv, d], S=S,
+                 lengths=[x.tolist() for x in lengths], rel_err=err,
+                 tol=tol[name], rows=mine)
+            if err > tol[name]:
+                raise AssertionError(f"sharded decode over {n} ranks "
+                                     f"({name}) off one rank's by {err}")
+            if len(mine) != n * len(lengths) or any(
+                    x["launches"]["flash_decode"] != 1 for x in mine):
+                raise AssertionError(
+                    f"sharded decode over {n} ranks: launches "
+                    f"{[x['launches'] for x in mine]}, want one "
+                    "flash_decode per rank per step")
+    if not any(ln < 0 for x in rows for ln in x["local_lengths"]):
+        raise AssertionError("no rank saw nothing of a row")
 
 
 # ----------------------------------------------------------------------- #
@@ -3812,7 +4058,8 @@ def main() -> int:
                     for name, layout in (("flash_decode", "dense"),
                                          ("flash_decode_paged", "paged"))}
         timed(serve_resilience_phase, torch, serving)
-        timed(serve_sharded_phase, torch, serving)
+        decode_inputs = timed(serve_sharded_phase, torch,
+                              serving)["decode_inputs"]
         del serving
         gc.collect()
         torch.cuda.empty_cache()
@@ -3831,7 +4078,8 @@ def main() -> int:
         timed(smoke_train_phase, torch)
         gc.collect()
         torch.cuda.empty_cache()
-        timed(cp_islands_phase, torch)
+        timed(cp_islands_phase, torch, decode_inputs)
+        del decode_inputs
         timed(cp_train_phase, torch)
         gc.collect()
         torch.cuda.empty_cache()

@@ -141,6 +141,9 @@ class RunConfig:
     total_steps: int = 1000
     grad_clip: float = 1.0
     grad_compression: Literal["none", "topk", "int8"] = "none"
+    # the CP islands' K/V wire: int8 values with one f32 scale per
+    # (batch, head, token), straight-through gradients
+    kv_comm_dtype: Literal["native", "int8"] = "native"
     # '' = no checkpoints (the reference writes /tmp/repro_ckpt; the port
     # writes only where its caller says)
     checkpoint_dir: str = ""

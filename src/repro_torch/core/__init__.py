@@ -1,5 +1,5 @@
 """Device-independent attention substrate of the port."""
 
-from .merge import NEG, finalize_partial, merge_partials
+from .merge import NEG, finalize_partial, merge_partials, merge_partials_axis
 
-__all__ = ["NEG", "finalize_partial", "merge_partials"]
+__all__ = ["NEG", "finalize_partial", "merge_partials", "merge_partials_axis"]

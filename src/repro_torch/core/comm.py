@@ -20,6 +20,22 @@ process group (the port's counterparts of the reference's
   loss's whole-batch routing fractions): backward, the cotangents summed
   over the ranks.
 
+* The **int8 KV wire** (the reference's ``_quantized_ppermute`` and
+  ``_quantized_gather``, ``RunConfig.kv_comm_dtype="int8"``): a hop
+  started with ``int8=True``, and :func:`int8_all_gather`, send each
+  floating tensor as int8 values with one f32 scale per row of its last
+  axis (:func:`quantize_int8`) and dequantize on arrival to the sender's
+  dtype.  Their backward is the full-precision one of the native wire
+  (the inverse hop, the reduce-scatter): straight-through, so the
+  gradients are exact at the dequantized values.
+
+Each :class:`CPComm` counts the bytes of the floating and int8 tensors
+this rank sends through its hops, all-gathers and reduce-scatters, by
+pass (``wire_bytes["forward"]``, ``["backward"]``): a hop sends its
+tensors once, an all-gather this rank's piece to the N-1 other ranks, a
+reduce-scatter N-1 of its N pieces.  Integer metadata (doc/pos) is not
+counted.
+
 The backend is an explicit argument, ``"nccl"`` or ``"gloo"``, never
 inferred.  With NCCL the transfers run on the process group's own NCCL
 stream: starting a transfer orders that stream after the current one, and waiting
@@ -39,6 +55,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["CPComm", "hop_start", "hop_wait", "all_gather_tiled",
+           "int8_all_gather", "quantize_int8", "dequantize_int8",
            "all_to_all_tiled", "all_reduce_sum", "all_reduce_",
            "broadcast_"]
 
@@ -56,6 +73,14 @@ class CPComm:
         self.group = group
         self.rank = dist.get_rank(group)
         self.size = dist.get_world_size(group)
+        self.wire_bytes = {"forward": 0, "backward": 0}
+
+    def count(self, tag: str, xs, factor: float = 1.0) -> None:
+        """Add ``factor`` x the bytes of the floating and int8 tensors of
+        ``xs`` to ``wire_bytes[tag]``."""
+        n = sum(x.numel() * x.element_size() for x in xs
+                if x.is_floating_point() or x.dtype == torch.int8)
+        self.wire_bytes[tag] += int(n * factor)
 
     def _global(self, r: int) -> int:
         r %= self.size
@@ -65,9 +90,12 @@ class CPComm:
     def _host_wire(self, x: torch.Tensor) -> bool:
         return self.backend == "gloo" and x.device.type != "cpu"
 
-    def start(self, xs, shift: int = 1) -> "_Transfer":
+    def start(self, xs, shift: int = 1, tag: str = "forward"
+              ) -> "_Transfer":
         """Send each of ``xs`` to rank r+shift and receive the same shapes
-        from rank r-shift; returns the transfer in flight."""
+        from rank r-shift; returns the transfer in flight.  ``tag`` is
+        the pass whose ``wire_bytes`` count it."""
+        self.count(tag, xs)
         send, recv, ops = [], [], []
         to, frm = self._global(self.rank + shift), \
             self._global(self.rank - shift)
@@ -83,9 +111,10 @@ class CPComm:
         works = dist.batch_isend_irecv(ops) if ops else []
         return _Transfer(works, send, recv, [x.device for x in xs])
 
-    def exchange(self, xs, shift: int = 1) -> list[torch.Tensor]:
+    def exchange(self, xs, shift: int = 1, tag: str = "forward"
+                 ) -> list[torch.Tensor]:
         """:meth:`start` and wait: the received tensors."""
-        return self.start(xs, shift).wait()
+        return self.start(xs, shift, tag).wait()
 
 
 class _Transfer:
@@ -103,21 +132,46 @@ class _Transfer:
         return [b.to(d) for b, d in zip(self.recv, self.devices)]
 
 
+def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(q8, scale)`` of ``x``, one scale per row of its last axis (per
+    (batch, head, token) of a K/V tensor), computed in f32:
+    ``scale = max|x| / 127`` floored at 1e-8, ``q8 = clamp(round(x /
+    scale), -127, 127)`` (round half to even, as ``jnp.round``)."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1, keepdim=True) / 127.0,
+                        min=1e-8)
+    q8 = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q8, scale
+
+
+def dequantize_int8(q8: torch.Tensor, scale: torch.Tensor,
+                    dtype: torch.dtype) -> torch.Tensor:
+    return (q8.float() * scale).to(dtype)
+
+
 class _Hop:
     """A ring hop's state between :func:`hop_start` and :func:`hop_wait`."""
 
-    def __init__(self, comm: CPComm):
+    def __init__(self, comm: CPComm, int8: bool):
         self.comm = comm
+        self.int8 = int8
         self.transfer = None
 
 
 class _HopStart(torch.autograd.Function):
     """Start the hop; outputs are placeholders of the inputs' shapes that
-    only :class:`_HopWait` reads."""
+    only :class:`_HopWait` reads.  On the int8 wire each floating input
+    goes as its ``(q8, scale)`` pair."""
 
     @staticmethod
     def forward(ctx, hop, *xs):
-        hop.transfer = hop.comm.start(xs)
+        wire = []
+        for x in xs:
+            if hop.int8 and x.is_floating_point():
+                wire.extend(quantize_int8(x))
+            else:
+                wire.append(x)
+        hop.transfer = hop.comm.start(wire)
         # one-element views of the inputs' shapes: the data arrives in
         # _HopWait
         outs = tuple(x.new_empty(()).expand_as(x) for x in xs)
@@ -140,8 +194,12 @@ class _HopWait(torch.autograd.Function):
     def forward(ctx, hop, *placeholders):
         ctx.comm = hop.comm
         ctx.floating = [p.is_floating_point() for p in placeholders]
-        outs = tuple(hop.transfer.wait())
+        got = iter(hop.transfer.wait())
         hop.transfer = None
+        outs = tuple(
+            dequantize_int8(next(got), next(got), p.dtype)
+            if hop.int8 and p.is_floating_point() else next(got)
+            for p in placeholders)
         ctx.mark_non_differentiable(*(o for o in outs
                                       if not o.is_floating_point()))
         return outs
@@ -149,17 +207,19 @@ class _HopWait(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):
         idx = [i for i, f in enumerate(ctx.floating) if f]
-        back = ctx.comm.exchange([grads[i] for i in idx], shift=-1)
+        back = ctx.comm.exchange([grads[i] for i in idx], shift=-1,
+                                 tag="backward")
         out = [None] * len(grads)
         for i, g in zip(idx, back):
             out[i] = g
         return (None, *out)
 
 
-def hop_start(comm: CPComm, xs) -> tuple:
+def hop_start(comm: CPComm, xs, *, int8: bool = False) -> tuple:
     """Start one ring hop of the tensors ``xs`` (to rank r+1, from rank
-    r-1).  Returns the handle for :func:`hop_wait`."""
-    hop = _Hop(comm)
+    r-1); ``int8`` sends the floating ones on the int8 wire.  Returns
+    the handle for :func:`hop_wait`."""
+    hop = _Hop(comm, int8)
     return hop, _HopStart.apply(hop, *xs)
 
 
@@ -169,9 +229,11 @@ def hop_wait(handle) -> tuple:
     return _HopWait.apply(hop, *placeholders)
 
 
-def _along(x, comm: CPComm, dim: int, gather: bool):
+def _along(x, comm: CPComm, dim: int, gather: bool, tag: str = "forward"):
     """All-gather (``gather``) or reduce-scatter (sum) ``x`` along
     ``dim``, tiled in rank order."""
+    n = comm.size
+    comm.count(tag, (x,), (n - 1) if gather else (n - 1) / n)
     xt = x.detach().movedim(dim, 0).contiguous()
     host = comm._host_wire(xt)
     wire = xt.cpu() if host else xt
@@ -193,7 +255,21 @@ class _AllGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _along(g, ctx.comm, ctx.dim, gather=False), None, None
+        return _along(g, ctx.comm, ctx.dim, gather=False,
+                      tag="backward"), None, None
+
+
+class _Int8AllGather(_AllGather):
+    """The all-gather on the int8 wire; the backward is the inherited
+    full-precision reduce-scatter of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, comm, dim):
+        ctx.comm, ctx.dim = comm, dim
+        q8, scale = quantize_int8(x)
+        return dequantize_int8(_along(q8, comm, dim, gather=True),
+                               _along(scale, comm, dim, gather=True),
+                               x.dtype)
 
 
 def all_gather_tiled(x: torch.Tensor, comm: CPComm, dim: int) -> torch.Tensor:
@@ -202,6 +278,17 @@ def all_gather_tiled(x: torch.Tensor, comm: CPComm, dim: int) -> torch.Tensor:
     if not x.is_floating_point():
         return _along(x, comm, dim, gather=True)
     return _AllGather.apply(x, comm, dim)
+
+
+def int8_all_gather(x: torch.Tensor, comm: CPComm, dim: int) -> torch.Tensor:
+    """:func:`all_gather_tiled` of a floating ``x`` on the int8 wire:
+    every rank's ``x``, quantized per row of the last axis (which ``dim``
+    must not be), dequantized to ``x.dtype``; the backward reduce-scatters
+    the full-precision cotangent."""
+    if dim in (-1, x.dim() - 1):
+        raise ValueError("the int8 wire scales the last axis: gather "
+                         "along another")
+    return _Int8AllGather.apply(x, comm, dim)
 
 
 def _a2a(x, comm: CPComm, split_dim: int, concat_dim: int):

@@ -30,6 +30,14 @@ replicated.  The backward is autograd through the hops and gathers:
 each hop sends its cotangent back along the inverse permutation, and
 the all-gather's backward is a reduce-scatter.
 
+``kv_comm_dtype="int8"`` (the reference's quantized KV wire) sends K and
+V on the int8 wire of :mod:`repro_torch.core.comm` wherever an island
+moves them by hop or all-gather (every island but the plain ring loop,
+as in the reference); doc/pos metadata stays native.  A hop
+re-quantizes the dequantized buffer it forwards, as the reference's
+``_wire_permute`` does.  The backward is the native wire's, so the
+gradients are exact at the dequantized K/V.
+
 ``impl`` picks the kernel: ``"flash"`` runs the CUDA training kernels in
 partial mode over the pipeline's ``tab_*`` visit tables (the reference's
 ``"pallas"``); ``"plain"`` the chunked dense attention (its ``"xla"``).
@@ -74,7 +82,7 @@ from repro_torch.models.context import (ExecContext, local_selective_scan,
                                         local_ssm_scan)
 from repro_torch.table_layout import table_keys
 from .comm import (CPComm, all_gather_tiled, all_reduce_sum,
-                   all_to_all_tiled, hop_start, hop_wait)
+                   all_to_all_tiled, hop_start, hop_wait, int8_all_gather)
 from .merge import NEG, _merge_step, finalize_partial
 
 __all__ = ["make_cp_context", "resolve_overlap", "STRATEGIES"]
@@ -150,10 +158,12 @@ def _masked_attention(q, k, v, q_doc, q_pos, kv_doc, kv_pos, *, impl,
 # ===================================================================== #
 # chunked exchange: attend each arriving buffer while the next one flies
 # ===================================================================== #
-def _run_hops(comm, init_fn, payload, n_hops, attend, hop_tables=None):
+def _run_hops(comm, init_fn, payload, n_hops, attend, hop_tables=None,
+              int8=False):
     """Ring-rotate ``payload = (kc, vc, dc, pc)`` for ``n_hops`` hops,
     merging ``attend(kc, vc, dc, pc, tables)`` partials onto
-    ``init_fn()`` (the local-KV partial).
+    ``init_fn()`` (the local-KV partial); ``int8`` sends kc and vc on the
+    int8 wire.
 
     Hop 1 is started before ``init_fn`` runs, so it flies under the local
     partial; each arrived buffer is forwarded before it is attended, so
@@ -163,12 +173,12 @@ def _run_hops(comm, init_fn, payload, n_hops, attend, hop_tables=None):
     of rank (me - h) mod N, whose tables are ``hop_tables[:, h - 1]``."""
     if n_hops <= 0:
         return init_fn()
-    handle = hop_start(comm, payload)
+    handle = hop_start(comm, payload, int8=int8)
     acc = init_fn()
     for h in range(n_hops):
         cur = hop_wait(handle)
         if h + 1 < n_hops:
-            handle = hop_start(comm, cur)
+            handle = hop_start(comm, cur, int8=int8)
         tabs = None if hop_tables is None else \
             tuple(t[:, h].contiguous() for t in hop_tables)
         acc = _merge_step(acc, attend(*cur, tabs))
@@ -179,7 +189,7 @@ def _run_hops(comm, init_fn, payload, n_hops, attend, hop_tables=None):
 # islands (one rank's view)
 # ===================================================================== #
 def _flashcp_island_chunked(q, k, v, doc, pos, sidx, gath_doc, gath_pos, *,
-                            comm, attend, loc_tables, hop_tables):
+                            comm, attend, loc_tables, hop_tables, int8):
     """The Eq.-5 buffer in N-1 hops.  The N-1 hops visit exactly the
     other ranks, so no self-segment masking is needed."""
     if comm is None:                 # one rank: the local partial alone
@@ -190,20 +200,24 @@ def _flashcp_island_chunked(q, k, v, doc, pos, sidx, gath_doc, gath_pos, *,
                gath_pos[:, me * buf:(me + 1) * buf].contiguous())
     part = _run_hops(
         comm, lambda: attend(k, v, doc, pos, loc_tables), payload, N - 1,
-        attend, hop_tables)
+        attend, hop_tables, int8)
     return finalize_partial(part, q.dtype)
 
 
+def _kv_gather(int8: bool):
+    return int8_all_gather if int8 else all_gather_tiled
+
+
 def _flashcp_island(q, k, v, doc, pos, sidx, gath_doc, gath_pos, *, comm,
-                    masked, tables):
+                    masked, tables, int8):
     """The Eq.-5 buffers all-gathered, attended once beside the local KV;
     this rank's own gathered segment is masked as doc -2."""
     me = 0 if comm is None else comm.rank
     buf = sidx.shape[-1]
     ksel, vsel = _take_tokens(k, sidx), _take_tokens(v, sidx)
     if comm is not None:
-        ksel = all_gather_tiled(ksel, comm, 2)
-        vsel = all_gather_tiled(vsel, comm, 2)
+        gather = _kv_gather(int8)
+        ksel, vsel = gather(ksel, comm, 2), gather(vsel, comm, 2)
     seg = torch.arange(gath_doc.shape[1], device=gath_doc.device) // buf
     gdoc = torch.where((seg == me)[None, :], -2, gath_doc)
     return masked(q, torch.cat([k, ksel], 2), torch.cat([v, vsel], 2),
@@ -211,10 +225,11 @@ def _flashcp_island(q, k, v, doc, pos, sidx, gath_doc, gath_pos, *, comm,
                   torch.cat([pos, gath_pos], 1).contiguous(), tables=tables)
 
 
-def _allgather_island(q, k, v, doc, pos, *, comm, masked, tables):
+def _allgather_island(q, k, v, doc, pos, *, comm, masked, tables, int8):
     """Full-KV all-gather (Eq. 4), attended once."""
     if comm is not None:
-        k, v = all_gather_tiled(k, comm, 2), all_gather_tiled(v, comm, 2)
+        gather = _kv_gather(int8)
+        k, v = gather(k, comm, 2), gather(v, comm, 2)
         kd, kp = (all_gather_tiled(t, comm, 1) for t in (doc, pos))
     else:
         kd, kp = doc, pos
@@ -222,11 +237,11 @@ def _allgather_island(q, k, v, doc, pos, *, comm, masked, tables):
 
 
 def _gather_island_chunked(q, k, v, doc, pos, *, comm, attend, loc_tables,
-                           hop_tables):
+                           hop_tables, int8):
     """Full local KV ring-rotated in N-1 hops on the merge substrate."""
     N = 1 if comm is None else comm.size
     part = _run_hops(comm, lambda: attend(k, v, doc, pos, loc_tables),
-                     (k, v, doc, pos), N - 1, attend, hop_tables)
+                     (k, v, doc, pos), N - 1, attend, hop_tables, int8)
     return finalize_partial(part, q.dtype)
 
 
@@ -380,7 +395,8 @@ def make_cp_context(plan_arrays: dict[str, Any], *,
     ``doc``/``pos`` and its ``attn(q, k, v)`` are this rank's token
     slice.  ``world`` is the group of every rank that holds tokens of
     the batch (data x model), over which the MoE routing statistics are
-    summed; None: this rank's CP group.
+    summed; None: this rank's CP group.  ``kv_comm_dtype`` is the K/V
+    wire, ``"native"`` or ``"int8"``.
     """
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown CP strategy {strategy!r}; have "
@@ -390,10 +406,10 @@ def make_cp_context(plan_arrays: dict[str, Any], *,
                          "'plain'")
     if grid not in ("rect", "flat"):
         raise ValueError(f"unknown kernel grid {grid!r}")
-    if kv_comm_dtype != "native":
-        raise NotImplementedError(
-            f"kv_comm_dtype={kv_comm_dtype!r}: the int8 KV wire comes with "
-            "a later slice of the port (the quantized exchange)")
+    if kv_comm_dtype not in ("native", "int8"):
+        raise ValueError(f"unknown kv_comm_dtype {kv_comm_dtype!r}; use "
+                         "'native' or 'int8'")
+    int8 = kv_comm_dtype == "int8"
     overlap = resolve_overlap(strategy, impl, overlap)
     N = plan_arrays["send_idx"].shape[1] if "send_idx" in plan_arrays else 1
     if N > 1 and comm is None:
@@ -459,19 +475,21 @@ def make_cp_context(plan_arrays: dict[str, Any], *,
             if flashcp:
                 return _flashcp_island_chunked(
                     q, k, v, doc_l, pos_l, sidx, gd, gp, comm=comm,
-                    attend=attend, loc_tables=loc, hop_tables=hop)
+                    attend=attend, loc_tables=loc, hop_tables=hop,
+                    int8=int8)
             return _gather_island_chunked(q, k, v, doc_l, pos_l, comm=comm,
                                           attend=attend, loc_tables=loc,
-                                          hop_tables=hop)
+                                          hop_tables=hop, int8=int8)
         mono = tables()
         if flashcp:
             return _flashcp_island(q, k, v, doc_l, pos_l, sidx, gd, gp,
-                                   comm=comm, masked=masked, tables=mono)
+                                   comm=comm, masked=masked, tables=mono,
+                                   int8=int8)
         if strategy in ("ring", "ring_zigzag"):
             return _ring_island(q, k, v, doc_l, pos_l, comm=comm,
                                 q_chunk=q_chunk, scale=scale)
         return _allgather_island(q, k, v, doc_l, pos_l, comm=comm,
-                                 masked=masked, tables=mono)
+                                 masked=masked, tables=mono, int8=int8)
 
     world = world or comm
     extras = {"ep_dispatch": _make_ep_dispatch(comm)}

@@ -4,24 +4,25 @@ reference's ``repro.data.pipeline``).
 Per batch, per packed sequence:
   1. draw document lengths from the dataset distribution (seeded);
   2. resolve the configured CP planner through the
-     :mod:`repro_torch.planner` registry and plan, one sequence after
-     the other, through a :class:`~repro_torch.planner.cache.PlanCache`
-     at exact signatures;
+     :mod:`repro_torch.planner` registry and plan the batch's sequences
+     on the planner pool (:func:`~repro_torch.planner.parallel.plan_many`,
+     ``planner_workers`` threads; results in row order), through a
+     :class:`~repro_torch.planner.cache.PlanCache` unless
+     ``cache_plans`` is off;
   3. encode the plans (permutation + Eq.-5 comm metadata,
-     :func:`~repro_torch.planner.encode.encode_plan_batch`);
+     :func:`~repro_torch.planner.encode.encode_plan_batch`; the bucket
+     is ``buf_len`` where fixed, else chosen per batch);
   4. synthesize tokens and next-token labels in *plan order*, and (for
      the kernels) emit the per-rank visit tables.
 
 The stream for (seed, dp_rank, step) draws from the same seeded
 ``PCG64`` as the reference, in the same order, and plans through copies
-of the same planners, so batches match it bit for bit at any CP size
-(the reference with its default planner settings and serial planning).
-The reference's planner knobs are constants here until a caller of the
-port needs another value: the Eq.-5 bucket is chosen per batch and the
-plan cache holds :data:`PLAN_CACHE_ENTRIES` exact signatures; the target
-imbalance is ``PipelineConfig.target_imbalance`` (the straggler monitor
-tightens it).  :class:`Prefetcher` builds the stream ahead on a
-background thread.
+of the same planners with the same knobs (``buf_len``, ``cache_plans``,
+``cache_granularity``, ``cache_entries``, ``planner_workers``, the
+reference's defaults), so batches match it bit for bit at any CP size.
+The target imbalance is ``PipelineConfig.target_imbalance`` (the
+straggler monitor tightens it).  :class:`Prefetcher` builds the stream
+ahead on a background thread.
 
 **Global dispatch** (:func:`make_dispatch_batch`, DESIGN.md §Dispatch):
 one seeded pool of documents per global step, which the
@@ -45,7 +46,7 @@ import numpy as np
 
 from repro_torch.core.cp_attention import resolve_overlap
 from repro_torch.planner import (PlanCache, emit_visit_tables,
-                                 encode_plan_batch, get_planner)
+                                 encode_plan_batch, get_planner, plan_many)
 from .distributions import make_rng
 from .packing import pack_sequence, sample_doc_pool
 
@@ -56,8 +57,6 @@ __all__ = ["PipelineConfig", "make_batch", "make_dispatch_batch",
 #: the dp_rank of the global-dispatch stream: real ranks are >= 0, so a
 #: dispatch batch never draws a per-rank stream
 DISPATCH_RANK = -1
-# least-recently-used plans kept per pipeline configuration
-PLAN_CACHE_ENTRIES = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,10 +68,17 @@ class PipelineConfig:
     strategy: str = "flashcp"
     vocab_size: int = 50304
     seed: int = 0
+    buf_len: int | None = None   # fixed Eq.5 bucket (None -> per-batch)
     align: int = 128             # T_loc alignment (kernel block size)
     # the FlashCP heuristic's target max/mean load ratio (planners that
     # take one)
     target_imbalance: float = 1.05
+    # planner knobs: the plan cache (1 = exact signatures, plan-identical
+    # to no cache) and the planning threads (0 = auto)
+    cache_plans: bool = True
+    cache_granularity: int = 1
+    cache_entries: int = 256
+    planner_workers: int = 0
     # visit-table emission (attention_impl="flash" steps)
     emit_tables: bool = False
     table_overlap: str = "chunked"   # matches RunConfig.cp_overlap
@@ -89,16 +95,27 @@ def exec_style_of(strategy: str) -> str:
 
 
 @functools.lru_cache(maxsize=32)
-def _plan_cache(cfg: PipelineConfig) -> PlanCache:
-    """The plan cache of a config, made once (a config differs by its
-    CP size, its strategy and its target imbalance: each keeps its own
-    plans)."""
+def _planner_state(cfg: PipelineConfig):
+    """(planner, kwargs, cache or None) of a config, made once (configs
+    that differ in CP size, strategy, target imbalance or cache knobs
+    keep their own plans)."""
     planner = get_planner(cfg.strategy)
     kwargs = {}
     if planner.info.supports_target_ratio:
         kwargs["target_ratio"] = cfg.target_imbalance
-    return PlanCache(planner, cfg.cp_size, max_entries=PLAN_CACHE_ENTRIES,
-                     planner_kwargs=kwargs)
+    cache = PlanCache(planner, cfg.cp_size,
+                      granularity=cfg.cache_granularity,
+                      max_entries=cfg.cache_entries,
+                      planner_kwargs=kwargs) if cfg.cache_plans else None
+    return planner, kwargs, cache
+
+
+def _plan_rows(cfg: PipelineConfig, doc_lens_list) -> list:
+    """The plans of a batch's rows, in row order, on the planner pool."""
+    planner, kwargs, cache = _planner_state(cfg)
+    fn = cache.plan if cache is not None else \
+        (lambda lens: planner(lens, cfg.cp_size, **kwargs))
+    return plan_many(fn, doc_lens_list, workers=cfg.planner_workers)
 
 
 def _synthesize_row(tokens_row, labels_row, lens, perm, rng,
@@ -157,14 +174,15 @@ def _emit_tables(cfg: PipelineConfig, stack: dict,
         block_q=cfg.table_block_q, block_k=cfg.table_block_k)
 
 
-def _batch_stats(encs, doc_lens_list, cache: PlanCache) -> dict:
+def _batch_stats(encs, doc_lens_list, cache: PlanCache | None) -> dict:
     return {
         "comm_tokens": max(e.comm_tokens for e in encs),
         "buf_len": encs[0].buf_len,
         "t_loc": encs[0].t_loc,
         "imbalance": float(np.mean([e.imbalance for e in encs])),
         "num_docs": float(np.mean([len(l) for l in doc_lens_list])),
-        "plan_cache_hit_rate": cache.stats.hit_rate,
+        "plan_cache_hit_rate":
+            cache.stats.hit_rate if cache is not None else 0.0,
     }
 
 
@@ -175,9 +193,9 @@ def make_batch(cfg: PipelineConfig, step: int,
     rng = make_rng(hash((cfg.seed, dp_rank, step)) % (2 ** 63))
     doc_lens_list = [pack_sequence(cfg.dataset, cfg.context_len, rng)
                      for _ in range(cfg.batch_per_host)]
-    cache = _plan_cache(cfg)
-    plans = [cache.plan(lens) for lens in doc_lens_list]
-    stack, encs = encode_plan_batch(plans, align=cfg.align)
+    plans = _plan_rows(cfg, doc_lens_list)
+    stack, encs = encode_plan_batch(plans, buf_len=cfg.buf_len,
+                                    align=cfg.align)
     tokens, labels = _synthesize_tokens(doc_lens_list, stack["perm"], rng,
                                         cfg.vocab_size)
     batch = dict(stack)
@@ -185,7 +203,8 @@ def make_batch(cfg: PipelineConfig, step: int,
         batch.update(_emit_tables(cfg, stack, cfg.cp_size))
     batch["tokens"] = tokens
     batch["labels"] = labels
-    batch["stats"] = _batch_stats(encs, doc_lens_list, cache)
+    batch["stats"] = _batch_stats(encs, doc_lens_list,
+                                  _planner_state(cfg)[2])
     return batch
 
 
@@ -221,9 +240,9 @@ def make_dispatch_batch(cfg: PipelineConfig, dcfg, step: int,
         raise ValueError("dispatch made an empty sequence bin (the pool "
                          "is too small for the batch)")
     gcfg = dataclasses.replace(cfg, cp_size=g)
-    cache = _plan_cache(gcfg)
-    plans = [cache.plan(lens) for lens in dplan.rows]
-    stack, encs = encode_plan_batch(plans, t_loc=cfg.context_len // g,
+    plans = _plan_rows(gcfg, dplan.rows)
+    stack, encs = encode_plan_batch(plans, buf_len=cfg.buf_len,
+                                    t_loc=cfg.context_len // g,
                                     align=cfg.align)
     # per-row streams keyed to the row's pool documents (int tuples hash
     # the same in every process)
@@ -240,7 +259,7 @@ def make_dispatch_batch(cfg: PipelineConfig, dcfg, step: int,
     batch["seq_tokens"] = np.asarray([int(r.sum()) for r in dplan.rows],
                                      np.int32)
     batch["group_id"] = dplan.group_of_row.astype(np.int32)
-    batch["stats"] = _batch_stats(encs, dplan.rows, cache)
+    batch["stats"] = _batch_stats(encs, dplan.rows, _planner_state(gcfg)[2])
     batch["stats"]["dispatch"] = {**dplan.stats(),
                                   "profile": dplan.profile.as_dict()}
     return batch

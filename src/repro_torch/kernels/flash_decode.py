@@ -20,6 +20,11 @@ Wrappers and the kernels behind them (``csrc/flash_decode.cu``, built by
   is its plain form).
 * :func:`flash_decode_sharded` — the cache's S axis split into shards,
   one partial each, merged on the online-LSE substrate.
+* :func:`flash_decode_ranks` — the same across the ranks of a process
+  group: each rank holds one S-slice of the cache, runs
+  :func:`flash_decode` in partial mode on it, and the ranks merge with
+  :func:`repro_torch.core.merge.merge_partials_axis` (the reference's
+  ``tests/multidevice/decode_cp_check.py``).
 * :func:`flash_decode_paged` — the KV lives in a global block pool
   (Hkv, num_blocks * block_size, D) and ``tables`` (B, nk) maps each
   request's logical block to its physical one.  On the card it is
@@ -40,10 +45,13 @@ import ctypes
 
 import torch
 
-from repro_torch.core.merge import NEG, finalize_partial, merge_partials
+from repro_torch.core.comm import CPComm
+from repro_torch.core.merge import (NEG, finalize_partial, merge_partials,
+                                    merge_partials_axis)
 from repro_torch.device import sm_count
 
-__all__ = ["flash_decode", "flash_decode_sharded", "flash_decode_paged",
+__all__ = ["flash_decode", "flash_decode_sharded", "flash_decode_ranks",
+           "local_lengths", "flash_decode_paged",
            "decode_reference", "decode_partial_reference",
            "paged_decode_reference", "paged_decode_split_plain",
            "paged_split_plan", "dense_split_plan", "decode_split_plain",
@@ -320,11 +328,33 @@ def flash_decode_sharded(q, k, v, lengths, *, shards: int, scale=None):
     Sl = S // shards
     parts = []
     for s in range(shards):
-        local_len = torch.clamp(lengths - s * Sl, -1, Sl - 1).to(torch.int32)
         parts.append(flash_decode(
             q, k[:, :, s * Sl:(s + 1) * Sl], v[:, :, s * Sl:(s + 1) * Sl],
-            local_len, scale=scale, partial=True))
+            local_lengths(lengths, s * Sl, Sl), scale=scale, partial=True))
     return finalize_partial(merge_partials(parts), q.dtype)
+
+
+def local_lengths(lengths, offset: int, shard_len: int):
+    """The inclusive lengths of a cache shard at positions [offset,
+    offset + shard_len): the global length minus the offset, clamped to
+    [-1, shard_len - 1] (-1: nothing of the row lies in the shard)."""
+    return torch.clamp(lengths - offset, -1, shard_len - 1).to(torch.int32)
+
+
+def flash_decode_ranks(q, k, v, lengths, *, comm: CPComm | None,
+                       scale=None):
+    """Decode attention over a cache whose S axis is split over the
+    ranks of ``comm``: this rank holds positions [r*S_l, (r+1)*S_l) as
+    ``k``, ``v`` (B, Hkv, S_l, D); ``q`` and the global ``lengths`` are
+    the same on every rank.  One :func:`flash_decode` partial against
+    the shard's local lengths, merged over the ranks by
+    :func:`merge_partials_axis`; every rank returns the normalized
+    output.  ``comm=None`` is one rank holding the whole cache."""
+    rank = 0 if comm is None else comm.rank
+    S_l = k.shape[2]
+    part = flash_decode(q, k, v, local_lengths(lengths, rank * S_l, S_l),
+                        scale=scale, partial=True)
+    return finalize_partial(merge_partials_axis(part, comm), q.dtype)
 
 
 def flash_decode_paged(q, k_pool, v_pool, lengths, tables, *,

@@ -9,7 +9,11 @@ in order by default, so rank r sits at ``(r // model, r % model)``; an
 explicit list lays a grid over a subset of the ranks (the survivors of
 an elastic shrink, DESIGN.md §Recovery).  :func:`make_group_mesh`
 re-tiles a grid into CP groups of a smaller degree (the adaptive
-dispatcher's tilings, DESIGN.md §Dispatch).
+dispatcher's tilings, DESIGN.md §Dispatch).  :func:`make_production_mesh`
+is the reference's production grid, 16 x 16 over a default group of 256
+ranks (``train.py --mesh prod``); with one rank per GPU and the ranks of
+a node numbered together, as ``torchrun`` numbers them, a ``model`` row
+of 16 spans two 8-GPU nodes.
 
 ``dist.new_group`` is collective over the default group: every rank,
 inside the grid or not, makes every group of every grid in the same
@@ -19,14 +23,19 @@ the same order, and a rank outside a grid gets None.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-__all__ = ["AXES", "make_local_mesh", "make_group_mesh", "mesh_axes",
-           "mesh_coords", "mesh_world"]
+__all__ = ["AXES", "make_local_mesh", "make_group_mesh",
+           "make_production_mesh", "production_grid", "PRODUCTION_SHAPE",
+           "mesh_axes", "mesh_coords", "mesh_world"]
 
 AXES = ("data", "model")
+#: the reference's production mesh of one pod
+PRODUCTION_SHAPE = (16, 16)
 
 # the group of every rank of a grid over a subset of the ranks, by the
 # id of its mesh (the mesh is kept alive with it)
@@ -88,6 +97,34 @@ def make_group_mesh(data: int, model: int, cp_degree: int, *,
                          f"axis {model}")
     return make_local_mesh(data * model // cp_degree, cp_degree,
                            device_type=device_type, ranks=ranks)
+
+
+def production_grid() -> torch.Tensor:
+    """The rank at each coordinate of the production mesh: the default
+    group's ranks row-major over ``(data, model)``, the reference's
+    device order."""
+    return torch.arange(math.prod(PRODUCTION_SHAPE)).reshape(PRODUCTION_SHAPE)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str) -> DeviceMesh:
+    """The reference's production mesh over the default process group,
+    which must hold exactly its 256 ranks: ``data x model`` = 16 x 16,
+    rank r at ``(r // 16, r % 16)``.  The two-pod 2 x 16 x 16 form needs
+    ``pod`` as a batch axis of the training layout, which the port's
+    loop does not have: it is refused."""
+    if multi_pod:
+        raise NotImplementedError(
+            "the 2x16x16 multi-pod mesh: the port's training layout has "
+            "no pod batch axis (ROADMAP.md, Queue 1)")
+    grid = production_grid()
+    world = dist.get_world_size()
+    if world != grid.numel():
+        raise ValueError(
+            f"the production mesh {'x'.join(map(str, grid.shape))} needs "
+            f"a world of {grid.numel()} ranks, got {world}")
+    return make_local_mesh(*grid.shape, device_type=device_type,
+                           ranks=grid.flatten().tolist())
 
 
 def mesh_axes(mesh: DeviceMesh) -> dict:

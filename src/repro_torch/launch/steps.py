@@ -152,6 +152,7 @@ def build_train_step(cfg: ModelConfig, run: RunConfig, *, q_chunk: int = 512,
             impl=run.attention_impl, head_dim=cfg.resolved_head_dim,
             q_chunk=q_chunk, overlap=run.cp_overlap, block_q=block_q,
             block_k=block_k, grid=run.kernel_grid,
+            kv_comm_dtype=run.kv_comm_dtype,
             comm=None if zero is None else zero.cp,
             world=None if zero is None else zero.world)
 

@@ -8,7 +8,15 @@ CUDA kernels, AdamW with an fp32 master) and the checkpoints.
 starts itself (``torch.multiprocessing``, a ``FileStore`` rendezvous in
 a temporary directory), with the backend named by ``--dist-backend``;
 rank r runs on ``cuda:(r % device_count)``, or on the CPU with
-``--device cpu``.  The batch rows go over ``data``, each row's tokens
+``--device cpu``.  Under ``torchrun`` (its ``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT`` set) every process
+is one rank: it joins through ``env://`` on ``cuda:LOCAL_RANK`` and
+starts nothing, so a job spans nodes; ``--mesh prod`` is the reference's
+16 x 16 production mesh (256 ranks):
+
+    torchrun --nnodes 2 --nproc-per-node 4 --rdzv-backend c10d \
+        --rdzv-endpoint HOST:29500 -m repro_torch.launch.train \
+        --mesh 2x4 --dist-backend nccl --seq-len 8192 --batch 2  The batch rows go over ``data``, each row's tokens
 over ``model`` (context parallelism through the CP islands), and the
 parameters and optimizer state are sharded over both (ZeRO-3).
 CPU-scale examples (the kernels' plain twins on CPU tensors):
@@ -85,9 +93,10 @@ from repro_torch.data.pipeline import (PipelineConfig, Prefetcher, make_batch,
                                        make_dispatch_batch)
 from repro_torch.device import resolve_device
 from repro_torch.dispatch import DispatchConfig
-from repro_torch.launch.mesh import (make_group_mesh, make_local_mesh,
+from repro_torch.launch.mesh import (PRODUCTION_SHAPE, make_group_mesh,
+                                     make_local_mesh, make_production_mesh,
                                      mesh_axes, mesh_world)
-from repro_torch.launch.ranks import init_rank, spawn_ranks
+from repro_torch.launch.ranks import env_rank, init_rank, spawn_ranks
 from repro_torch.launch.steps import (batch_to_device, build_train_step,
                                       effective_strategy, frontend_keys)
 from repro_torch.models import init_params
@@ -103,12 +112,15 @@ __all__ = ["train", "build_parser", "main", "parse_mesh",
 
 
 def parse_mesh(mesh: str) -> tuple[int, int]:
-    """``"DxM"`` -> (data, model)."""
+    """``"DxM"`` -> (data, model); ``"prod"`` -> the production mesh's
+    (16, 16)."""
+    if mesh == "prod":
+        return PRODUCTION_SHAPE
     try:
         data, model = (int(x) for x in mesh.lower().split("x"))
     except ValueError:
-        raise ValueError(f"--mesh {mesh!r}: expected DxM, e.g. 2x4") \
-            from None
+        raise ValueError(f"--mesh {mesh!r}: expected DxM, e.g. 2x4, or "
+                         "prod") from None
     if data < 1 or model < 1:
         raise ValueError(f"--mesh {mesh}: both axes must be >= 1")
     return data, model
@@ -623,7 +635,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     ap.add_argument("--mesh", default="1x1",
-                    help="DxM: data x model (CP) axes")
+                    help="DxM: data x model (CP) axes, or prod (16x16)")
     ap.add_argument("--dispatch", action="store_true",
                     help="adaptive DP x CP dispatch: per batch, CP groups "
                          "of a degree sized to its documents and the "
@@ -663,32 +675,50 @@ def _report(out) -> None:
               flush=True)
 
 
-def _rank_main(rank: int, args, world: int, store: str) -> None:
+def _rank_main(rank: int, args, world: int, store: str | None) -> dict:
+    """One rank of the mesh: joins through ``store`` (a FileStore path)
+    or env:// (None), trains, and returns its result."""
     _, dev = init_rank(rank, world, args.dist_backend, store, args.device)
     try:
-        mesh = make_local_mesh(*parse_mesh(args.mesh),
-                               device_type=dev.type)
+        if args.mesh == "prod":
+            mesh = make_production_mesh(device_type=dev.type)
+        else:
+            mesh = make_local_mesh(*parse_mesh(args.mesh),
+                                   device_type=dev.type)
         out = train(args, mesh=mesh, device=dev)
         if rank == 0:
             _report(out)
+        return out
     finally:
         dist.destroy_process_group()
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> dict | None:
+    """Run the CLI.  Returns this process's result: one rank's, or under
+    an env:// launcher (``torchrun``) this rank's; None where it started
+    the ranks itself."""
     args = build_parser().parse_args(argv)
     refuse_frontends(get_config(args.arch))
     data, model = parse_mesh(args.mesh)
     world = data * model
-    if world == 1:
-        _report(train(args))
-        return
+    launched = env_rank()
+    if launched is None and world == 1:
+        out = train(args)
+        _report(out)
+        return out
     if args.dist_backend is None:
         raise SystemExit(f"--mesh {args.mesh} needs --dist-backend "
                          "{nccl,gloo}")
+    if launched is not None:
+        rank, size = launched
+        if size != world:
+            raise SystemExit(f"--mesh {args.mesh} needs {world} ranks; the "
+                             f"launcher started {size}")
+        return _rank_main(rank, args, world, None)
     with tempfile.TemporaryDirectory() as tmp:
         spawn_ranks(_rank_main, world,
                     args=(args, world, os.path.join(tmp, "store")))
+    return None
 
 
 if __name__ == "__main__":

@@ -8,11 +8,12 @@ copy of the reference's ``repro.planner``):
 * :mod:`.heuristic` — Algorithm 1 (FlashCP), vectorized;
 * :mod:`.baselines` — Llama3 / Per-Doc / Ring / contiguous, and the
   registered flashcp adapter;
+* :mod:`.ilp`       — the exact branch-and-bound reference (``bnb``, alias
+  ``ilp``);
 * :mod:`.encode`    — plan -> static-shaped arrays and visit tables;
-* :mod:`.cache`     — ``PlanCache`` keyed by exact doc-length signature.
-
-The reference's exact branch-and-bound planner (``planner/ilp.py``,
-registered as ``bnb``/``ilp``) is not ported yet.
+* :mod:`.cache`     — ``PlanCache`` keyed by (quantized) doc-length
+  signature;
+* :mod:`.parallel`  — the multi-sequence planning thread pool.
 """
 
 from .plan import (Shard, ShardArrays, ShardingPlan, make_whole_doc_plan,
@@ -24,10 +25,12 @@ from .registry import (RECURRENT_FAMILIES, Planner, PlannerInfo,
 from .heuristic import HeuristicStats, flashcp_plan, zigzag_doc_shards
 from .baselines import (contiguous_plan, llama3_plan, per_doc_plan,
                         ring_zigzag_plan)
+from .ilp import BnBResult, bnb_plan
 from .encode import (PlanEncoding, emit_visit_tables, encode_plan,
                      encode_plan_batch, pick_buffer_bucket,
                      plan_shape_hints, trivial_plan, visit_table_shapes)
 from .cache import CacheStats, PlanCache
+from .parallel import PlannerPool, default_workers, get_pool, plan_many
 
 __all__ = [
     "Shard", "ShardArrays", "ShardingPlan", "make_whole_doc_plan",
@@ -37,8 +40,10 @@ __all__ = [
     "RECURRENT_FAMILIES", "register_planner",
     "HeuristicStats", "flashcp_plan", "zigzag_doc_shards",
     "contiguous_plan", "llama3_plan", "per_doc_plan", "ring_zigzag_plan",
+    "BnBResult", "bnb_plan",
     "PlanEncoding", "encode_plan", "encode_plan_batch",
     "emit_visit_tables", "visit_table_shapes",
     "pick_buffer_bucket", "plan_shape_hints", "trivial_plan",
     "CacheStats", "PlanCache",
+    "PlannerPool", "default_workers", "get_pool", "plan_many",
 ]

@@ -219,6 +219,7 @@ def plan_shape_hints(plan: ShardingPlan, *, align: int = 1
 def encode_plan_batch(
     plans: list[ShardingPlan],
     *,
+    buf_len: int | None = None,
     t_loc: int | None = None,
     align: int = 1,
 ) -> tuple[dict[str, np.ndarray], list[PlanEncoding]]:
@@ -227,9 +228,10 @@ def encode_plan_batch(
     Returns (stacked arrays dict, per-sample encodings).  All samples share
     ``t_loc`` (max over batch, aligned — or the explicit ``t_loc``, which
     the dispatcher pins to ``C / cp`` so ragged per-group batches keep one
-    shape per degree) and ``buf_len`` (bucketed max), derived from the
-    plans' accounting arrays; the samples are encoded one after the
-    other, each straight into its row of the stacked output.
+    shape per degree) and ``buf_len`` (the explicit fixed bucket, else the
+    bucketed max), derived from the plans' accounting arrays; the samples
+    are encoded one after the other, each straight into its row of the
+    stacked output.
     """
     N = plans[0].num_workers
     assert all(p.num_workers == N for p in plans)
@@ -239,7 +241,8 @@ def encode_plan_batch(
     if t_loc is None:
         t_loc = need_t
     assert t_loc >= need_t, (t_loc, need_t)
-    buf_len = max(h[1] for h in hints)
+    if buf_len is None:
+        buf_len = max(h[1] for h in hints)
 
     B = len(plans)
     C_pad = N * t_loc

@@ -13,7 +13,10 @@ A *spec* has one entry per dim of a leaf: ``None`` (not split), an axis
 name, or a tuple of axis names (split over their flattened product,
 the first axis the major one), as a JAX ``PartitionSpec`` has.  Meshes
 are ``{axis: size}`` dicts in axis order, ``("data", "model")``: rows of
-a batch go over ``data``, tokens over ``model`` (the CP axis).
+a batch go over ``data``, tokens over ``model`` (the CP axis).  Decode
+caches (:func:`cache_specs`) put their batch over the batch axes
+(:func:`batch_axes_of`: ``pod`` and ``data`` where the mesh has them)
+and their largest dim that ``model`` divides over ``model``.
 """
 
 from __future__ import annotations
@@ -21,8 +24,8 @@ from __future__ import annotations
 import math
 
 __all__ = ["TOKEN_KEYS", "leaf_spec", "expert_spec", "is_expert_leaf", "param_specs",
-           "batch_specs", "spec_axes", "replicated_axes", "shard_index",
-           "shard_shape", "take_shard"]
+           "batch_specs", "batch_axes_of", "cache_specs", "spec_axes",
+           "replicated_axes", "shard_index", "shard_shape", "take_shard"]
 
 
 #: batch keys with one entry per token: (B, C) or (B, C, d), their
@@ -129,6 +132,35 @@ def batch_specs(axes: dict, batch_shapes: dict) -> dict:
         else:
             specs[key] = (b,) + (None,) * (ndim - 1)
     return specs
+
+
+def batch_axes_of(axes: dict) -> tuple[str, ...]:
+    """The mesh axes a batch is split over, major first."""
+    return tuple(a for a in ("pod", "data") if a in axes)
+
+
+def cache_specs(axes: dict, cache_shapes: dict) -> dict:
+    """Specs of the decode cache's ``{path: shape}`` (the reference's
+    ``cache_specs``): dim 0 is the period stack, dim 1 the batch, which
+    goes over the batch axes where it divides by their product; the
+    largest dim from 2 on that ``model`` divides (the KV stripes' S, a
+    recurrent state's feature axis; the first of equal ones) goes over
+    ``model``."""
+    b = batch_axes_of(axes)
+    B = b if len(b) > 1 else (b[0] if b else None)
+    need = _size(axes, B) if B else 1
+    msize = axes["model"]
+
+    def one(shape):
+        dims: list = [None] * len(shape)
+        if len(shape) > 1 and B and shape[1] % need == 0:
+            dims[1] = B
+        cand = [i for i in range(2, len(shape))
+                if shape[i] % msize == 0 and shape[i] >= msize]
+        if cand:
+            dims[max(cand, key=lambda i: shape[i])] = "model"
+        return tuple(dims)
+    return {path: one(tuple(shape)) for path, shape in cache_shapes.items()}
 
 
 def spec_axes(spec) -> list[str]:

@@ -186,11 +186,12 @@ def test_dispatch_prefetcher_and_plan_cache():
         pf.close()
     assert not pf._thread.is_alive()
     other = dataclasses.replace(tp, target_imbalance=1.07)
-    assert tpipe._plan_cache(tp) is tpipe._plan_cache(
-        dataclasses.replace(tp))
-    assert tpipe._plan_cache(other) is not tpipe._plan_cache(tp)
+    assert tpipe._planner_state(tp)[2] is tpipe._planner_state(
+        dataclasses.replace(tp))[2]
+    assert tpipe._planner_state(other)[2] is not \
+        tpipe._planner_state(tp)[2]
     g = tbatch(other, dcfg, 0)["stats"]["dispatch"]["cp_degree"]
-    cache = tpipe._plan_cache(dataclasses.replace(other, cp_size=g))
+    cache = tpipe._planner_state(dataclasses.replace(other, cp_size=g))[2]
     hits = cache.stats.hits
     tbatch(other, dcfg, 0)
     assert cache.stats.hits > hits

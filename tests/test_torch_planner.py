@@ -142,18 +142,18 @@ def test_plan_cache_copy_matches_reference(strategy, N):
 
 
 def test_registry_metadata_matches_reference():
-    """Every planner of the port has the reference's metadata; the port
-    lacks only the exact branch-and-bound planner (``bnb``/``ilp``), whose
-    module is not ported."""
+    """Every planner of the reference is registered in the port, under
+    the same names and aliases (the exact branch-and-bound planner as
+    ``bnb``/``ilp`` too), with the reference's metadata."""
     ported = tpl.available_planners(include_aliases=True)
-    assert set(jpl.available_planners(include_aliases=True)) - set(ported) \
-        == {"bnb", "ilp"}
+    assert jpl.available_planners(include_aliases=True) == ported
+    assert jpl.available_planners() == tpl.available_planners()
     for name in ported:
         assert dataclasses.asdict(jpl.planner_info(name)) == \
             dataclasses.asdict(tpl.planner_info(name)), name
     for family in ("dense", "moe", "hybrid", "ssm"):
-        assert [n for n in jpl.planners_for_family(family)
-                if n != "bnb"] == tpl.planners_for_family(family)
+        assert jpl.planners_for_family(family) == \
+            tpl.planners_for_family(family)
     with pytest.raises(KeyError, match="available"):
         tpl.get_planner("nope")
     with pytest.raises(ValueError, match="already registered"):

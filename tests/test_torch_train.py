@@ -123,11 +123,11 @@ def test_make_batch_bit_identical(strategy, dataset, grid, C, align, cp):
               emit_tables=align > 1, table_grid=grid, table_block_q=align,
               table_block_k=align)
     for step in (0, 7):
-        # the reference plans serially, as the port does: with its thread
-        # pool, which of two equal sequences plans first (and so the
-        # cache's hit count) is a race
+        # both plan serially: on their thread pools (the default
+        # planner_workers=0), which of two equal sequences plans first
+        # (and so the cache's hit count) is a race
         a = jbatch(JPipe(**kw, planner_workers=1), step)
-        b = tbatch(TPipe(**kw), step)
+        b = tbatch(TPipe(**kw, planner_workers=1), step)
         assert sorted(set(a) - {"stats"}) == sorted(set(b) - {"stats"})
         assert any(k.startswith("tab_") for k in b) == (align > 1)
         for k in set(a) - {"stats"}:
@@ -329,9 +329,10 @@ def test_train_cli_smoke_on_cpu_and_cuda_default_raises():
 
 
 def test_train_step_refuses_what_waits_for_later_slices():
-    """Gradient compression and a data axis run now (their parity is in
-    tests/test_torch_zero.py and tests/test_torch_dp.py); the int8 KV
-    wire and a CP plan without its process group are still refused."""
+    """Gradient compression, a data axis and the int8 KV wire run now
+    (their parity is in tests/test_torch_zero.py, tests/test_torch_dp.py
+    and tests/test_torch_int8_wire.py); an unknown KV wire and a CP plan
+    without its process group are still refused."""
     cfg = tcfgs.reduce_for_smoke(tcfgs.get_config("starcoder2_3b"))
     assert callable(build_train_step(
         cfg, tcfgs.RunConfig(grad_compression="int8"), device="cpu"))
@@ -339,8 +340,10 @@ def test_train_step_refuses_what_waits_for_later_slices():
     from repro_torch.launch.train import parse_mesh
     arrs = {"doc": torch.zeros((1, 8), dtype=torch.int32),
             "pos": torch.zeros((1, 8), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="int8 KV wire"):
-        make_cp_context(arrs, head_dim=16, kv_comm_dtype="int8")
+    assert callable(make_cp_context(arrs, head_dim=16,
+                                    kv_comm_dtype="int8").attn)
+    with pytest.raises(ValueError, match="kv_comm_dtype"):
+        make_cp_context(arrs, head_dim=16, kv_comm_dtype="fp8")
     assert parse_mesh("2x4") == (2, 4)
     assert parse_mesh("1x4") == (1, 4)
     # a 2x1 mesh is two ranks: train() alone (no mesh) refuses it
