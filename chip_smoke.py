@@ -25,6 +25,17 @@ launch count set to 0 just before and read just after:
   the kernels vs the plain attention from the same parameters and batch;
   and a small f32 model trained 3 steps on the card and on the CPU (the
   kernels' twins) must agree;
+* the tooling: the cost model's constants
+  (``repro_torch.autotune.cost_model.HW``, ``L_HALF``) measured on the
+  card beside the package's, ``peak_flops`` and ``hbm_bw`` gated within
+  2x, and the bf16 rect grid's kernel times (``cost_model``);
+  ``train.py --autotune`` at full width: the pick trained 2 steps
+  through the doc kernels (launches gated), a second call a cache hit,
+  dry picks at 1x4 and 2x2 that spawn nothing, and the cost model's
+  step beside the card's (``autotune``); and the verifier on the card's
+  own artifacts: the TAB/WQ rules on every training step's tables
+  (``train``), the SRV rules on both serving engines (``main_path``),
+  WIRE101-103 on every native CP island (``cp_islands``);
 * context parallelism, on one 32768-token wlb_llm sequence: the doc
   kernels at a CP hop's shape (``doc_hop_shapes``, with the kernel
   parity); the CP islands at N = 4 (flashcp chunked and monolithic,
@@ -35,16 +46,18 @@ launch count set to 0 just before and read just after:
   path and with the native wire's launches, the K/V bytes each rank
   hands to its ``CPComm`` beside the Eq. 5 figure (``cp_islands``); and
   4 CP ranks (a 1x4 mesh, ZeRO-3) training full-width starcoder2_3b cut
-  to 2 layers for 3 steps, step 0 against one rank (``cp_train``);
+  to 2 layers for 2 steps, step 0 against one rank (``cp_train``);
 * the distributed training loop: a 2x2 mesh (rows over ``data``, tokens
   over ``model``, parameters and optimizer state sharded over both)
   training the same model cut to 2 layers on 2 rows of 16384 tokens for
-  3 steps against one rank, then the f32 smoke model checkpointed on 2x2 and
+  2 steps against one rank, then the f32 smoke model checkpointed on 2x2 and
   resumed on 1x4 (``dp_train``); and all 30 layers on a 2x1 mesh for one
   step against one rank (``dp_full``).  Every rank checks that it holds
-  exactly its ZeRO-3 shards.  The ranks are spawned after the build;
-  where they share a card they use gloo, whose exchange goes through
-  host memory, else NCCL with one rank per card;
+  exactly its ZeRO-3 shards.  The ranks of every such phase run on one
+  pool of 4 worker processes started after the build (each phase's
+  ranks join their own process group); where they share a card they
+  use gloo, whose exchange goes through host memory, else NCCL with one
+  rank per card;
 * the rest of serving: the main path's paged run again under chaos (a
   request poisoned in its decode, one at its final prefill chunk, one
   stuck, a latency spike, and a kill restored from a snapshot into a
@@ -79,14 +92,14 @@ launch count set to 0 just before and read just after:
   the training forward (``jamba_serve``); a full-width Mamba sublayer
   (forward and backward, bf16 and f32 against a sequential f32
   recurrence, the selective scan's share of its time), an attention
-  sublayer through the three doc kernels against the plain attention,
-  and the selective-scan island at N = 4 on 32768 tokens against one
-  rank (``jamba_layers``); the smoke jamba trained on the card and on
-  the CPU, and a 1x4 ``contiguous`` step 0 against one rank
+  sublayer through the three doc kernels against the plain attention
+  (``jamba_layers``); the smoke jamba trained on the card and on the CPU
   (``jamba_smoke``); xlstm_350m at full width and depth trained 3 steps
-  on 8192 tokens with no kernel launched, then a 1x4 step 0 against one
-  rank (``xlstm_train``), and served the jamba load, a small f32 xLSTM
-  card vs CPU (``xlstm_serve``);
+  on 8192 tokens with no kernel launched (``xlstm_train``); in one spawn
+  of 4 ranks, the selective-scan island on 32768 tokens and 1x4
+  ``contiguous`` steps 0 of both models, each against one rank
+  (``rec_cp``); xlstm_350m served the jamba load, a small f32 xLSTM card
+  vs CPU (``xlstm_serve``);
 * the audio and VLM frontends: all five kernels at musicgen_medium's
   heads (24 over 24 KV heads, D 64: GQA group 1) and internvl2_1b's (14
   over 2, D 64: group 7) against their plain versions in f32 and bf16,
@@ -182,6 +195,21 @@ STEP_LOSS_TOL, STEP_GNORM_TOL = 5e-3, 5e-2
 # f32 smoke model, 3 steps, card kernels vs CPU twins
 SMOKE_TRAIN_TOL = 1e-4
 
+# the cost model's constants (repro_torch.autotune.cost_model.HW), measured
+# on the card: a bf16 matmul at the main path's MLP shape (M x K x N), a
+# 1 GiB device-to-device copy, flash_fwd on one document of these lengths
+# (one 128 x 128 tile for the launch overhead; the rest for L_HALF), the
+# rect grid against the flat one on the main path's step-0 tables; each
+# a median of CAL_REPS.  The package's peak_flops and hbm_bw must lie
+# within CAL_RATIO of what the card gives (a constant of another chip
+# left behind fails); the overheads and L_HALF are printed, not gated.
+CAL_MATMUL, CAL_COPY_BYTES, CAL_REPS = (8192, 3072, 12288), 1 << 30, 20
+CAL_ONE_TILE, CAL_DOC_LENS, CAL_RATIO = 128, (512, 2048, 8192), 2.0
+# train.py --autotune: the main path's model and sequence, AUTOTUNE_STEPS
+# steps with the pick; then dry runs at the meshes of cp_train and
+# dp_train, which must spawn nothing
+AUTOTUNE_STEPS = 2
+
 # context parallelism: full-width starcoder2_3b attention on one
 # 32768-token wlb_llm sequence.  The island and hop checks take the batch
 # of pipeline step 6, whose Eq.-5 bucket at N = 4 (4096) is half of
@@ -203,9 +231,12 @@ CP_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # tests/multidevice/cp_check.py)
 CP_INT8_TOL = {"o": 3e-2, "dq": 5e-2, "dk": 5e-2, "dv": 5e-2}
 # CP training: depth cut to 2 layers (4 until the script needed the time:
-# the ranks spend it gathering the ZeRO-3 state through host memory), 3
-# steps; step 0's loss and grad norm vs the one-rank step, relative
-CP_TRAIN_WORLD, CP_TRAIN_LAYERS, CP_TRAIN_STEPS = 4, 2, 3
+# the ranks spend it moving the ZeRO-3 state through host memory), 2
+# steps (3 until the script ran past 1200 s on a slow host); step 0's
+# loss and grad norm vs the one-rank step, relative.  At 1 layer the
+# embedding's gradient (F2 below) is a larger share of the norm, which
+# then moves by 1.5e-2 (chip run, H100 80GB HBM3, 700.00 W)
+CP_TRAIN_WORLD, CP_TRAIN_LAYERS, CP_TRAIN_STEPS = 4, 2, 2
 CP_TRAIN_TOL = 1e-2
 # ... and every step-0 gradient leaf within CP_TRAIN_TOL (relative norm of
 # the difference) but the embedding table's: its backward scatter-adds
@@ -220,10 +251,11 @@ F2 = ("not a fault of the port: the reference rounds the same way on the "
       "reference_bit_for_bit); what its TPU does is not known")
 # the distributed loop: a 2x2 mesh (4 ranks) training full-width
 # starcoder2_3b cut to 2 layers (4 until the dispatch phase needed the
-# time) on 2 rows of 16384 tokens (8192 per rank), 3 steps, against one rank on the same global batch; step 0's
-# loss relative, grad norm and every leaf but the embedding table's as
-# in cp_train
-DP_MESH, DP_LAYERS, DP_SEQ, DP_BATCH, DP_STEPS = (2, 2), 2, 16384, 2, 3
+# time; 2 layers as cp_train) on 2 rows of 16384 tokens (8192 per rank),
+# 2 steps (3 until the script ran past 1200 s on a slow host), against
+# one rank on the same global batch; step 0's loss relative, grad norm
+# and every leaf but the embedding table's as in cp_train
+DP_MESH, DP_LAYERS, DP_SEQ, DP_BATCH, DP_STEPS = (2, 2), 2, 16384, 2, 2
 DP_LOSS_TOL, DP_TOL = 1e-4, 1e-2
 # the smoke model (f32, on the card): a checkpoint written at step 2 on
 # 2x2 and resumed on 1x4 against the uninterrupted 4-step run
@@ -238,6 +270,9 @@ DP_RESTORE_SLACK = 16 << 20
 DP_FULL_MESH, DP_FULL_SEQ, DP_FULL_BATCH = (2, 1), 8192, 2
 # a rank group that outlives this is killed and the phase fails
 RANK_TIMEOUT = 300
+# the rank phases run on one pool of this many worker processes, started
+# once (a spawn per phase paid 10-25 s before any work)
+RANK_POOL = 4
 # serving under chaos (full-width starcoder2_3b, paged, the main path's
 # requests): planned steps without progress before the watchdog aborts a
 # stuck slot, the latency spike, and the snapshot period of the killed run
@@ -257,14 +292,15 @@ MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 4, 3
 # token's top-8 experts, which moves its logits by far more; printed)
 MOE_DECODE_TOL = 1e-3
 # MoE over 4 EP/CP ranks (1x4, ZeRO-3, experts split over model): (a) the
-# gate at 2 layers, f32, at the drop-free capacity factor E / top_k on
+# gate at 1 layer, f32, at the drop-free capacity factor E / top_k on
 # one 8192-token sequence, step 0 against one rank, loss and every
-# gradient leaf; (b) the model's own capacity factor at 2 layers (4
-# until the dispatch phase needed the time) on one 32768-token
-# sequence, 2 steps
-MOE_CP_WORLD, MOE_GATE_LAYERS, MOE_CP_GATE_TOL = 4, 2, 1e-3
+# gradient leaf; (b) the model's own capacity factor at 1 layer on one
+# 32768-token sequence, 2 steps (both at 2 layers, (b) at 4 before, until
+# the script ran past 1200 s on a slow host: a layer's 64 experts are
+# 2x its embedding's state, moved through host memory)
+MOE_CP_WORLD, MOE_GATE_LAYERS, MOE_CP_GATE_TOL = 4, 1, 1e-3
 MOE_DROP_FREE = {"capacity_factor": 8.0}
-MOE_CP_LAYERS, MOE_CP_STEPS = 2, 2
+MOE_CP_LAYERS, MOE_CP_STEPS = 1, 2
 # the recurrent families.  jamba_v0_1_52b at full width (d 4096, 32 heads
 # of 128 over 8 KV heads, d_inner 8192, d_state 16, 16 experts top-2) cut
 # to one period of 8 layers (7 Mamba + 1 attention, 4 MoE; 13.30 B
@@ -626,6 +662,33 @@ def serve_run(torch, cfg, params, layout, prompts, gen, device="cuda",
     return eng, results, launches, wall, peak
 
 
+def serve_state_gate(eng, what: str) -> None:
+    """The verifier's SRV rules on an engine whose requests have ended
+    (``check_serve_state``: every block's refcount is its table uses plus
+    the prefix cache's and the spares' references, the free list holds
+    exactly the refcount-0 blocks, no block is shared without a prefix
+    entry); raises on an error finding.  The dense layout's stripes have
+    no pool: the check confirms it holds no block state."""
+    from repro_torch.analysis import errors, format_findings
+    from repro_torch.analysis.plan_check import check_serve_state
+
+    tables, extra = eng.block_tables()
+    if eng.pool is None:
+        emit("serve_state_check", engine=what, layout=eng.layout,
+             pool=None, live_tables=len(tables), findings=[])
+        if tables or extra or eng.prefix is not None:
+            raise AssertionError(f"{what}: a dense engine holds blocks")
+        return
+    fs = check_serve_state(eng.pool, tables, eng.prefix, extra_refs=extra,
+                           context=what)
+    emit("serve_state_check", engine=what, layout=eng.layout,
+         blocks=eng.pool.num_blocks, free=eng.pool.free_count,
+         prefix_nodes=0 if eng.prefix is None else len(eng.prefix),
+         live_tables=len(tables), findings=[f.render() for f in fs])
+    if errors(fs):
+        raise AssertionError(format_findings(fs))
+
+
 def main_path_phase(torch) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.models import decode_step, init_params
@@ -662,6 +725,7 @@ def main_path_phase(torch) -> dict:
         if launches[kernel] != want or launches[kernel] == 0:
             raise AssertionError(f"{layout}: {kernel} launched "
                                  f"{launches[kernel]} times, want {want}")
+        serve_state_gate(eng, f"serve_{layout}")
         out[layout] = {"launches": launches[kernel], "eng": eng, **tp}
         tokens[layout] = {r: e["tokens"] for r, e in res.items()}
     agree = sum(int((tokens["paged"][r] == tokens["dense"][r]).all())
@@ -793,7 +857,10 @@ def doc_tables(batch, grid: str):
 
 
 def visits_of(batch) -> int:
-    """Visited (q block, kv block) pairs of a batch's flat tables."""
+    """Visited (q block, kv block) pairs of a batch's flat (or rect)
+    tables."""
+    if "tab_loc_fq_flags" not in batch:
+        return int(batch["tab_loc_kv_nvis"].sum())
     flags = batch["tab_loc_fq_flags"]
     return int(((flags & 4) != 0).sum())
 
@@ -881,14 +948,16 @@ def doc_kernel_phase(torch, timer, quick: bool) -> dict:
     """Each doc kernel vs its twin on a real batch at the training head
     geometry (Hq 24, Hkv 2, D 128, SEQ tokens, blocks 128): f32 and bf16
     on the flat grid with 300 padding tokens (two empty q-block rows and
-    a part-empty one), f32 on the rect grid; then bf16 times."""
+    a part-empty one), f32 and bf16 on the rect grid (the grid the
+    autotuner may pick) under the flat grid's tolerances; then bf16
+    times."""
     from repro_torch.kernels import doc_attention as da
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4321)
     err = {n: 0.0 for n in DOC_KERNELS}
     for name, grid, pad in (("float32", "flat", 300), ("bfloat16", "flat", 300),
-                            ("float32", "rect", 0)):
+                            ("float32", "rect", 0), ("bfloat16", "rect", 0)):
         dtype = getattr(torch, name)
         tol = DOC_TOL[name]
         batch = doc_batch(pad=pad, grid=grid)
@@ -924,7 +993,7 @@ def doc_kernel_phase(torch, timer, quick: bool) -> dict:
              grad_rel_err=rel, grad_abs_err={n: _err(a, b) for n, (a, b)
                                              in grads.items()},
              empty_rows=int(empty.sum()), empty_rows_exact=empty_ok,
-             visits=visits_of(batch) if grid == "flat" else None)
+             visits=visits_of(batch))
         if max(e_o, e_lse, rel["dq"]) > tol or not empty_ok \
                 or max(rel["dk"], rel["dv"]) > dkv_tol:
             raise AssertionError(f"doc kernel parity failed: {name} {grid}")
@@ -1056,8 +1125,10 @@ def plan_order(torch, x, perm):
 def island_run(torch, batch, q, k, v, w, strategy, overlap, comm,
                wire="native"):
     """One rank's island forward and backward on the card on the K/V
-    ``wire``: (o, dq, dk, dv) of this rank's token slice, and the
-    seconds it took."""
+    ``wire``: (o, dq, dk, dv) of this rank's token slice, the seconds it
+    took, and the forward's bytes by collective kind (``comm``'s
+    ``wire_bytes_by_kind`` and ``wire_peak_by_kind``; None on one
+    rank)."""
     from repro_torch.core.cp_attention import make_cp_context
     from repro_torch.data.pipeline import exec_style_of
     from repro_torch.launch.steps import batch_to_device
@@ -1071,11 +1142,15 @@ def island_run(torch, batch, q, k, v, w, strategy, overlap, comm,
                           kv_comm_dtype=wire, comm=comm)
     q, k, v = (x.clone().requires_grad_(True) for x in (q, k, v))
     torch.cuda.synchronize()
+    if comm is not None:
+        comm.reset_wire()
     t0 = time.perf_counter()
     o = ctx.attn(q, k, v)
+    fwd = None if comm is None else (dict(comm.wire_bytes_by_kind),
+                                     dict(comm.wire_peak_by_kind))
     grads = torch.autograd.grad(o, (q, k, v), w)
     torch.cuda.synchronize()
-    return [o.detach(), *grads], time.perf_counter() - t0
+    return [o.detach(), *grads], time.perf_counter() - t0, fwd
 
 
 def cp_reference(torch, path: str) -> None:
@@ -1089,7 +1164,8 @@ def cp_reference(torch, path: str) -> None:
         dtype = getattr(torch, name)
         xs = [plan_order(torch, x, perm[0]).to("cuda", dtype)
               for x in (q0, k0, v0, w0)]
-        outs, _ = island_run(torch, batch, *xs, "flashcp", "chunked", None)
+        outs, _, _ = island_run(torch, batch, *xs, "flashcp", "chunked",
+                                None)
         p = torch.from_numpy(perm[0]).to("cuda")
         ok = p >= 0
         for n, x in zip(("o", "dq", "dk", "dv"), outs):
@@ -1138,11 +1214,15 @@ def cp_island_rank(rank, world, backend, port, out_dir, ref_path, cases,
     strategy, overlap, wire) case on the first N ranks, in f32 and bf16
     on this rank's token slice, its outputs and gradients held against
     the one-rank path at the same packed positions, and the K/V bytes
-    this rank handed to its ``CPComm`` per pass; then, in the same
+    this rank handed to its ``CPComm`` per pass; on the native wire, the
+    forward's bytes by collective kind audited against the island's
+    analytic budget (``audit_wire``: WIRE101-WIRE103); then, in the same
     group, the sharded decode of ``decode_path`` (``serve_sharded``'s,
     :func:`sharded_decode_rows`)."""
     import torch
     import torch.distributed as dist
+    from repro_torch.analysis.wire_audit import audit_wire, island_budget
+    from repro_torch.data.pipeline import exec_style_of
 
     comm, dev = join_env(rank, world, backend, port)
     try:
@@ -1176,9 +1256,25 @@ def cp_island_rank(rank, world, backend, port, out_dir, ref_path, cases,
                 xs = [plan_order(torch, x, perm[0, my]).to("cuda", dtype)
                       for x in (q0, k0, v0, w0)]
                 reset_counts()
-                cn.wire_bytes = {"forward": 0, "backward": 0}
-                outs, sec = island_run(torch, batch, *xs, strategy,
-                                       overlap, cn, wire)
+                outs, sec, (kinds, peak) = island_run(
+                    torch, batch, *xs, strategy, overlap, cn, wire)
+                audit = None
+                if wire == "native":
+                    style = exec_style_of(strategy)
+                    budget = island_budget(
+                        style, overlap, buf_len=info["buf_len"]
+                        if style in ("flashcp", "contiguous") else t_loc,
+                        num_workers=n, kv_heads=T_HKV, head_dim=T_D,
+                        dtype_bytes=4 if name == "float32" else 2)
+                    audit = {"counted": {k: v for k, v in kinds.items()
+                                         if v},
+                             "allowed": budget.allowed,
+                             "findings": [
+                                 [f.rule, f.severity, f.render()]
+                                 for f in audit_wire(
+                                     kinds, budget, largest=peak,
+                                     context=f"{strategy}/{overlap} N={n} "
+                                             f"{name} rank {rank}")]}
                 rel = {}
                 for x_, x in zip(("o", "dq", "dk", "dv"), outs):
                     want = ref[f"{name}/{x_}"]
@@ -1187,7 +1283,8 @@ def cp_island_rank(rank, world, backend, port, out_dir, ref_path, cases,
                         / max(want.abs().max().item(), 1e-30)
                 out.append({**info, "dtype": name, "rel_err": rel,
                             "seconds": sec, "launches": read_counts(),
-                            "wire_bytes": dict(cn.wire_bytes)})
+                            "wire_bytes": dict(cn.wire_bytes),
+                            "wire_audit": audit})
                 del xs, outs
         decode = sharded_decode_rows(torch, rank, comms, dev, decode_path)
         with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
@@ -1196,16 +1293,111 @@ def cp_island_rank(rank, world, backend, port, out_dir, ref_path, cases,
         dist.destroy_process_group()
 
 
+def _pool_worker(rank: int, jobs, results) -> None:
+    """One process of the rank pool: runs ``fn(rank, *args)`` for each
+    ``(fn, args)`` it is handed until it gets None, reporting each job's
+    traceback (None when it ran through); each job joins its own process
+    group and leaves it, and the worker returns the job's device memory
+    to the card after it."""
+    import traceback
+    import torch
+
+    while True:
+        job = jobs.get()
+        if job is None:
+            return
+        fn, args = job
+        try:
+            fn(rank, *args)
+            err = None
+        except Exception:
+            err = traceback.format_exc()
+        gc.collect()
+        if torch.cuda.is_initialized():
+            torch.cuda.empty_cache()
+        results.put((rank, err))
+
+
+class RankPool:
+    """RANK_POOL worker processes started once (each rank phase's spawn
+    paid 10-25 s of process start and CUDA initialization before any
+    work) and handed the rank phases one after another: a job of
+    ``world`` ranks runs on workers 0..world-1, rank r on worker r."""
+
+    def __init__(self, torch, size: int):
+        ctx = torch.multiprocessing.get_context("spawn")
+        self.jobs = [ctx.SimpleQueue() for _ in range(size)]
+        self.results = ctx.SimpleQueue()
+        self.procs = [ctx.Process(target=_pool_worker,
+                                  args=(r, self.jobs[r], self.results),
+                                  daemon=True) for r in range(size)]
+        for p in self.procs:
+            p.start()
+
+    def run(self, fn, world: int, args: tuple, timeout: float) -> None:
+        """``fn(rank, *args)`` on ranks 0..world-1; raises what a rank
+        raised, or ``TimeoutError`` once ``timeout`` s have passed (the
+        pool is then closed: a rank may hang in a collective)."""
+        for r in range(world):
+            self.jobs[r].put((fn, args))
+        deadline = time.monotonic() + timeout
+        errors, pending = [], set(range(world))
+        while pending:
+            if self.results.empty():
+                dead = [r for r in pending if not self.procs[r].is_alive()]
+                if dead or time.monotonic() > deadline:
+                    self.close()
+                    raise (TimeoutError(f"ranks {sorted(pending)} still "
+                                        f"running after {timeout} s")
+                           if not dead else
+                           AssertionError(f"rank workers {dead} died"))
+                time.sleep(0.05)
+                continue
+            rank, err = self.results.get()
+            pending.discard(rank)
+            if err is not None:
+                errors.append(f"rank {rank}:\n{err}")
+        if errors:
+            self.close()
+            raise AssertionError("\n".join(errors))
+
+    def close(self) -> None:
+        """Stop every worker (a clean exit where it is idle)."""
+        for p, q in zip(self.procs, self.jobs):
+            if p.is_alive():
+                q.put(None)
+        for p in self.procs:
+            p.join(timeout=10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
+_POOL: list = []
+
+
+def rank_pool(torch) -> RankPool:
+    """The script's rank pool, started at first use."""
+    if not _POOL or not all(p.is_alive() for p in _POOL[0].procs):
+        _POOL[:] = [RankPool(torch, RANK_POOL)]
+    return _POOL[0]
+
+
+def close_rank_pool() -> None:
+    while _POOL:
+        _POOL.pop().close()
+
+
 def run_ranks(torch, fn, world: int, *args, timeout=RANK_TIMEOUT) -> list:
-    """Spawn ``world`` ranks of ``fn`` on this host (the kernels are
-    built already); their JSON results, by rank."""
+    """``world`` ranks of ``fn(rank, world, backend, store, out_dir,
+    *args)`` on the rank pool (the kernels are built already), joined
+    through a FileStore; their JSON results, by rank."""
     import tempfile
-    from repro_torch.launch.ranks import spawn_ranks
 
     backend = cp_backend(torch, world)
     with tempfile.TemporaryDirectory() as tmp:
-        spawn_ranks(fn, world, args=(world, backend, f"{tmp}/store", tmp,
-                                     *args), timeout=timeout)
+        rank_pool(torch).run(fn, world, (world, backend, f"{tmp}/store",
+                                         tmp, *args), timeout)
         out = []
         for r in range(world):
             with open(Path(tmp) / f"rank{r}.json") as f:
@@ -1226,12 +1418,11 @@ def run_ranks_env(torch, fn, world: int, *args,
     out_dir, *args)`` that join through env:// (:func:`join_env`) on a
     free localhost port."""
     import tempfile
-    from repro_torch.launch.ranks import spawn_ranks
 
     backend = cp_backend(torch, world)
     with tempfile.TemporaryDirectory() as tmp:
-        spawn_ranks(fn, world, args=(world, backend, free_port(), tmp,
-                                     *args), timeout=timeout)
+        rank_pool(torch).run(fn, world, (world, backend, free_port(), tmp,
+                                         *args), timeout)
         out = []
         for r in range(world):
             with open(Path(tmp) / f"rank{r}.json") as f:
@@ -1255,6 +1446,18 @@ def island_gate(rows, tol: dict, what: str) -> dict:
         raise AssertionError(f"CP island {what} disagrees with one rank: "
                              f"{err}")
     return err
+
+
+def wire_gate(rows, what: str) -> None:
+    """The ranks' wire audits of one native island case: emitted, and an
+    error finding (WIRE101-WIRE103) fails the run."""
+    emit("cp_wire_audit", case=what, ranks=[
+        {"rank": r["rank"], **r["wire_audit"]} for r in rows])
+    bad = [f[2] for r in rows for f in r["wire_audit"]["findings"]
+           if f[1] == "error"]
+    if bad:
+        raise AssertionError(f"CP island {what}: wire audit\n"
+                             + "\n".join(bad))
 
 
 def cp_islands_phase(torch, decode_inputs: dict) -> None:
@@ -1331,6 +1534,8 @@ def cp_islands_phase(torch, decode_inputs: dict) -> None:
                 raise AssertionError(f"CP island {what}: {len(rows)} ranks "
                                      "reported")
             island_gate(rows, tol, what)
+            if wire == "native":
+                wire_gate(rows, what)
             want = island_launches(n, overlap)
             if any(r["launches"][k] != want[k] for r in rows for k in want):
                 raise AssertionError(
@@ -3034,49 +3239,40 @@ def scan_run(torch, args, scan):
     return [y.detach(), *grads]
 
 
-def scan_island_rank(rank, world, backend, store, out_dir, ref_path):
+def scan_island_rows(torch, comm, dev, rank: int, world: int,
+                     ref_path: str) -> dict:
     """One rank of the selective-scan island: its token slice through
     ``_selective_scan_island``, dA summed over the ranks, each held
     against the one-rank run's slice (read from ``ref_path``, mapped)."""
-    import torch
-    import torch.distributed as dist
     from repro_torch.core.comm import all_reduce_
     from repro_torch.core.cp_attention import _selective_scan_island
-    from repro_torch.launch.ranks import init_rank
 
-    comm, dev = init_rank(rank, world, backend, store, "cuda")
-    try:
-        ref = torch.load(ref_path, mmap=True)
-        args = scan_island_inputs(torch, ref["reset"].to(dev))
-        t_loc = args[0].shape[1] // world
-        sl = slice(rank * t_loc, (rank + 1) * t_loc)
-        mine = [a if i == 1 else a[:, sl].contiguous()
-                for i, a in enumerate(args)]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = scan_run(torch, mine, lambda *a: _selective_scan_island(
-            *a, comm=comm))
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        all_reduce_([out[2]], comm)
-        errs = {}
-        for name, got in zip(SCAN_NAMES, out):
-            want = ref[name] if name == "dA" else ref[name][:, sl]
-            want = want.to(dev)
-            errs[name] = ((got - want).abs().max()
-                          / ref[f"{name}_max"]).item()
-        with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
-            json.dump({"rank": rank, "rel_err": errs, "seconds": secs}, f)
-    finally:
-        dist.destroy_process_group()
+    ref = torch.load(ref_path, mmap=True)
+    args = scan_island_inputs(torch, ref["reset"].to(dev))
+    t_loc = args[0].shape[1] // world
+    sl = slice(rank * t_loc, (rank + 1) * t_loc)
+    mine = [a if i == 1 else a[:, sl].contiguous()
+            for i, a in enumerate(args)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = scan_run(torch, mine, lambda *a: _selective_scan_island(
+        *a, comm=comm))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    all_reduce_([out[2]], comm)
+    errs = {}
+    for name, got in zip(SCAN_NAMES, out):
+        want = ref[name] if name == "dA" else ref[name][:, sl]
+        want = want.to(dev)
+        errs[name] = ((got - want).abs().max()
+                      / ref[f"{name}_max"]).item()
+    return {"rank": rank, "rel_err": errs, "seconds": secs}
 
 
-def scan_island_check(torch) -> dict:
-    """``_selective_scan_island`` at N = SCAN_WORLD on one SCAN_SEQ-token
-    wlb_llm sequence at jamba's widths, f32: every rank's y and gradients
-    (dA summed over the ranks) against the one-rank chunked scan, within
-    REC_CP_TOL of each array's largest entry."""
-    import tempfile
+def scan_island_reference(torch, path: str) -> float:
+    """The one-rank chunked scan of the selective-scan island check (one
+    SCAN_SEQ-token wlb_llm sequence at jamba's widths, f32), saved to
+    ``path`` for the ranks; returns its seconds."""
     from repro_torch.data.pipeline import PipelineConfig, make_batch
     from repro_torch.models.context import local_selective_scan
 
@@ -3098,21 +3294,21 @@ def scan_island_check(torch) -> dict:
         saved[name] = t.cpu()
         saved[f"{name}_max"] = t.abs().max().item()
     del ref
+    torch.save(saved, path)
     gc.collect()
     torch.cuda.empty_cache()
-    backend = cp_backend(torch, SCAN_WORLD)
-    with tempfile.TemporaryDirectory() as tmp:
-        path = f"{tmp}/ref.pt"
-        torch.save(saved, path)
-        del saved
-        t0 = time.perf_counter()
-        ranks = run_ranks(torch, scan_island_rank, SCAN_WORLD, path)
-        wall = time.perf_counter() - t0
+    return one_s
+
+
+def scan_island_report(torch, ranks, one_s: float, wall: float) -> dict:
+    """``_selective_scan_island`` at N = SCAN_WORLD: every rank's y and
+    gradients (dA summed over the ranks) against the one-rank chunked
+    scan, within REC_CP_TOL of each array's largest entry."""
     worst = max(v for x in ranks for v in x["rel_err"].values())
-    out = {"world": SCAN_WORLD, "backend": backend, "tokens": SCAN_SEQ,
-           "d_inner": 8192, "d_state": 16, "dtype": "float32",
-           "one_rank_s": one_s, "wall_s": wall, "tol": REC_CP_TOL,
-           "worst_rel_err": worst, "ranks": ranks}
+    out = {"world": SCAN_WORLD, "backend": cp_backend(torch, SCAN_WORLD),
+           "tokens": SCAN_SEQ, "d_inner": 8192, "d_state": 16,
+           "dtype": "float32", "one_rank_s": one_s, "wall_s": wall,
+           "tol": REC_CP_TOL, "worst_rel_err": worst, "ranks": ranks}
     emit("jamba_scan_island", card=card_line(), **out)
     if not worst <= REC_CP_TOL:
         raise AssertionError(f"selective-scan island vs one rank: {worst}")
@@ -3121,8 +3317,9 @@ def scan_island_check(torch) -> dict:
 
 def jamba_layers_phase(torch) -> dict:
     """jamba at full width sublayer by sublayer on one 8192-token wlb_llm
-    sequence: a Mamba sublayer, an attention sublayer through the doc
-    kernels, and the selective-scan island at N = 4."""
+    sequence: a Mamba sublayer and an attention sublayer through the doc
+    kernels.  The selective-scan island at N = 4 runs in
+    :func:`rec_cp_phase`."""
     from repro_torch.data.pipeline import PipelineConfig, make_batch
 
     batch = make_batch(PipelineConfig(
@@ -3132,84 +3329,133 @@ def jamba_layers_phase(torch) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     out["attn"] = jamba_attn_layer(torch, batch)
-    gc.collect()
-    torch.cuda.empty_cache()
-    out["scan_island"] = scan_island_check(torch)
     return out
 
 
-def rec_cp_rank(rank, world, backend, store, out_dir, grad_dir, arch, smoke,
-                layers, seq, cfg_kw):
-    """One rank of a recurrent model's step 0 on a 1xN mesh (ZeRO-3,
-    contiguous, the scan islands and the convolution halo), f32: its loss
-    and launches; rank 0 saves the whole gradients to ``grad_dir``."""
+def rec_cp_rank(rank, world, backend, store, out_dir, grad_dir, cases,
+                scan_ref):
+    """One rank of the recurrent checks on N ranks: the selective-scan
+    island against the one-rank scan saved at ``scan_ref``
+    (:func:`scan_island_rows`), then the models' step 0 on a 1xN mesh
+    (ZeRO-3, contiguous, the scan islands and the convolution halo),
+    f32, for each ``(what, arch, smoke, layers, seq, cfg_kw)`` of
+    ``cases`` in turn: its loss, launches and peak; rank 0 saves each
+    case's whole gradients to ``grad_dir/<what>.pt``."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.launch.ranks import init_rank
 
-    _, dev = init_rank(rank, world, backend, store, "cuda")
+    comm, dev = init_rank(rank, world, backend, store, "cuda")
     try:
+        scan = scan_island_rows(torch, comm, dev, rank, world, scan_ref)
+        gc.collect()
+        torch.cuda.empty_cache()
         mesh = make_local_mesh(1, world, device_type="cuda")
-        reset_counts()
-        t0 = time.perf_counter()
-        loss, grads = step0_grads("float32", mesh, dev, backend,
-                                  layers=layers, seq=seq, arch=arch,
-                                  cfg_kw=cfg_kw, smoke=smoke)
-        secs = time.perf_counter() - t0
-        if rank == 0:
-            torch.save(grads, Path(grad_dir) / "grads.pt")
+        out = []
+        for what, arch, smoke, layers, seq, cfg_kw in cases:
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            loss, grads = step0_grads("float32", mesh, dev, backend,
+                                      layers=layers, seq=seq, arch=arch,
+                                      cfg_kw=cfg_kw, smoke=smoke)
+            secs = time.perf_counter() - t0
+            if rank == 0:
+                torch.save(grads, Path(grad_dir) / f"{what}.pt")
+            del grads
+            gc.collect()
+            torch.cuda.empty_cache()
+            out.append({"what": what, "rank": rank, "loss": loss,
+                        "seconds": secs, "launches": read_counts(),
+                        "peak_bytes": torch.cuda.max_memory_allocated(dev)})
         with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
-            json.dump({"rank": rank, "loss": loss, "seconds": secs,
-                       "launches": read_counts(),
-                       "peak_bytes": torch.cuda.max_memory_allocated(dev)},
-                      f)
+            json.dump({"steps": out, "scan": scan}, f)
     finally:
         dist.destroy_process_group()
 
 
-def rec_cp_check(torch, what, arch, smoke, layers, seq, want_launches,
-                 cfg_kw=None, leaf_tol=REC_CP_TOL) -> dict:
-    """Step 0 of a recurrent model on a 1xN mesh against one rank, f32:
-    loss within REC_CP_TOL and every gradient leaf within ``leaf_tol``,
-    every rank's launches exactly ``want_launches``."""
+def rec_cp_phase(torch) -> dict:
+    """The recurrent families' N-rank checks in one spawn of N ranks (a
+    spawn costs 10-25 s before any work): the selective-scan island at
+    jamba's widths (:func:`scan_island_report`), then step 0 of the
+    smoke jamba (drop-free) and of full-width xlstm_350m on a 1xN mesh
+    against one rank, f32: for each, the loss within REC_CP_TOL and every
+    gradient leaf within its bound (REC_CP_TOL; XLSTM_CP_LEAF_TOL for
+    xLSTM), every rank's launches exactly the case's (jamba: local KV +
+    N-1 hops a layer; xLSTM: none).  Emits the ``jamba_scan_island``,
+    ``jamba_smoke_cp`` and ``xlstm_cp`` lines."""
     import tempfile
+    from repro_torch.configs import get_config, reduce_for_smoke
 
     world = REC_SMOKE_WORLD
-    t0 = time.perf_counter()
-    loss1, g1 = step0_grads("float32", layers=layers, seq=seq, arch=arch,
-                            cfg_kw=cfg_kw, smoke=smoke)
-    one_s = time.perf_counter() - t0
-    gc.collect()
-    torch.cuda.empty_cache()
-    backend = cp_backend(torch, world)
-    with tempfile.TemporaryDirectory() as grad_dir:
+    jcfg = reduce_for_smoke(get_config(JAMBA))
+    L = attn_layers(jcfg)
+    jamba_want = {n: 0 for n in REPLACES} | {
+        "flash_fwd": 2 * L * world, "flash_bwd_dq": L * world,
+        "flash_bwd_dkv": L * world}
+    # (what, arch, smoke, layers, seq, cfg_kw), want launches, leaf bound
+    cases = [(("jamba_smoke_cp", JAMBA, True, 0, REC_SMOKE_SEQ,
+               {"capacity_factor": float(jcfg.num_experts) / jcfg.top_k}),
+              jamba_want, REC_CP_TOL),
+             (("xlstm_cp", XLSTM, False, 0, SEQ, None),
+              {n: 0 for n in REPLACES}, XLSTM_CP_LEAF_TOL)]
+    if SCAN_WORLD != world:
+        raise AssertionError("the scan island shares the 1xN checks' spawn")
+    one = {}
+    for (what, arch, smoke, layers, seq, cfg_kw), _, _ in cases:
         t0 = time.perf_counter()
-        ranks = run_ranks(torch, rec_cp_rank, world, grad_dir, arch, smoke,
-                          layers, seq, cfg_kw)
+        loss1, g1 = step0_grads("float32", layers=layers, seq=seq,
+                                arch=arch, cfg_kw=cfg_kw, smoke=smoke)
+        one[what] = (loss1, g1, time.perf_counter() - t0)
+        gc.collect()
+        torch.cuda.empty_cache()
+    backend = cp_backend(torch, world)
+    out = {}
+    with tempfile.TemporaryDirectory() as grad_dir:
+        scan_ref = f"{grad_dir}/scan_ref.pt"
+        scan_one_s = scan_island_reference(torch, scan_ref)
+        t0 = time.perf_counter()
+        ranks = run_ranks(torch, rec_cp_rank, world, grad_dir,
+                          [c[0] for c in cases], scan_ref)
         wall = time.perf_counter() - t0
-        leaf = compare_grads(torch.load(Path(grad_dir) / "grads.pt"), g1)
-    del g1
-    d_loss = max(abs(x["loss"] - loss1) / abs(loss1) for x in ranks)
-    out = {"arch": arch, "smoke": smoke, "world": world, "backend": backend,
-           "strategy": "contiguous", "dtype": "float32", "seq_len": seq,
-           "cfg_kw": cfg_kw or {}, "one_rank_loss": loss1,
-           "one_rank_s": one_s, "wall_s": wall, "loss_rel_diff": d_loss,
-           "grad_rel_err": leaf["grad_rel_err"],
-           "worst_leaves": leaf["leaves"][:6], "loss_tol": REC_CP_TOL,
-           "leaf_tol": leaf_tol, "expected_launches": want_launches,
-           "ranks": [{k: x[k] for k in ("rank", "loss", "seconds",
-                                        "launches", "peak_bytes")}
-                     for x in ranks]}
-    emit(what, card=card_line(), **out)
-    if not (d_loss <= REC_CP_TOL
-            and leaf["leaves"][0]["rel_err"] <= leaf_tol):
-        raise AssertionError(f"{what}: loss {d_loss:.3g}, worst leaf "
-                             f"{leaf['leaves'][0]}")
-    if any(x["launches"] != want_launches for x in ranks):
-        raise AssertionError(f"{what}: launches "
-                             f"{[x['launches'] for x in ranks]}, want "
-                             f"{want_launches} per rank")
+        out["scan_island"] = scan_island_report(
+            torch, [r["scan"] for r in ranks], scan_one_s, wall)
+        for (what, arch, smoke, _, seq, cfg_kw), want_launches, leaf_tol \
+                in cases:
+            loss1, g1, one_s = one.pop(what)
+            leaf = compare_grads(torch.load(Path(grad_dir) / f"{what}.pt"),
+                                 g1)
+            del g1
+            rows = [x for r in ranks for x in r["steps"]
+                    if x["what"] == what]
+            d_loss = max(abs(x["loss"] - loss1) / abs(loss1) for x in rows)
+            res = {"arch": arch, "smoke": smoke, "world": world,
+                   "backend": backend, "strategy": "contiguous",
+                   "dtype": "float32", "seq_len": seq,
+                   "cfg_kw": cfg_kw or {}, "one_rank_loss": loss1,
+                   "one_rank_s": one_s, "wall_s": wall,
+                   "spawn": "one spawn for the scan island, " + ", ".join(
+                       c[0][0] for c in cases),
+                   "loss_rel_diff": d_loss,
+                   "grad_rel_err": leaf["grad_rel_err"],
+                   "worst_leaves": leaf["leaves"][:6],
+                   "loss_tol": REC_CP_TOL, "leaf_tol": leaf_tol,
+                   "expected_launches": want_launches,
+                   "ranks": [{k: x[k] for k in (
+                       "rank", "loss", "seconds", "launches",
+                       "peak_bytes")} for x in rows]}
+            emit(what, card=card_line(), **res)
+            if len(rows) != world or not (
+                    d_loss <= REC_CP_TOL
+                    and leaf["leaves"][0]["rel_err"] <= leaf_tol):
+                raise AssertionError(f"{what}: loss {d_loss:.3g}, worst "
+                                     f"leaf {leaf['leaves'][0]}")
+            if any(x["launches"] != want_launches for x in rows):
+                raise AssertionError(f"{what}: launches "
+                                     f"{[x['launches'] for x in rows]}, "
+                                     f"want {want_launches} per rank")
+            out[what] = res
     return out
 
 
@@ -3218,8 +3464,8 @@ def jamba_smoke_phase(torch) -> dict:
     REC_SMOKE_STEPS steps through the kernels on the card and through
     their twins on the CPU from the same parameters (same losses and
     parameters within SMOKE_TRAIN_TOL; the card's launches (2, 1, 1) a
-    step for its one attention layer); then a 1x4 ``contiguous`` step 0,
-    drop-free, against one rank, leaf by leaf."""
+    step for its one attention layer).  Its 1x4 step 0 runs in
+    :func:`rec_cp_phase`."""
     from repro_torch.configs import get_config, reduce_for_smoke
     from repro_torch.models import init_params
     from repro_torch.optim._slices import leaves
@@ -3256,13 +3502,6 @@ def jamba_smoke_phase(torch) -> dict:
     if runs["cuda"][2] != want:
         raise AssertionError(f"jamba smoke launches {runs['cuda'][2]}, want "
                              f"{want}")
-    hops = REC_SMOKE_WORLD            # local KV + N-1 hops a layer
-    cp_want = {n: 0 for n in REPLACES} | {
-        "flash_fwd": 2 * L * hops, "flash_bwd_dq": L * hops,
-        "flash_bwd_dkv": L * hops}
-    out["cp"] = rec_cp_check(
-        torch, "jamba_smoke_cp", JAMBA, True, 0, REC_SMOKE_SEQ, cp_want,
-        cfg_kw={"capacity_factor": float(cfg.num_experts) / cfg.top_k})
     return out
 
 
@@ -3271,11 +3510,10 @@ def xlstm_train_phase(torch) -> dict:
     parameters), bf16 with an fp32 master, one 8192-token wlb_llm
     sequence a step, XLSTM_STEPS steps (the run asks for flashcp and
     trains on contiguous): finite losses and no launch of any of the
-    five kernels (the stack has no attention).  Then a 1x4 mesh (ZeRO-3,
+    five kernels (the stack has no attention).  Its 1x4 step 0 (ZeRO-3,
     the chunk-state scans through ``_ssm_island``, the mLSTM's chunk
-    states across the rank boundary through the halo), f32, step 0
-    against one rank: the loss within REC_CP_TOL, every leaf within
-    XLSTM_CP_LEAF_TOL."""
+    states across the rank boundary through the halo) runs in
+    :func:`rec_cp_phase`."""
     import math
 
     cfg = rec_cfg(XLSTM)
@@ -3307,9 +3545,6 @@ def xlstm_train_phase(torch) -> dict:
         raise AssertionError(f"xLSTM training launched kernels: {launches}")
     if out["strategy"] != "contiguous":
         raise AssertionError(f"xLSTM trained on {out['strategy']}")
-    out["cp"] = rec_cp_check(torch, "xlstm_cp", XLSTM, False, 0, SEQ,
-                             {n: 0 for n in REPLACES},
-                             leaf_tol=XLSTM_CP_LEAF_TOL)
     return out
 
 
@@ -3438,6 +3673,316 @@ def profile_train_step(torch, res) -> dict:
     return out
 
 
+def table_gate(pipe, steps: int) -> None:
+    """The verifier's TAB and WQ rules on every step's visit tables of a
+    training run (rank 0): the rect fwd/dQ tables against the dense
+    token-level visibility oracle (``check_block_tables``), and the flat
+    work queues the kernels ran, forward (fwd/dQ) and reverse (dK/dV),
+    against the rect tables they flatten (``check_work_queue``).  The
+    batches are rebuilt from the run's pipeline with both grids; their
+    flat queues must equal the run's own.  Raises on an error finding."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.analysis import errors, format_findings
+    from repro_torch.analysis.plan_check import (check_block_tables,
+                                                 check_work_queue)
+    from repro_torch.data.pipeline import make_batch
+
+    both = dataclasses.replace(pipe, table_grid="both")
+    found, t0 = [], time.perf_counter()
+    for step in range(steps):
+        b, ran = make_batch(both, step), make_batch(pipe, step)
+        if any(not np.array_equal(b[k], ran[k]) for k in ran
+               if k.startswith("tab_")):
+            raise AssertionError(f"step {step}: the tables differ from the "
+                                 "run's")
+        t = {k[len("tab_loc_"):]: v[:, 0] for k, v in b.items()
+             if k.startswith("tab_loc_")}
+        ctx = f"train step {step}"
+        found += check_block_tables(
+            b["doc"], b["pos"], b["doc"], b["pos"], t["kv_idx"],
+            t["kv_nvis"], block_q=T_BLOCK, block_k=T_BLOCK,
+            context=f"{ctx} fwd")
+        found += check_work_queue(t["kv_idx"], t["kv_nvis"], t["fq_row"],
+                                  t["fq_col"], t["fq_flags"],
+                                  context=f"{ctx} fwd queue")
+        found += check_work_queue(t["q_idx"], t["q_nvis"], t["rq_row"],
+                                  t["rq_col"], t["rq_flags"],
+                                  context=f"{ctx} reverse queue")
+    emit("train_table_check", steps=steps, findings=[f.render()
+                                                      for f in found],
+         seconds=time.perf_counter() - t0)
+    if errors(found):
+        raise AssertionError(format_findings(found))
+
+
+def one_doc_fwd(torch, gen, length: int):
+    """bf16 ``flash_fwd`` at the training heads over one document of
+    ``length`` tokens (flat grid): a call and its visited block pairs."""
+    import numpy as np
+    from repro_torch.kernels import doc_attention as da
+
+    doc = np.zeros((1, length), np.int32)
+    pos = np.arange(length, dtype=np.int32)[None]
+    t = da.build_block_tables(doc, pos, doc, pos, block_q=T_BLOCK,
+                              block_k=T_BLOCK)
+    tabs = tuple(torch.from_numpy(np.ascontiguousarray(a)).to("cuda")
+                 for a in (t.fq_row, t.fq_col, t.fq_flags))
+    meta = [torch.from_numpy(a).to("cuda") for a in (doc, pos, doc, pos)]
+    q, k, v = (torch.randn((1, h, length, T_D), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+               for h in (T_HQ, T_HKV, T_HKV))
+    kw = dict(scale=T_D ** -0.5, block_q=T_BLOCK, block_k=T_BLOCK,
+              grid="flat")
+    return (lambda: da.flash_fwd(q, k, v, *meta, tabs, **kw)), \
+        int(t.kv_nvis.sum())
+
+
+def fit_l_half(lengths, shares) -> float:
+    """The L_HALF of eff(L) = L / (L + L_HALF) that fits ``shares`` best
+    (least squares over a log grid, then refined)."""
+    import numpy as np
+    L, y = np.asarray(lengths, float), np.asarray(shares, float)
+    grid = np.logspace(0, 8, 4001)
+    err = ((y[None] - L[None] / (L[None] + grid[:, None])) ** 2).sum(1)
+    i = int(np.argmin(err))
+    fine = np.linspace(grid[max(i - 1, 0)], grid[min(i + 1, len(grid) - 1)],
+                       2001)
+    err = ((y[None] - L[None] / (L[None] + fine[:, None])) ** 2).sum(1)
+    return float(fine[int(np.argmin(err))])
+
+
+def calibrate_peak_flops(torch, timer, gen) -> dict:
+    """bf16 ``torch.matmul`` at the main path's MLP shape: its FLOP/s."""
+    M, K, N = CAL_MATMUL
+    a = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
+    b = torch.randn((K, N), generator=gen, device="cuda").bfloat16()
+    ms = timer(lambda: torch.matmul(a, b), reps=CAL_REPS)
+    return {"value": 2 * M * K * N / (ms * 1e-3), "ms": ms,
+            "what": f"bf16 matmul {M}x{K}x{N}"}
+
+
+def calibrate_hbm_bw(torch, timer) -> dict:
+    """A 1 GiB device-to-device copy: bytes read plus written per s."""
+    src = torch.empty(CAL_COPY_BYTES, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    ms = timer(lambda: dst.copy_(src), reps=CAL_REPS)
+    return {"value": 2 * CAL_COPY_BYTES / (ms * 1e-3), "ms": ms,
+            "what": "1 GiB copy, read + write"}
+
+
+def calibrate_kernel_overhead(torch, timer, gen) -> dict:
+    """One ``flash_fwd`` call over a single visited 128 x 128 tile."""
+    call, visits = one_doc_fwd(torch, gen, CAL_ONE_TILE)
+    ms = timer(call, reps=CAL_REPS)
+    return {"value": ms * 1e-3, "ms": ms, "visits": visits,
+            "what": "flash_fwd, one visited tile"}
+
+
+def calibrate_copy_overhead(torch, timer, gen) -> dict:
+    """One shard copy of the CP island's buffer: ``_take_tokens`` of a
+    128-token shard of K at the training heads into the Eq.-5 buffer, a
+    copy whose bytes take nanoseconds, so its time is the fixed cost."""
+    from repro_torch.core.cp_attention import _take_tokens
+
+    k = torch.randn((1, T_HKV, SEQ, T_D), generator=gen,
+                    device="cuda").bfloat16()
+    idx = torch.arange(CAL_ONE_TILE, dtype=torch.int32,
+                       device="cuda")[None]
+    ms = timer(lambda: _take_tokens(k, idx), reps=CAL_REPS)
+    return {"value": ms * 1e-3, "ms": ms,
+            "what": f"_take_tokens of {CAL_ONE_TILE} tokens"}
+
+
+def calibrate_grid_step(torch, timer, gen) -> dict:
+    """bf16 ``flash_fwd`` on the rect grid minus the flat grid over the
+    main path's step-0 tables, over the two grids' step counts'
+    difference (counted as ``autotune.measure._rank_counters`` counts
+    them); with the rect grid's dQ and dK/dV times beside the flat ones,
+    for PERF.md."""
+    from repro_torch.kernels import doc_attention as da
+
+    kw = dict(scale=T_D ** -0.5, block_q=T_BLOCK, block_k=T_BLOCK)
+    q, k, v, do = doc_inputs(torch, gen, torch.bfloat16)
+    ms, steps = {}, {}
+    for grid in ("flat", "rect"):
+        batch = doc_batch(grid=grid)
+        meta = [batch[n] for n in ("doc", "pos", "doc", "pos")]
+        fwd_t, rev_t = doc_tables(batch, grid)
+        steps[grid] = int(fwd_t[0].shape[-2] * fwd_t[0].shape[-1]) \
+            if grid == "rect" else int(fwd_t[0].shape[-1])
+        o, lse = da.flash_fwd(q, k, v, *meta, fwd_t, grid=grid, **kw)
+        delta = (do.float() * o.float()).sum(-1)
+        ms[grid] = {
+            "flash_fwd": timer(lambda: da.flash_fwd(
+                q, k, v, *meta, fwd_t, grid=grid, **kw), reps=CAL_REPS),
+            "flash_bwd_dq": timer(lambda: da.flash_bwd_dq(
+                q, k, v, do, lse, delta, *meta, fwd_t, grid=grid, **kw),
+                reps=CAL_REPS),
+            "flash_bwd_dkv": timer(lambda: da.flash_bwd_dkv(
+                q, k, v, do, lse, delta, *meta, rev_t, grid=grid, **kw),
+                reps=CAL_REPS),
+            "visits": visits_of(batch)}
+    d_ms = ms["rect"]["flash_fwd"] - ms["flat"]["flash_fwd"]
+    d_steps = steps["rect"] - steps["flat"]
+    return {"value": d_ms * 1e-3 / d_steps, "ms": ms, "steps": steps,
+            "what": "flash_fwd rect - flat over their step difference"}
+
+
+def calibrate_l_half(torch, timer, gen, peak_flops: float) -> dict:
+    """``flash_fwd`` on one document of each of CAL_DOC_LENS tokens: the
+    achieved share of the cost model's bound (its operations at the
+    measured ``peak_flops``), and the L_HALF of eff(L) = L / (L + L_HALF)
+    that fits those shares."""
+    rows = []
+    for length in CAL_DOC_LENS:
+        call, visits = one_doc_fwd(torch, gen, length)
+        ms = timer(call, reps=CAL_REPS)
+        flops = visits * T_HQ * MATMULS["flash_fwd"] * 2 * T_BLOCK \
+            * T_BLOCK * T_D
+        rows.append({"tokens": length, "visits": visits, "ms": ms,
+                     "share": flops / peak_flops / (ms * 1e-3)})
+    return {"value": fit_l_half([r["tokens"] for r in rows],
+                                [r["share"] for r in rows]),
+            "docs": rows, "what": "fit of eff(L) to flash_fwd's share"}
+
+
+def cost_model_phase(torch, timer) -> dict:
+    """Each constant of the cost model (``autotune.cost_model.HW`` and
+    ``L_HALF``) measured on the card, printed in one
+    ``cost_model_calibration`` line beside the package's value and their
+    ratio (package / measured); ``ici_bw`` (NVLink through NCCL) needs
+    more than one card (``scripts/nccl_allgather_bw.py``).  Fails if the
+    package's ``peak_flops`` or ``hbm_bw`` is off by more than
+    CAL_RATIO.  Also emits the bf16 rect grid's kernel times."""
+    from repro_torch.autotune import cost_model as cm
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(99)
+    meas = {"peak_flops": calibrate_peak_flops(torch, timer, gen),
+            "hbm_bw": calibrate_hbm_bw(torch, timer),
+            "kernel_overhead_s": calibrate_kernel_overhead(torch, timer,
+                                                           gen),
+            "copy_overhead_s": calibrate_copy_overhead(torch, timer, gen),
+            "grid_step_overhead_s": calibrate_grid_step(torch, timer, gen)}
+    meas["L_HALF"] = calibrate_l_half(torch, timer, gen,
+                                      meas["peak_flops"]["value"])
+    package = {**cm.HW, "L_HALF": cm.L_HALF}
+    rows = {n: {"measured": m["value"], "package": package[n],
+                "ratio": package[n] / m["value"], **{
+                    k: v for k, v in m.items() if k != "value"}}
+            for n, m in meas.items()}
+    rows["ici_bw"] = {"measured": None, "package": cm.HW["ici_bw"],
+                      "note": "NVLink through NCCL: one card cannot "
+                              "measure it; scripts/nccl_allgather_bw.py "
+                              "on four cards"}
+    emit("cost_model_calibration", card=card_line(), constants=rows,
+         ratio_bound=CAL_RATIO)
+    grid = meas["grid_step_overhead_s"]["ms"]
+    emit("kernel_time_rect", dtype="bfloat16", card=card_line(),
+         visits=grid["rect"]["visits"], steps=
+         meas["grid_step_overhead_s"]["steps"],
+         ms={g: {n: grid[g][n] for n in DOC_KERNELS} for g in grid})
+    for n in ("peak_flops", "hbm_bw"):
+        if not 1 / CAL_RATIO <= rows[n]["ratio"] <= CAL_RATIO:
+            raise AssertionError(f"cost model {n} = {package[n]:.4g}, the "
+                                 f"card measures {rows[n]['measured']:.4g}")
+    return rows
+
+
+def autotune_args(cache: str, *extra) -> list:
+    return ["--arch", ARCH, "--seq-len", str(SEQ), "--batch", "1",
+            "--steps", str(AUTOTUNE_STEPS), "--autotune",
+            "--autotune-cache", cache, "--device", "cuda", "--log-every",
+            "100", *extra]
+
+
+def autotune_phase(torch, trained: dict) -> dict:
+    """``train.py --autotune`` on the card: (a) the main path's model at
+    full width and depth tuned (the cost model's pick of strategy,
+    overlap, grid, dispatch and K/V wire) and trained AUTOTUNE_STEPS
+    steps with the pick through the three doc kernels: finite losses,
+    exactly steps x layers x (2, 1, 1) launches, step 0's loss beside
+    ``train_phase``'s; (b) the same command with ``--autotune-dry``: a
+    cache hit with the same pick; (c) ``--autotune-dry`` at the meshes of
+    ``cp_train`` and ``dp_train``: each pick, no rank spawned; (d) the
+    cost model's step seconds for (a)'s pick (predicted, its measured
+    trial, and the prediction times the layers: the model prices one
+    layer) beside the card's mean step: printed, not gated."""
+    import math
+    import multiprocessing
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import main as train_main
+
+    L = get_config(ARCH).num_layers
+    want = {"flash_fwd": AUTOTUNE_STEPS * L * 2,
+            "flash_bwd_dq": AUTOTUNE_STEPS * L,
+            "flash_bwd_dkv": AUTOTUNE_STEPS * L}
+    with tempfile.TemporaryDirectory() as cache:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = train_main(autotune_args(cache))
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        tune = res["autotune"]
+        mean_s = statistics.mean(res["step_s"][1:])
+        out = {"arch": ARCH, "layers": L, "seq_len": SEQ,
+               "steps": AUTOTUNE_STEPS, "wall_s": wall,
+               "pick": tune["best"], "n_candidates": tune["n_candidates"],
+               "top_k": tune["top_k"], "frontier_rho": tune["frontier_rho"],
+               "cached": tune["cached"], "losses": res["losses"],
+               "train_phase_step0_loss": trained["losses"][0],
+               "step_s": res["step_s"], "step_s_after_first": mean_s,
+               "peak_bytes": torch.cuda.max_memory_allocated(),
+               "launches": launches, "expected_launches": want,
+               "predicted_step_s": tune["predicted"]["step_s"],
+               "model_trial_step_s": tune["measured"]["step_s"],
+               # the cost model prices one layer (ModelDims has no depth)
+               "predicted_step_s_times_layers":
+                   tune["predicted"]["step_s"] * L,
+               "predicted_terms": tune["predicted"]}
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit("autotune_train", card=card_line(), **out)
+        if not all(math.isfinite(x) for x in out["losses"]):
+            raise AssertionError("autotuned training: non-finite losses")
+        if any(launches[n] != want[n] for n in want):
+            raise AssertionError(f"autotuned training launched {launches}, "
+                                 f"want {want}")
+        dry = train_main(autotune_args(cache, "--autotune-dry"))
+        emit("autotune_dry", mesh="1x1", cached=dry["autotune"]["cached"],
+             pick=dry["autotune"]["best"])
+        if not dry["autotune"]["cached"] or \
+                dry["autotune"]["best"] != tune["best"]:
+            raise AssertionError(f"second --autotune: {dry['autotune']}")
+    out["meshes"] = {}
+    for mesh, seq, batch in (("1x4", CP_SEQ, 1),
+                             ("2x2", DP_SEQ, DP_BATCH)):
+        t0 = time.perf_counter()
+        dry = train_main(["--arch", ARCH, "--seq-len", str(seq),
+                          "--batch", str(batch), "--mesh", mesh,
+                          "--dist-backend", "gloo", "--autotune",
+                          "--autotune-dry", "--device", "cuda"])
+        spawned = multiprocessing.active_children()
+        row = {"mesh": mesh, "seq_len": seq, "batch": batch,
+               "pick": dry["autotune"]["best"],
+               "n_candidates": dry["autotune"]["n_candidates"],
+               "frontier_rho": dry["autotune"]["frontier_rho"],
+               "predicted_step_s": dry["autotune"]["predicted"]["step_s"],
+               "seconds": time.perf_counter() - t0,
+               "trained_steps": len(dry["losses"]),
+               "live_children": len(spawned)}
+        emit("autotune_dry", **row)
+        if spawned or dry["losses"]:
+            raise AssertionError(f"--autotune-dry at {mesh} ran ranks")
+        out["meshes"][mesh] = row
+    return out
+
+
 def train_phase(torch) -> dict:
     """The main path: ``train`` at full width for STEPS steps through the
     kernels, launch counts read around it."""
@@ -3488,6 +4033,7 @@ def train_phase(torch) -> dict:
         raise AssertionError("training produced non-finite losses")
     if any(launches[n] != want[n] for n in want):
         raise AssertionError(f"training launches {launches}, want {want}")
+    table_gate(res["pipeline"], STEPS)
     out["profile"] = profile_train_step(torch, res)
     return out, res
 
@@ -4078,6 +4624,12 @@ def main() -> int:
         timed(smoke_train_phase, torch)
         gc.collect()
         torch.cuda.empty_cache()
+        timed(cost_model_phase, torch, timer)
+        gc.collect()
+        torch.cuda.empty_cache()
+        timed(autotune_phase, torch, trained)
+        gc.collect()
+        torch.cuda.empty_cache()
         timed(cp_islands_phase, torch, decode_inputs)
         del decode_inputs
         timed(cp_train_phase, torch)
@@ -4104,6 +4656,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         timed(jamba_smoke_phase, torch)
         timed(xlstm_train_phase, torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        timed(rec_cp_phase, torch)
         gc.collect()
         torch.cuda.empty_cache()
         timed(xlstm_serve_phase, torch)
@@ -4141,4 +4696,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        close_rank_pool()
+    sys.exit(code)

@@ -114,4 +114,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        cs.close_rank_pool()
+    sys.exit(code)

@@ -6,7 +6,8 @@ backbone), resolved by ``--arch`` name.
 
 from __future__ import annotations
 
-from .base import ModelConfig, RunConfig, reduce_for_smoke
+from .base import (ModelConfig, RunConfig, reduce_for_smoke,
+                   run_config_from_dict, run_config_to_dict)
 
 from . import (dbrx_132b, granite_34b, internvl2_1b, jamba_v0_1_52b,
                musicgen_medium, olmoe_1b_7b, qwen3_32b, starcoder2_3b,
@@ -28,4 +29,4 @@ def get_config(name: str) -> ModelConfig:
 
 
 __all__ = ["ModelConfig", "RunConfig", "ARCHS", "get_config",
-           "reduce_for_smoke"]
+           "reduce_for_smoke", "run_config_to_dict", "run_config_from_dict"]

@@ -167,6 +167,20 @@ class RunConfig:
     seed: int = 0
 
 
+def run_config_to_dict(run: RunConfig) -> dict:
+    """JSON-serializable field dict of a :class:`RunConfig` (every field
+    is a scalar, so ``asdict`` round-trips losslessly)."""
+    return dataclasses.asdict(run)
+
+
+def run_config_from_dict(d: dict) -> RunConfig:
+    """Inverse of :func:`run_config_to_dict`.  Unknown keys are ignored so
+    tuned configs written by a newer tuner still load (the autotuner's
+    cache stores these dicts — DESIGN.md §Autotune)."""
+    known = {f.name for f in dataclasses.fields(RunConfig)}
+    return RunConfig(**{k: v for k, v in d.items() if k in known})
+
+
 def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
     """Shrink a config to smoke-test size, keeping its GQA ratio, its
     MoE top-k (at most 4 experts, top-2), its hybrid interleave (one

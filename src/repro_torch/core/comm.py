@@ -34,7 +34,11 @@ this rank sends through its hops, all-gathers and reduce-scatters, by
 pass (``wire_bytes["forward"]``, ``["backward"]``): a hop sends its
 tensors once, an all-gather this rank's piece to the N-1 other ranks, a
 reduce-scatter N-1 of its N pieces.  Integer metadata (doc/pos) is not
-counted.
+counted there.  A second counter, ``wire_bytes_by_kind``, keeps the
+same sends by collective kind (``"permute"``, ``"all_gather"``,
+``"reduce_scatter"``), the int32 metadata included, for the wire audit
+(:mod:`repro_torch.analysis.wire_audit`); ``wire_peak_by_kind`` keeps
+the largest result one call of each kind produced on this rank.
 
 The backend is an explicit argument, ``"nccl"`` or ``"gloo"``, never
 inferred.  With NCCL the transfers run on the process group's own NCCL
@@ -60,6 +64,8 @@ __all__ = ["CPComm", "hop_start", "hop_wait", "all_gather_tiled",
            "broadcast_"]
 
 BACKENDS = ("nccl", "gloo")
+#: the collective kinds ``CPComm.wire_bytes_by_kind`` counts
+KINDS = ("permute", "all_gather", "reduce_scatter")
 
 
 class CPComm:
@@ -73,7 +79,13 @@ class CPComm:
         self.group = group
         self.rank = dist.get_rank(group)
         self.size = dist.get_world_size(group)
+        self.reset_wire()
+
+    def reset_wire(self) -> None:
+        """Zero every byte counter."""
         self.wire_bytes = {"forward": 0, "backward": 0}
+        self.wire_bytes_by_kind = dict.fromkeys(KINDS, 0)
+        self.wire_peak_by_kind = dict.fromkeys(KINDS, 0)
 
     def count(self, tag: str, xs, factor: float = 1.0) -> None:
         """Add ``factor`` x the bytes of the floating and int8 tensors of
@@ -81,6 +93,16 @@ class CPComm:
         n = sum(x.numel() * x.element_size() for x in xs
                 if x.is_floating_point() or x.dtype == torch.int8)
         self.wire_bytes[tag] += int(n * factor)
+
+    def count_kind(self, kind: str, xs, factor: float = 1.0,
+                   result: float = 1.0) -> None:
+        """Add ``factor`` x the bytes of every tensor of ``xs`` to
+        ``wire_bytes_by_kind[kind]``; ``result`` x those bytes is the
+        call's result, kept in ``wire_peak_by_kind[kind]`` if largest."""
+        n = sum(x.numel() * x.element_size() for x in xs)
+        self.wire_bytes_by_kind[kind] += int(n * factor)
+        self.wire_peak_by_kind[kind] = max(self.wire_peak_by_kind[kind],
+                                           int(n * result))
 
     def _global(self, r: int) -> int:
         r %= self.size
@@ -96,6 +118,7 @@ class CPComm:
         from rank r-shift; returns the transfer in flight.  ``tag`` is
         the pass whose ``wire_bytes`` count it."""
         self.count(tag, xs)
+        self.count_kind("permute", xs)
         send, recv, ops = [], [], []
         to, frm = self._global(self.rank + shift), \
             self._global(self.rank - shift)
@@ -234,6 +257,10 @@ def _along(x, comm: CPComm, dim: int, gather: bool, tag: str = "forward"):
     ``dim``, tiled in rank order."""
     n = comm.size
     comm.count(tag, (x,), (n - 1) if gather else (n - 1) / n)
+    if gather:
+        comm.count_kind("all_gather", (x,), n - 1, result=n)
+    else:
+        comm.count_kind("reduce_scatter", (x,), (n - 1) / n, result=1 / n)
     xt = x.detach().movedim(dim, 0).contiguous()
     host = comm._host_wire(xt)
     wire = xt.cpu() if host else xt

@@ -71,8 +71,18 @@ switches CP degree and loses its second host at step 3:
 The audio and VLM archs (``musicgen_medium``, ``internvl2_1b``) train on
 frame or patch embeddings that no data source of the repo makes: the CLI
 refuses them, and ``launch.steps.build_train_step`` trains them on
-batches that carry those keys.  Autotuning waits for a later slice of
-the port.
+batches that carry those keys.
+
+``--autotune`` (DESIGN.md §Autotune) picks ``cp_strategy``,
+``cp_overlap``, ``kernel_grid``, ``dispatch`` (and its target) and
+``kv_comm_dtype`` with the cost-model autotuner (``repro_torch.autotune``,
+the H100's cost constants) before training, once and before any rank
+starts (under ``torchrun``, rank 0 tunes and broadcasts the pick);
+``--autotune-cache DIR`` keeps the result under a content address,
+``--autotune-dry`` prints the pick and trains nothing:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
+        --mesh 1x2 --seq-len 512 --batch 2 --autotune --autotune-dry
 """
 
 from __future__ import annotations
@@ -86,6 +96,7 @@ import time
 import torch
 import torch.distributed as dist
 
+from repro_torch.autotune import autotune_run
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import RunConfig, get_config, reduce_for_smoke
 from repro_torch.core.comm import CPComm, broadcast_
@@ -108,7 +119,12 @@ from repro_torch.runtime import (ElasticSupervisor, FailureInjector,
 from repro_torch.runtime.zero import Zero3, named_leaves, tree_shapes
 
 __all__ = ["train", "build_parser", "main", "parse_mesh",
-           "restore_state", "check_same_on_ranks", "refuse_frontends"]
+           "restore_state", "check_same_on_ranks", "refuse_frontends",
+           "model_config", "base_run", "autotune", "TUNED_KNOBS"]
+
+#: the RunConfig knobs ``--autotune`` picks (``autotune.Candidate``'s)
+TUNED_KNOBS = ("cp_strategy", "cp_overlap", "kernel_grid", "dispatch",
+               "dispatch_target_imbalance", "kv_comm_dtype")
 
 
 def parse_mesh(mesh: str) -> tuple[int, int]:
@@ -124,6 +140,62 @@ def parse_mesh(mesh: str) -> tuple[int, int]:
     if data < 1 or model < 1:
         raise ValueError(f"--mesh {mesh}: both axes must be >= 1")
     return data, model
+
+
+def model_config(args):
+    """The arch's config as ``--smoke`` and ``--layers`` cut it."""
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = reduce_for_smoke(cfg)
+    if getattr(args, "layers", 0):
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    return cfg
+
+
+def base_run(args) -> RunConfig:
+    """The run's :class:`RunConfig` as the flags give it (the strategy as
+    asked, before ``effective_strategy``)."""
+    return RunConfig(arch=args.arch, cp_strategy=args.strategy,
+                     attention_impl=args.attention_impl,
+                     kernel_grid=args.grid, lr=args.lr,
+                     total_steps=args.steps,
+                     warmup_steps=max(args.steps // 10, 1),
+                     grad_compression=args.grad_compression,
+                     checkpoint_dir=args.checkpoint_dir,
+                     remat=not args.no_remat, seed=args.seed,
+                     dispatch="adaptive" if args.dispatch else "off",
+                     dispatch_target_imbalance=args.dispatch_target,
+                     dispatch_min_cp=args.dispatch_min_cp)
+
+
+def autotune(args) -> dict:
+    """``--autotune``: the cost-model autotuner's pick of
+    :data:`TUNED_KNOBS` for this run (DESIGN.md §Autotune), on the
+    document pool of the run's own dataset and seed, the mesh and the
+    pipeline's alignment; cached under ``--autotune-cache``.  Prints the
+    reference's ``[autotune]`` line and returns ``{"run_config": the
+    tuned RunConfig's dict, "autotune": the search's summary}``."""
+    cfg = model_config(args)
+    data, model = parse_mesh(args.mesh)
+    run, res = autotune_run(
+        base_run(args), cfg, data=data, model=model,
+        context_len=args.seq_len, seqs=args.batch, dataset=args.dataset,
+        cache_dir=args.autotune_cache, top_k=args.autotune_topk)
+    print(f"[autotune] {'cache hit' if res.cached else 'searched'} "
+          f"{res.n_candidates} candidates (top-{res.top_k} "
+          f"measured): {run.cp_strategy}/{run.cp_overlap}/"
+          f"{run.kernel_grid}/{run.dispatch}/{run.kv_comm_dtype} "
+          f"frontier_rho={res.spearman_frontier:.2f}", flush=True)
+    best = next(f for f in res.frontier
+                if f["candidate"] == res.best.as_dict())
+    return {"run_config": res.run_config,
+            "autotune": {"best": res.best.as_dict(), "key": res.key,
+                         "cached": res.cached,
+                         "n_candidates": res.n_candidates,
+                         "top_k": res.top_k,
+                         "frontier_rho": res.spearman_frontier,
+                         "predicted": best["predicted"],
+                         "measured": best["measured"]}}
 
 
 def refuse_frontends(cfg) -> None:
@@ -309,26 +381,16 @@ def train(args, params=None, mesh=None, device=None) -> dict:
     backend = args.dist_backend
     world = None if mesh is None else CPComm(backend)
     rank = 0 if world is None else world.rank
-    cfg = get_config(args.arch)
-    if args.smoke:
-        cfg = reduce_for_smoke(cfg)
-    if getattr(args, "layers", 0):
-        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    cfg = model_config(args)
     refuse_frontends(cfg)
+    run = base_run(args)
+    tuned = getattr(args, "tuned", None)
+    if tuned:
+        run = dataclasses.replace(run, **{k: tuned[k] for k in TUNED_KNOBS})
     # unknown strategies fail fast; recurrent families swap for contiguous
-    strategy = effective_strategy(cfg, args.strategy)
-    dispatch = args.dispatch
-    run = RunConfig(arch=args.arch, cp_strategy=strategy,
-                    attention_impl=args.attention_impl,
-                    kernel_grid=args.grid, lr=args.lr,
-                    total_steps=args.steps,
-                    warmup_steps=max(args.steps // 10, 1),
-                    grad_compression=args.grad_compression,
-                    checkpoint_dir=args.checkpoint_dir,
-                    remat=not args.no_remat, seed=args.seed,
-                    dispatch="adaptive" if dispatch else "off",
-                    dispatch_target_imbalance=args.dispatch_target,
-                    dispatch_min_cp=args.dispatch_min_cp)
+    strategy = effective_strategy(cfg, run.cp_strategy)
+    run = dataclasses.replace(run, cp_strategy=strategy)
+    dispatch = run.dispatch == "adaptive"
     flash = run.attention_impl == "flash"
     # the kernels need block-divisible rank slices
     align = 128 if flash else (1 if (D * M if dispatch else M) == 1
@@ -661,6 +723,18 @@ def build_parser() -> argparse.ArgumentParser:
                     help="simulated hosts, each a contiguous range of "
                          "ranks (0 = one host per data row)")
     ap.add_argument("--max-restarts", type=int, default=10)
+    ap.add_argument("--autotune", action="store_true",
+                    help="search run-config knobs (strategy/overlap/grid/"
+                         "dispatch/kv dtype) with the cost-model autotuner "
+                         "before training (DESIGN.md §Autotune); on a mesh "
+                         "once, before any rank starts")
+    ap.add_argument("--autotune-cache", default="",
+                    help="directory for the content-addressed tune result "
+                         "cache ('' = no persistence)")
+    ap.add_argument("--autotune-topk", type=int, default=8,
+                    help="measured-trial frontier size")
+    ap.add_argument("--autotune-dry", action="store_true",
+                    help="tune and print the selected config, skip training")
     ap.add_argument("--dist-backend", choices=("nccl", "gloo"),
                     help="collective backend, required when D x M > 1 "
                          "(gloo where ranks share a card: NCCL takes one "
@@ -677,9 +751,21 @@ def _report(out) -> None:
 
 def _rank_main(rank: int, args, world: int, store: str | None) -> dict:
     """One rank of the mesh: joins through ``store`` (a FileStore path)
-    or env:// (None), trains, and returns its result."""
+    or env:// (None), trains, and returns its result.  Under env:// with
+    ``--autotune``, rank 0 tunes and every rank takes its pick."""
     _, dev = init_rank(rank, world, args.dist_backend, store, args.device)
     try:
+        tuned = None
+        if args.autotune and not getattr(args, "tuned", None):
+            box = [autotune(args) if rank == 0 else None]
+            dist.broadcast_object_list(box, src=0, device=dev
+                                       if args.dist_backend == "nccl"
+                                       else None)
+            tuned = box[0]
+            if args.autotune_dry:
+                return {"final_step": 0, "losses": [], **tuned}
+            args = argparse.Namespace(**{**vars(args),
+                                         "tuned": tuned["run_config"]})
         if args.mesh == "prod":
             mesh = make_production_mesh(device_type=dev.type)
         else:
@@ -688,7 +774,7 @@ def _rank_main(rank: int, args, world: int, store: str | None) -> dict:
         out = train(args, mesh=mesh, device=dev)
         if rank == 0:
             _report(out)
-        return out
+        return out if tuned is None else {**out, **tuned}
     finally:
         dist.destroy_process_group()
 
@@ -702,10 +788,17 @@ def main(argv=None) -> dict | None:
     data, model = parse_mesh(args.mesh)
     world = data * model
     launched = env_rank()
+    tuned = None
+    if args.autotune and launched is None:
+        # tune once, before any rank starts; the ranks take the pick
+        tuned = autotune(args)
+        if args.autotune_dry:
+            return {"final_step": 0, "losses": [], **tuned}
+        args.tuned = tuned["run_config"]
     if launched is None and world == 1:
         out = train(args)
         _report(out)
-        return out
+        return out if tuned is None else {**out, **tuned}
     if args.dist_backend is None:
         raise SystemExit(f"--mesh {args.mesh} needs --dist-backend "
                          "{nccl,gloo}")

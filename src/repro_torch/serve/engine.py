@@ -323,6 +323,22 @@ class ServeEngine:
         st.table[bi] = nb
         self.stats["cow_copies"] += 1
 
+    def block_tables(self) -> tuple[dict, dict]:
+        """The live requests' block state, read-only, as the verifier's
+        SRV rules take it (``repro_torch.analysis.plan_check.
+        check_serve_state``): ``({request id: block-id table}, {block:
+        references held outside the tables})`` — the copy-on-write
+        spares.  Both empty on the dense layout, which has no pool."""
+        tables, extra = {}, {}
+        if self.layout != "paged":
+            return tables, extra
+        for s in self.sched.active_slots:
+            st = self.sched.slots[s]
+            tables[st.request.rid] = list(st.table)
+            if st.spare is not None:
+                extra[st.spare] = extra.get(st.spare, 0) + 1
+        return tables, extra
+
     def _tables_matrix(self) -> np.ndarray:
         tab = np.zeros((self.num_slots, self._nk), np.int32)
         for s in self.sched.active_slots:

@@ -45,9 +45,14 @@ def permute(x, perm, axis=2):
     return out * (perm >= 0).reshape(shp)
 
 
-def plan_stack(plan_name: str, cp: int):
+def plan_stack(plan_name: str, cp: int, buf_scale: int = 1):
+    """The plan-order batch of ``plan_name`` at ``cp`` ranks; a
+    ``buf_scale`` above 1 widens the Eq.-5 buffer that many times."""
     plans = [get_planner(plan_name)(DOC_LENS, cp) for _ in range(B)]
-    stack, _ = encode_plan_batch(plans, align=BQ)
+    stack, encs = encode_plan_batch(plans, align=BQ)
+    if buf_scale != 1:
+        stack, _ = encode_plan_batch(plans, align=BQ,
+                                     buf_len=encs[0].buf_len * buf_scale)
     return stack
 
 

@@ -2,7 +2,9 @@
 numpy only, so the spawned ranks never import JAX).
 
 ``wire_rank`` runs the CP islands of ``tests/_torch_cp_ranks.py``'s
-batch on the native and the int8 wire; ``decode_rank`` joins its group
+batch on the native and the int8 wire, recording the bytes each rank's
+``CPComm`` sent by pass and, for the wire audit, the forward's by
+collective kind; ``decode_rank`` joins its group
 through env:// and runs the sharded flash decode.  Each writes its
 results to ``<out_dir>/rank<r>.npz``."""
 
@@ -20,8 +22,10 @@ from repro_torch.launch.ranks import init_rank
 from repro_torch.planner import emit_visit_tables, get_planner
 
 #: ``native@dq``: the native wire on K/V already quantized and
-#: dequantized, which the int8 wire's straight-through backward equals
-WIRES = ("native", "int8", "native@dq")
+#: dequantized, which the int8 wire's straight-through backward equals;
+#: ``native@2buf``: the native wire with the Eq.-5 buffer twice as wide
+#: as the plan needs (a fault the wire audit must catch)
+WIRES = ("native", "int8", "native@dq", "native@2buf")
 
 
 def case_key(plan_name, overlap, impl, grid, wire):
@@ -36,7 +40,7 @@ def dq(x):
 def _run(comm, plan_name, overlap, impl, grid, wire, inputs):
     strat = get_planner(plan_name).info.exec_style
     N, r = comm.size, comm.rank
-    stack = plan_stack(plan_name, N)
+    stack = plan_stack(plan_name, N, 2 if wire == "native@2buf" else 1)
     arrays = dict(stack)
     if impl == "flash":
         gath = strat in ("flashcp", "contiguous")
@@ -61,11 +65,16 @@ def _run(comm, plan_name, overlap, impl, grid, wire, inputs):
                           block_k=BK, grid=grid,
                           kv_comm_dtype="int8" if wire == "int8"
                           else "native", comm=comm)
-    comm.wire_bytes = {"forward": 0, "backward": 0}
+    comm.reset_wire()
     out = ctx.attn(q, k, v)
+    by_kind = {"by_kind": dict(comm.wire_bytes_by_kind),
+               "peak": dict(comm.wire_peak_by_kind),
+               "buf_len": int(stack["send_idx"].shape[-1]
+                              if strat in ("flashcp", "contiguous")
+                              else t_loc)}
     grads = torch.autograd.grad(torch.sum(out.float() ** 2), (q, k, v))
     return [out.detach().numpy(), *(g.numpy() for g in grads)], \
-        dict(comm.wire_bytes)
+        {**comm.wire_bytes, **by_kind}
 
 
 def wire_rank(rank, world, store, out_dir, cases):
@@ -144,8 +153,17 @@ def decode_rank(rank, world, port, out_dir, lens_cases):
 
 
 def _dump_losses(out_dir, rank, out) -> None:
+    """The rank's losses; under ``--autotune`` also the pick and the
+    knobs the rank trained with (``autotune<r>.json``)."""
     with open(os.path.join(out_dir, f"losses{rank}.json"), "w") as f:
         json.dump([float(x) for x in out["losses"]], f)
+    if "autotune" in out:
+        from repro_torch.launch.train import TUNED_KNOBS
+        run = out.get("run")
+        with open(os.path.join(out_dir, f"autotune{rank}.json"), "w") as f:
+            json.dump({"autotune": out["autotune"],
+                       "trained_with": None if run is None else
+                       {k: getattr(run, k) for k in TUNED_KNOBS}}, f)
 
 
 def train_env_rank(rank, world, port, out_dir, argv):

@@ -17,9 +17,15 @@ on the native wire fed K/V already quantized and dequantized.  Held:
   gradients equal the native wire's at the dequantized K/V (1e-5);
 * the K/V bytes each rank hands to its ``CPComm``: on the int8 wire the
   forward sends D int8 values and one f32 scale per row, (D + 4) / (4 D)
-  of the f32 wire, and the backward the same full-precision bytes.
+  of the f32 wire, and the backward the same full-precision bytes;
+* the wire audit (``repro_torch.analysis.wire_audit``) on the native
+  islands' forward bytes by collective kind: no WIRE finding, each kind
+  within 1% of ``kv_exchange_budget``; a flashcp island given an Eq.-5
+  buffer twice as wide trips WIRE102, and a budget without the kind the
+  island used trips WIRE101.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -32,8 +38,11 @@ import torch
 
 import _torch_cp_ranks as cp
 import _torch_wire_ranks as wr
+from repro_torch.analysis.wire_audit import audit_wire, island_budget
 from repro_torch.core.comm import dequantize_int8, quantize_int8
+from repro_torch.core.cp_attention import resolve_overlap
 from repro_torch.launch.ranks import spawn_ranks
+from repro_torch.planner import get_planner
 
 REF_TOL = 1e-4
 WIRE_TOL = {"o": 3e-2, "dq": 5e-2, "dk": 5e-2, "dv": 5e-2}
@@ -51,8 +60,11 @@ ISLANDS = [("flashcp", "chunked", "plain", "rect"),
 # islands whose K/V all reach attention through the gather (no local raw
 # copy), so the native wire at the dequantized K/V is the int8 wire
 GATHERED = [c for c in ISLANDS if c[0] == "llama3" and c[1] == "none"]
+# flashcp islands run again with the Eq.-5 buffer twice as wide
+WIDENED = [c for c in ISLANDS if c[0] == "flashcp" and c[2] == "plain"]
 CASES = [(*c, w) for c in ISLANDS for w in ("native", "int8")] + \
-    [(*c, "native@dq") for c in GATHERED]
+    [(*c, "native@dq") for c in GATHERED] + \
+    [(*c, "native@2buf") for c in WIDENED]
 NAMES = ("o", "dq", "dk", "dv")
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -190,6 +202,60 @@ def test_int8_wire_bytes(wires):
             assert q8[r]["forward"] * 4 * cp.D == \
                 nat[r]["forward"] * (cp.D + 4), (n, island, r)
             assert q8[r]["backward"] == nat[r]["backward"], (n, island, r)
+
+
+def _budget(n, island, buf_len):
+    """The forward wire budget of ``island`` at ``n`` ranks (f32 K/V, the
+    test's batch and heads) on an Eq.-5 buffer of ``buf_len``."""
+    strat = get_planner(island[0]).info.exec_style
+    return island_budget(strat, resolve_overlap(strat, island[2], island[1]),
+                         buf_len=buf_len, num_workers=n, kv_heads=cp.HKV,
+                         head_dim=cp.D, dtype_bytes=4, batch=cp.B)
+
+
+@pytest.mark.parametrize("island", ISLANDS, ids=map(_key, ISLANDS))
+def test_wire_audit_clean_on_native_islands(wires, island):
+    """Every rank's forward bytes by collective kind equal the analytic
+    budget (the Eq.-5 bucket's K/V plus, on the hops, the doc/pos
+    metadata) within 1%, and the audit finds nothing."""
+    n, _, nbytes = wires
+    for r, b in enumerate(nbytes[(*island, "native")]):
+        budget = _budget(n, island, b["buf_len"])
+        assert not audit_wire(b["by_kind"], budget, largest=b["peak"],
+                              context=f"cp{n}/rank{r}")
+        for kind, cap in budget.allowed.items():
+            assert abs(b["by_kind"][kind] - cap) <= 0.01 * cap, \
+                (n, island, r, kind, b["by_kind"], cap)
+
+
+@pytest.mark.parametrize("island", WIDENED, ids=map(_key, WIDENED))
+def test_wire_audit_catches_a_doubled_buffer(wires, island):
+    """The island on a buffer twice as wide gives the same attention but
+    sends more than the plan's bucket: WIRE102 on every rank."""
+    n, res, nbytes = wires
+    for g, w in zip(res[(*island, "native@2buf")], res[(*island, "native")]):
+        np.testing.assert_allclose(g, w, atol=1e-5, rtol=1e-5)
+    natural = nbytes[(*island, "native")]
+    for r, b in enumerate(nbytes[(*island, "native@2buf")]):
+        assert b["buf_len"] == 2 * natural[r]["buf_len"]
+        fs = audit_wire(b["by_kind"], _budget(n, island,
+                                             natural[r]["buf_len"]))
+        assert {f.rule for f in fs} == {"WIRE102"}, fs
+
+
+def test_wire_audit_catches_an_unbudgeted_kind(wires):
+    """A budget that lacks the kind an island used (the hops' permute,
+    the monolithic island's all-gather) trips WIRE101."""
+    n, _, nbytes = wires
+    for island in (ISLANDS[0], ISLANDS[1]):
+        b = nbytes[(*island, "native")][0]
+        budget = _budget(n, island, b["buf_len"])
+        kind = next(iter(budget.allowed))
+        assert b["by_kind"][kind] > 0
+        fs = audit_wire(b["by_kind"], dataclasses.replace(
+            budget, allowed={k: v for k, v in budget.allowed.items()
+                             if k != kind}))
+        assert {f.rule for f in fs} == {"WIRE101"}, fs
 
 
 def _jax_quantize(x):

@@ -40,11 +40,19 @@ def test_port_sources_import_no_jax_and_no_reference():
 
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(ROOT) for p in (ROOT / "tests").glob("_torch_*ranks.py")]
-    + [Path("chip_smoke.py"), Path("scripts/cp_grad_check.py")]), ids=str)
+    + [p.relative_to(ROOT) for p in (ROOT / "scripts").glob("*_torch.py")]
+    + [Path("chip_smoke.py"), Path("scripts/cp_grad_check.py"),
+       Path("scripts/nccl_allgather_bw.py")]), ids=str)
 def test_rank_bodies_and_chip_scripts_import_no_jax(path):
-    """What runs in spawned ranks and on the card imports neither JAX nor
-    the reference package."""
+    """What runs in spawned ranks and on the card, and the port's CLIs
+    (``scripts/*_torch.py``), import neither JAX nor the reference
+    package."""
     assert not _imported_roots(ROOT / path) & set(FORBIDDEN)
+
+
+def test_port_clis_are_scanned():
+    names = {p.name for p in (ROOT / "scripts").glob("*_torch.py")}
+    assert {"flashcheck_torch.py", "autotune_torch.py"} <= names
 
 
 @pytest.mark.parametrize("modules", [
@@ -52,6 +60,8 @@ def test_rank_bodies_and_chip_scripts_import_no_jax(path):
     ["repro_torch.kernels.flash_decode", "repro_torch.models"],
     ["repro_torch.launch.train", "repro_torch.kernels.doc_attention",
      "repro_torch.kernels.ops"],
+    ["repro_torch.analysis.plan_check", "repro_torch.analysis.lint",
+     "repro_torch.analysis.wire_audit", "repro_torch.autotune"],
 ])
 def test_port_imports_without_jax_nvcc_or_a_card(modules):
     """A fresh interpreter with no CUDA toolkit on its path and no
