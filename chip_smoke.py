@@ -25,6 +25,11 @@ launch count set to 0 just before and read just after:
   the kernels vs the plain attention from the same parameters and batch;
   and a small f32 model trained 3 steps on the card and on the CPU (the
   kernels' twins) must agree;
+* the step audit: one more main-path step at full width through the
+  three kernels under ``analysis.step_audit`` (exactly one
+  ``train_step`` call): no f64 and no host-sync site outside the
+  module's ``cuda`` list, the sites on a line of their own
+  (``step_audit``);
 * the tooling: the cost model's constants
   (``repro_torch.autotune.cost_model.HW``, ``L_HALF``) measured on the
   card beside the package's, ``peak_flops`` and ``hbm_bw`` gated within
@@ -46,7 +51,18 @@ launch count set to 0 just before and read just after:
   path and with the native wire's launches, the K/V bytes each rank
   hands to its ``CPComm`` beside the Eq. 5 figure (``cp_islands``); and
   4 CP ranks (a 1x4 mesh, ZeRO-3) training full-width starcoder2_3b cut
-  to 2 layers for 2 steps, step 0 against one rank (``cp_train``);
+  to 2 layers for 2 steps, step 0 against one rank (``cp_train``); in
+  the same job of the same 4 ranks, the two-pod layout: a 2x1x2 (pod,
+  data, model) mesh, rows over ``pod``, tokens over ``model``, ZeRO-3
+  over all three axes, one step of the same model on 2 rows of 16384
+  tokens, step 0 against one rank and every rank's shards exact
+  (``pod_train``); and the per-rank dry run (``launch.dryrun``) traced
+  on the host, three cells at once on the rank pool's workers while the
+  card runs ``moe_serve`` and ``moe_train``: the main path's
+  cell, whose predicted peak must lie within 2x of the train phase's
+  measured one, pod_train's, whose predicted ZeRO-3 state must be what
+  each rank holds, and one production cell (starcoder2_3b x train_4k on
+  2x16x16) with its ``fits`` (``dryrun``);
 * the distributed training loop: a 2x2 mesh (rows over ``data``, tokens
   over ``model``, parameters and optimizer state sharded over both)
   training the same model cut to 2 layers on 2 rows of 16384 tokens for
@@ -257,6 +273,20 @@ F2 = ("not a fault of the port: the reference rounds the same way on the "
 # and every leaf but the embedding table's as in cp_train
 DP_MESH, DP_LAYERS, DP_SEQ, DP_BATCH, DP_STEPS = (2, 2), 2, 16384, 2, 2
 DP_LOSS_TOL, DP_TOL = 1e-4, 1e-2
+# the two-pod layout, on the 4 ranks of cp_train's job: a 2x1x2 (pod,
+# data, model) mesh training dp_train's model and batch (2 layers, 2 rows
+# of 16384 tokens: a row per pod, its tokens over model) for one step,
+# ZeRO-3 over all three axes; step 0 against dp_train's one-rank step
+# within cp_train's bounds
+POD_MESH = (2, 1, 2)
+# the dry run on the host (launch/dryrun.py): the main path's cell (1x1,
+# one SEQ-token sequence) must predict the train phase's measured peak
+# within this factor (the looseness of the cost model's constants), with
+# the kernel-adjusted peak (the doc kernels keep the scores on chip);
+# pod_train's cell must predict each rank's ZeRO-3 state bytes exactly
+DRYRUN_PEAK_RATIO = 2.0
+# one production cell, printed with its fits: (arch, shape, multi_pod)
+DRYRUN_PROD = ("starcoder2_3b", "train_4k", True)
 # the smoke model (f32, on the card): a checkpoint written at step 2 on
 # 2x2 and resumed on 1x4 against the uninterrupted 4-step run
 DP_RESUME_AT, DP_RESUME_STEPS, DP_RESUME_TOL = 2, 4, 1e-5
@@ -279,8 +309,10 @@ RANK_POOL = 4
 RES_PATIENCE, RES_DELAY_STEP, RES_DELAY_S = 8, 3, 0.25
 RES_SNAPSHOT_EVERY = 20
 # sharded dense decode: segments per stripe, and ranks the cache's S is
-# split over (flash_decode_ranks)
+# split over (flash_decode_ranks); the f32 runs at each segment count
+# generate SHARD_GEN tokens a request
 SHARDS = (2, 4)
+SHARD_GEN = 32
 # the MoE family: olmoe_1b_7b at full width (d 2048, 16 heads of 128, 64
 # experts of d_ff 1024, top-8, vocab 50304).  Training cuts depth to 4
 # layers (16 layers of bf16 weights and gradients, fp32 master, mu and nu
@@ -1331,6 +1363,8 @@ class RankPool:
         self.procs = [ctx.Process(target=_pool_worker,
                                   args=(r, self.jobs[r], self.results),
                                   daemon=True) for r in range(size)]
+        # the workers of the job handed out and not yet waited for
+        self.pending = None
         for p in self.procs:
             p.start()
 
@@ -1338,8 +1372,32 @@ class RankPool:
         """``fn(rank, *args)`` on ranks 0..world-1; raises what a rank
         raised, or ``TimeoutError`` once ``timeout`` s have passed (the
         pool is then closed: a rank may hang in a collective)."""
+        self.start(fn, world, args)
+        self.finish(world, timeout)
+
+    def start(self, fn, world: int, args: tuple) -> None:
+        """Hand ``fn(rank, *args)`` to workers 0..world-1 and return at
+        once; :meth:`finish` waits for it.  One job at a time: a second
+        job before the first is waited for raises."""
+        if self.pending is not None:
+            raise RuntimeError(f"the rank pool's job on {self.pending} "
+                               f"workers is still running")
+        self.pending = world
         for r in range(world):
             self.jobs[r].put((fn, args))
+
+    def finish(self, world: int, timeout: float) -> None:
+        """Wait for the job :meth:`start` handed to ``world`` workers, as
+        :meth:`run` does."""
+        if self.pending != world:
+            raise RuntimeError(f"no job on {world} workers to wait for "
+                               f"(pending: {self.pending})")
+        try:
+            self._collect(world, timeout)
+        finally:
+            self.pending = None
+
+    def _collect(self, world: int, timeout: float) -> None:
         deadline = time.monotonic() + timeout
         errors, pending = [], set(range(world))
         while pending:
@@ -1388,21 +1446,37 @@ def close_rank_pool() -> None:
         _POOL.pop().close()
 
 
+class PendingRanks:
+    """A job of ``world`` ranks handed to the rank pool, its FileStore
+    and output directory; :meth:`wait` gives their JSON results, by
+    rank."""
+
+    def __init__(self, torch, fn, world: int, args: tuple):
+        import tempfile
+
+        self.pool, self.world = rank_pool(torch), world
+        self.tmp = tempfile.TemporaryDirectory()
+        tmp = self.tmp.name
+        self.pool.start(fn, world, (world, cp_backend(torch, world),
+                                    f"{tmp}/store", tmp, *args))
+
+    def wait(self, timeout=RANK_TIMEOUT) -> list:
+        try:
+            self.pool.finish(self.world, timeout)
+            out = []
+            for r in range(self.world):
+                with open(Path(self.tmp.name) / f"rank{r}.json") as f:
+                    out.append(json.load(f))
+            return out
+        finally:
+            self.tmp.cleanup()
+
+
 def run_ranks(torch, fn, world: int, *args, timeout=RANK_TIMEOUT) -> list:
     """``world`` ranks of ``fn(rank, world, backend, store, out_dir,
     *args)`` on the rank pool (the kernels are built already), joined
     through a FileStore; their JSON results, by rank."""
-    import tempfile
-
-    backend = cp_backend(torch, world)
-    with tempfile.TemporaryDirectory() as tmp:
-        rank_pool(torch).run(fn, world, (world, backend, f"{tmp}/store",
-                                         tmp, *args), timeout)
-        out = []
-        for r in range(world):
-            with open(Path(tmp) / f"rank{r}.json") as f:
-                out.append(json.load(f))
-    return out
+    return PendingRanks(torch, fn, world, args).wait(timeout)
 
 
 def free_port() -> int:
@@ -1675,15 +1749,17 @@ def zero_state(res) -> dict:
                                for _, x in leaves_ + [("", opt["count"])])}
 
 
-def expected_state_bytes(params, mesh_shape) -> dict:
+def expected_state_bytes(params, mesh_shape,
+                         names=("data", "model")) -> dict:
     """The state bytes of a ZeRO-3 run summed over its ranks: one copy of
     the bf16 parameters, fp32 master, mu and nu (and a count per rank),
-    plus the copies of the leaves the layout keeps whole over an axis."""
+    plus the copies of the leaves the layout keeps whole over an axis;
+    ``mesh_shape`` the sizes of the mesh's axes ``names``."""
     import math
     from repro_torch.runtime.sharding import param_specs, replicated_axes
     from repro_torch.runtime.zero import named_leaves, tree_shapes
 
-    axes = dict(zip(("data", "model"), mesh_shape))
+    axes = dict(zip(names, mesh_shape))
     specs = param_specs(axes, tree_shapes(params))
     named_ = named_leaves(params)
     # mu and nu, and an fp32 master where any leaf is stored below fp32
@@ -1728,14 +1804,85 @@ def cp_train_rank(rank, world, backend, store, out_dir, grad_dir):
         reset_counts()
         res = train(args, params=params, mesh=mesh, device=dev)
         launches = read_counts()
+        out = {"rank": rank, "losses": res["losses"],
+               "grad_norms": res["grad_norms"], "step_s": res["step_s"],
+               "tokens": res["tokens"],
+               "peak_bytes": torch.cuda.max_memory_allocated(dev),
+               **zero_state(res), "launches": launches}
+        del params, res
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["pod"] = pod_train_rank(rank, dev, backend, grad_dir)
         with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
-            json.dump({"rank": rank, "losses": res["losses"],
-                       "grad_norms": res["grad_norms"],
-                       "step_s": res["step_s"], "tokens": res["tokens"],
-                       "peak_bytes": torch.cuda.max_memory_allocated(dev),
-                       **zero_state(res), "launches": launches}, f)
+            json.dump(out, f)
     finally:
         dist.destroy_process_group()
+
+
+def pod_train_rank(rank, dev, backend, grad_dir) -> dict:
+    """``pod_train`` on this rank of cp_train's job: the 2x1x2 (pod, data,
+    model) mesh of the same 4 ranks, dp_train's model (bf16, fp32 master)
+    and first batch (2 rows: one per pod, its tokens over model), ZeRO-3
+    over all three axes.  Step 0's loss and whole gradients (rank 0 saves
+    them to ``grad_dir``) and their doc-kernel launches, then the
+    update from them: the step's grad norm, the state finite, and this
+    rank's state against the layout's shard shapes."""
+    import dataclasses
+    import math
+    import torch
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.data.pipeline import PipelineConfig, make_batch
+    from repro_torch.launch.mesh import POD_AXES, make_mesh, mesh_coords
+    from repro_torch.launch.steps import batch_to_device, build_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim._slices import leaves
+    from repro_torch.runtime.zero import Zero3, tree_shapes
+
+    marks = [("start", time.perf_counter())]
+    mesh = make_mesh(POD_MESH, POD_AXES, device_type="cuda")
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=DP_LAYERS)
+    run = RunConfig(arch=ARCH, cp_strategy="flashcp", attention_impl="flash",
+                    kernel_grid="flat", seed=0)
+    pipe = PipelineConfig(
+        dataset="wlb_llm", context_len=DP_SEQ, batch_per_host=DP_BATCH,
+        cp_size=POD_MESH[-1], strategy="flashcp", vocab_size=cfg.vocab_size,
+        seed=0, align=128, emit_tables=True, table_overlap=run.cp_overlap,
+        table_grid=run.kernel_grid)
+    params = init_params(cfg, seed=0, device=dev)
+    zero = Zero3(mesh, backend, tree_shapes(params))
+    params = zero.shard(params)
+    opt = adamw_init(params)
+    torch.cuda.empty_cache()
+    step = build_train_step(cfg, run, q_chunk=128, device=dev, zero=zero)
+    batch = batch_to_device(make_batch(pipe, 0), dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    marks.append(("setup", time.perf_counter()))
+    (loss, _), grads = step.loss_and_grads(params, batch)
+    launches = read_counts()
+    torch.cuda.synchronize(dev)
+    marks.append(("grads", time.perf_counter()))
+    whole = zero.gather_full(grads)
+    marks.append(("gather", time.perf_counter()))
+    if rank == 0:
+        torch.save({n: g.detach().cpu() for n, g in named(whole)},
+                   Path(grad_dir) / "pod_grads.pt")
+    del whole
+    marks.append(("save", time.perf_counter()))
+    # the rest of the step from these gradients (a second forward and
+    # backward through gloo, train_step whole, would cost ~14 s)
+    gnorm, _ = step.apply_grads(params, opt, grads, 0)
+    torch.cuda.synchronize(dev)
+    marks.append(("update", time.perf_counter()))
+    state = zero_state({"zero": zero, "params": params, "opt_state": opt})
+    finite = math.isfinite(float(loss)) and math.isfinite(float(gnorm)) \
+        and all(bool(torch.isfinite(p).all()) for p in leaves(params))
+    return {"coords": mesh_coords(mesh), "loss0": float(loss),
+            "grad_norm": float(gnorm), "finite": finite,
+            "peak_bytes": torch.cuda.max_memory_allocated(dev),
+            "seconds": {b[0]: b[1] - a[1] for a, b in zip(marks, marks[1:])},
+            "launches": launches, **state}
 
 
 def check_zero_state(what: str, ranks, want: dict) -> None:
@@ -1759,19 +1906,32 @@ def cp_train_phase(torch) -> dict:
     the same batch from the same parameters; every loss finite; every
     rank's launches exactly layers x steps x (1 + N-1 hops) x (2, 1, 1);
     every rank's shard shapes those of the layout, and the state bytes
-    over the ranks one copy plus the replicated leaves."""
+    over the ranks one copy plus the replicated leaves.  The same job
+    then runs ``pod_train`` on the same ranks (:func:`pod_train_rank`,
+    :func:`pod_train_report`) against dp_train's one-rank step 0, made
+    here and handed on to dp_train."""
     import dataclasses
     import math
     import tempfile
     from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import POD_AXES
     from repro_torch.models import init_params
 
     world = CP_TRAIN_WORLD
     _, g1 = step0_grads("bfloat16")
     torch.cuda.empty_cache()
+    # pod_train's one-rank step 0, which is dp_train's too
+    t0 = time.perf_counter()
+    dp_one = step0_grads("bfloat16", layers=DP_LAYERS, seq=DP_SEQ,
+                         batch=DP_BATCH)
+    dp_one_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
     cfg = dataclasses.replace(get_config(ARCH), num_layers=CP_TRAIN_LAYERS)
     params = init_params(cfg, seed=0, device="cuda")
     want_bytes = expected_state_bytes(params, (1, world))
+    pod_bytes = expected_state_bytes(
+        init_params(dataclasses.replace(cfg, num_layers=DP_LAYERS), seed=0,
+                    device="cuda"), POD_MESH, POD_AXES)
     # one rank, step 0 of the same stream from the same parameters
     torch.cuda.reset_peak_memory_stats()
     res1 = train(cp_train_args("--steps", "1"), params=params)
@@ -1788,6 +1948,8 @@ def cp_train_phase(torch) -> dict:
         ranks = run_ranks(torch, cp_train_rank, world, grad_dir)
         wall = time.perf_counter() - t0
         leaf = compare_grads(torch.load(Path(grad_dir) / "grads.pt"), g1)
+        pod_leaf = compare_grads(torch.load(Path(grad_dir) / "pod_grads.pt"),
+                                 dp_one[1])
     del g1
     r0 = ranks[0]
     d_loss = abs(r0["losses"][0] - one["loss"]) / abs(one["loss"])
@@ -1832,7 +1994,131 @@ def cp_train_phase(torch) -> dict:
         raise AssertionError(f"CP training launches "
                              f"{[x['launches'] for x in ranks]}, want {want} "
                              "per rank")
-    return {"ranks": per_rank}
+    pod = pod_train_report([x["pod"] for x in ranks], dp_one[0], pod_leaf,
+                           pod_bytes)
+    return {"ranks": per_rank, "pod": pod,
+            "dp_one": (*dp_one, dp_one_s)}
+
+
+def pod_train_report(ranks, loss1: float, leaf: dict, want_bytes) -> dict:
+    """``pod_train`` (run in cp_train's job, :func:`pod_train_rank`)
+    against the one-rank step 0 on the same batch: the loss, the grad
+    norm and every gradient leaf but the embedding table within
+    CP_TRAIN_TOL; a finite step; every rank's launches layers x (1 + 1
+    hop) x (2, 1, 1) in its forward and backward; every rank's shards
+    and the state bytes over the ranks as the layout gives them."""
+    cp = POD_MESH[-1]
+    want = {n: DP_LAYERS * cp * k for n, k in (("flash_fwd", 2),
+                                               ("flash_bwd_dq", 1),
+                                               ("flash_bwd_dkv", 1))}
+    d_loss = abs(ranks[0]["loss0"] - loss1) / abs(loss1)
+    gated = [r for r in leaf["leaves"] if r["leaf"] != EMBED_LEAF]
+    embed = next(r for r in leaf["leaves"] if r["leaf"] == EMBED_LEAF)
+    out = {"mesh": dict(zip(("pod", "data", "model"), POD_MESH)),
+           "arch": ARCH, "layers": DP_LAYERS, "seq_len": DP_SEQ,
+           "batch": DP_BATCH, "loss": ranks[0]["loss0"],
+           "one_rank_loss": loss1, "loss_rel_diff": d_loss,
+           "grad_norm_rel_diff": leaf["gnorm_rel_diff"],
+           "grad_rel_err": leaf["grad_rel_err"], "tol": CP_TRAIN_TOL,
+           "worst_leaves": gated[:6], "embed_leaf": embed,
+           "embed_leaf_not_gated": F2, "expected_launches": want,
+           "expected_state_bytes": want_bytes,
+           "ranks": [{k: x[k] for k in ("coords", "grad_norm", "peak_bytes",
+                                        "seconds", "launches", "shapes_ok",
+                                        "state_bytes")}
+                     for x in ranks]}
+    emit("pod_train", **out)
+    if not all(x["finite"] for x in ranks):
+        raise AssertionError("pod training produced a non-finite value")
+    if not (d_loss <= CP_TRAIN_TOL
+            and abs(leaf["gnorm_rel_diff"]) <= CP_TRAIN_TOL):
+        raise AssertionError("the 2x1x2 and one-rank steps disagree")
+    if gated[0]["rel_err"] > CP_TRAIN_TOL:
+        raise AssertionError(f"2x1x2 step-0 gradient of {gated[0]['leaf']} "
+                             f"is {gated[0]['rel_err']:.3g} from one rank's")
+    check_zero_state("pod training", ranks, want_bytes)
+    if any(x["launches"][n] != want[n] for x in ranks for n in want):
+        raise AssertionError(f"pod training launches "
+                             f"{[x['launches'] for x in ranks]}, want {want} "
+                             "per rank")
+    return {"state_bytes": [x["state_bytes"] for x in ranks]}
+
+
+def dryrun_cell_rank(rank, world, backend, store, out_dir, cells):
+    """Worker ``rank`` of the pool traces dry-run cell ``rank`` on the
+    host (``launch.dryrun.run_cell``; no process group, no card)."""
+    import dataclasses
+    from repro_torch.configs import SHAPES, ShapeConfig, get_config
+    from repro_torch.launch.dryrun import run_cell
+
+    cell = cells[rank]
+    cfg = get_config(cell["arch"])
+    if cell.get("layers"):
+        cfg = dataclasses.replace(cfg, num_layers=cell["layers"])
+    shape = SHAPES.get(cell["shape"]) or ShapeConfig(*cell["shape_spec"])
+    t0 = time.perf_counter()
+    rec = run_cell(cell["arch"], cell["shape"],
+                   multi_pod=cell.get("multi_pod", False),
+                   axes=cell.get("axes"), cfg=cfg, shape=shape)
+    rec["trace_s"] = time.perf_counter() - t0
+    rec["cell"] = cell["name"]
+    with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(rec, f)
+
+
+def dryrun_start(torch) -> tuple:
+    """Hand the dry run's three cells to the rank pool's workers, which
+    trace them on the host while the card runs the next phases of this
+    process; :func:`dryrun_phase` waits for them."""
+    arch, shape, multi = DRYRUN_PROD
+    cells = [
+        {"name": "main_path", "arch": ARCH, "shape": "main_path",
+         "shape_spec": ("main_path", SEQ, 1, "train"),
+         "axes": {"data": 1, "model": 1}},
+        {"name": "pod_train", "arch": ARCH, "shape": "pod_train",
+         "shape_spec": ("pod_train", DP_SEQ, DP_BATCH, "train"),
+         "axes": dict(zip(("pod", "data", "model"), POD_MESH)),
+         "layers": DP_LAYERS},
+        {"name": "production", "arch": arch, "shape": shape,
+         "multi_pod": multi}]
+    return (PendingRanks(torch, dryrun_cell_rank, len(cells), (cells,)),
+            time.perf_counter())
+
+
+def dryrun_phase(torch, trained: dict, pod: dict, pending: tuple) -> dict:
+    """The per-rank dry run (``launch.dryrun``) traced on the host, three
+    cells at once on the rank pool's workers (:func:`dryrun_start`): the
+    main path's (1x1, one SEQ-token sequence, flashcp, remat), whose
+    kernel-adjusted peak must lie within DRYRUN_PEAK_RATIO of the train
+    phase's measured peak; pod_train's (2x1x2, DP_LAYERS layers,
+    DP_BATCH x DP_SEQ), whose ZeRO-3 state bytes must equal each rank's;
+    and one production cell, printed with its ``fits``."""
+    job, t0 = pending
+    recs = {r["cell"]: r for r in job.wait()}
+    wall = time.perf_counter() - t0
+    main, pod_cell = recs["main_path"], recs["pod_train"]
+    predicted = main["memory"]["peak_bytes_kernel_adjusted"]
+    ratio = predicted / trained["peak_bytes"]
+    pod_pred = pod_cell["memory"]["state_bytes"]
+    emit("dryrun", wall_s=wall, trace_s={n: r["trace_s"]
+                                         for n, r in recs.items()},
+         main_path={"predicted_peak_bytes": predicted,
+                    "predicted_peak_bytes_plain_attention":
+                        main["memory"]["peak_bytes_per_device"],
+                    "measured_peak_bytes": trained["peak_bytes"],
+                    "ratio": ratio, "bound": DRYRUN_PEAK_RATIO},
+         pod_train={"predicted_state_bytes": pod_pred,
+                    "ranks_state_bytes": pod["state_bytes"]},
+         records=recs)
+    if not 1 / DRYRUN_PEAK_RATIO <= ratio <= DRYRUN_PEAK_RATIO:
+        raise AssertionError(f"the dry run's peak {predicted} is {ratio:.3g}"
+                             f" x the measured {trained['peak_bytes']}")
+    if any(b != pod_pred for b in pod["state_bytes"]):
+        raise AssertionError(f"the dry run's ZeRO-3 state {pod_pred} B, the "
+                             f"ranks hold {pod['state_bytes']}")
+    if any(r["status"] != "ok" for r in recs.values()):
+        raise AssertionError("a dry-run cell did not trace")
+    return {"ratio": ratio}
 
 
 # ----------------------------------------------------------------------- #
@@ -1959,7 +2245,7 @@ def dp_train_rank(rank, world, backend, store, out_dir, grad_dir, ckpt_dir,
         dist.destroy_process_group()
 
 
-def dp_train_phase(torch) -> dict:
+def dp_train_phase(torch, one) -> dict:
     """Full-width starcoder2_3b cut to DP_LAYERS layers, bf16 with an
     fp32 master, flashcp, on a 2x2 mesh (ZeRO-3 over both axes, the rows
     of a 2 x 16384-token batch over ``data``, each row's tokens over
@@ -1972,7 +2258,9 @@ def dp_train_phase(torch) -> dict:
     device's peak over the restore at the rank's state size (within
     DP_RESTORE_SLACK).  Then the smoke model, f32 on the card: a checkpoint written at step
     DP_RESUME_AT on 2x2 and resumed on 1x4 reaches the uninterrupted
-    run's losses (DP_RESUME_TOL)."""
+    run's losses (DP_RESUME_TOL).  ``one`` is the one-rank step 0
+    (loss, {leaf: grad}, seconds), which ``cp_train`` made for
+    ``pod_train``."""
     import dataclasses
     import math
     import tempfile
@@ -1980,10 +2268,7 @@ def dp_train_phase(torch) -> dict:
     from repro_torch.models import init_params
 
     world = math.prod(DP_MESH)
-    t0 = time.perf_counter()
-    loss1, g1 = step0_grads("bfloat16", layers=DP_LAYERS, seq=DP_SEQ,
-                            batch=DP_BATCH)
-    one_s = time.perf_counter() - t0
+    loss1, g1, one_s = one
     gnorm1 = math.sqrt(sum(g.double().pow(2).sum().item()
                            for g in g1.values()))
     cfg = dataclasses.replace(get_config(ARCH), num_layers=DP_LAYERS)
@@ -2336,7 +2621,7 @@ def serve_sharded_phase(torch, serving) -> dict:
     out, tokens = {}, {}
     for shards in (1, *SHARDS):
         eng, res, launches, wall, peak = serve_run(
-            torch, c32, params, "dense", prompts, 32, num_slots=6,
+            torch, c32, params, "dense", prompts, SHARD_GEN, num_slots=6,
             prefill_chunk=128, block_size=16, attn_shards=shards)
         want = eng.stats["decode_steps"] * cfg.num_layers * shards
         tokens[shards] = {r: e["tokens"] for r, e in res.items()}
@@ -4071,6 +4356,52 @@ def step_parity_phase(torch, res) -> None:
         raise AssertionError("flash and plain training steps disagree")
 
 
+def step_audit_phase(torch, res) -> dict:
+    """One more main-path step at full width, through the three doc
+    kernels, from the trained parameters and optimizer state on the next
+    batch of the stream, under the step audit
+    (``analysis.step_audit``): exactly one ``train_step`` call inside
+    it.  Gated: layers x (2, 1, 1) launches, no f64 and no host-sync site
+    outside the module's ``cuda`` list; the sites on a line of their
+    own."""
+    import math
+    from repro_torch.analysis.step_audit import (EXPECTED_SITES,
+                                                 audit_findings, audit_step)
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch.steps import batch_to_device, build_train_step
+
+    batch = batch_to_device(make_batch(res["pipeline"], STEPS), "cuda")
+    fn = build_train_step(res["config"], res["run"], device="cuda")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    metrics, audit = audit_step(fn, res["params"], res["opt_state"], batch,
+                                STEPS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    L = res["config"].num_layers
+    want = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    sites = sorted({s.render() for s in audit.sites})
+    findings = audit_findings(audit.sites, "cuda")
+    print(json.dumps({"phase": "step_audit_sites", "device": "cuda",
+                      "sites": sites}), flush=True)
+    emit("step_audit", ops=audit.ops, flagged=len(audit.sites),
+         seconds=seconds, loss=float(metrics["loss"]), launches=launches,
+         expected_launches=want,
+         expected_cuda_sites=[f"{f}:{fn_} {k}" for f, fn_, k in
+                              EXPECTED_SITES["cuda"]],
+         findings=[f.render() for f in findings])
+    if not math.isfinite(float(metrics["loss"])):
+        raise AssertionError("the audited step's loss is not finite")
+    if any(launches[n] != want[n] for n in want):
+        raise AssertionError(f"audited step launches {launches}, want {want}")
+    if findings:
+        raise AssertionError("step audit: " + "; ".join(
+            f.render() for f in findings))
+    return {"sites": sites}
+
+
 def smoke_train_phase(torch) -> None:
     """A small f32 model trained 3 steps through the kernels on the card
     and through their twins on the CPU, from the same seed and batches."""
@@ -4491,9 +4822,17 @@ def dispatch_phase(torch) -> dict:
     emit("dispatch_one_rank", **one_out)
     if one_out["launches"] != dispatch_launches(one_out["degrees"]):
         raise AssertionError(f"one rank launched {one_out['launches']}")
-    with tempfile.TemporaryDirectory() as ckpt:
-        restart = one_rank("--fail-at", "3", "--checkpoint-dir", ckpt,
-                           "--ckpt-every", "2")
+    world = DISPATCH_MESH[0] * DISPATCH_MESH[1]
+    with tempfile.TemporaryDirectory() as ckpt_root:
+        t0 = time.perf_counter()
+        job = PendingRanks(torch, dispatch_rank, world, (ckpt_root,))
+        # the one-rank restart runs here while the 2x2 ranks run theirs
+        # on the pool (~20 s that would otherwise wait)
+        with tempfile.TemporaryDirectory() as ckpt:
+            restart = one_rank("--fail-at", "3", "--checkpoint-dir", ckpt,
+                               "--ckpt-every", "2")
+        ranks = job.wait(DISPATCH_TIMEOUT)
+    ranks_s = time.perf_counter() - t0
     restart["loss_rel_diff"] = max(
         abs(x - y) / abs(y) for x, y in zip(restart["losses"],
                                             one_out["losses"]))
@@ -4502,12 +4841,6 @@ def dispatch_phase(torch) -> dict:
             or len(restart["losses"]) != len(one_out["losses"]) \
             or restart["loss_rel_diff"] > DISPATCH_LOSS_TOL:
         raise AssertionError(f"restart: {restart}")
-    world = DISPATCH_MESH[0] * DISPATCH_MESH[1]
-    with tempfile.TemporaryDirectory() as ckpt_root:
-        t0 = time.perf_counter()
-        ranks = run_ranks(torch, dispatch_rank, world, ckpt_root,
-                          timeout=DISPATCH_TIMEOUT)
-    ranks_s = time.perf_counter() - t0
 
     def rel(a, b):
         return max(abs(x - y) / abs(y) for x, y in zip(a, b))
@@ -4614,6 +4947,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         trained, res = timed(train_phase, torch)
         launches.update({n: trained["launches"][n] for n in DOC_KERNELS})
+        timed(step_audit_phase, torch, res)
         res["opt_state"] = None       # the parity step needs no optimizer
         gc.collect()
         torch.cuda.empty_cache()
@@ -4632,17 +4966,21 @@ def main() -> int:
         torch.cuda.empty_cache()
         timed(cp_islands_phase, torch, decode_inputs)
         del decode_inputs
-        timed(cp_train_phase, torch)
+        cp = timed(cp_train_phase, torch)
         gc.collect()
         torch.cuda.empty_cache()
-        timed(dp_train_phase, torch)
+        timed(dp_train_phase, torch, cp["dp_one"])
         timed(dp_full_phase, torch)
         gc.collect()
         torch.cuda.empty_cache()
+        # the dry run traces on the pool's idle workers meanwhile
+        dry = dryrun_start(torch)
         timed(moe_serve_phase, torch)
         gc.collect()
         torch.cuda.empty_cache()
         timed(moe_train_phase, torch)
+        timed(dryrun_phase, torch, trained, cp["pod"], dry)
+        del cp, dry
         gc.collect()
         torch.cuda.empty_cache()
         timed(moe_cp_train_phase, torch)

@@ -23,7 +23,13 @@ Layers:
    ``--wire``: the flashcp island, chunked and monolithic, on two gloo
    ranks on the CPU; each rank's forward bytes by collective kind must
    match the analytic comm budget (1% slack, WIRE101-WIRE103).
-4. **Source lint** (``repro_torch.analysis.lint``) — unseeded RNG and
+4. **Step audit** (``repro_torch.analysis.step_audit``) — opt-in via
+   ``--train``: one smoke training step through the doc kernels on the
+   card (their plain twins with ``--device cpu``) under a dispatch mode;
+   no f64 and no host
+   sync outside the device's named sites (STEP104/STEP105), the
+   counterpart of the reference's ``--hlo-train``.
+5. **Source lint** (``repro_torch.analysis.lint``) — unseeded RNG and
    set-order dependence in planner/dispatch/autotune code, deprecated
    shim imports, import hygiene, over the port's files.
 
@@ -34,6 +40,8 @@ Usage::
     python scripts/flashcheck_torch.py           # lint + full plan sweep
     python scripts/flashcheck_torch.py --fast    # lint + 2-arch plan spot
     python scripts/flashcheck_torch.py --wire    # + the wire audit
+    python scripts/flashcheck_torch.py --train   # + the step audit (card)
+    python scripts/flashcheck_torch.py --train --device cpu    # on the CPU
 """
 
 from __future__ import annotations
@@ -310,6 +318,36 @@ def run_wire() -> list:
     return [Finding(**x) for res in ranks for x in res["findings"]]
 
 
+def run_train_audit(device: str) -> list:
+    """One smoke ``train_step`` (flash attention, the flat queue) on
+    ``device`` under the step audit; prints its sites and returns its
+    findings.  ``"cuda"`` raises where this process has no card."""
+    from repro_torch.analysis.step_audit import audit_findings, audit_step
+    from repro_torch.configs import RunConfig, get_config, reduce_for_smoke
+    from repro_torch.data.pipeline import PipelineConfig, make_batch
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.steps import batch_to_device, build_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+
+    device = resolve_device(device)
+    cfg = reduce_for_smoke(get_config(FAST_ARCHS[0]))
+    pipe = PipelineConfig(context_len=CONTEXT_LEN, batch_per_host=2,
+                          cp_size=1, vocab_size=cfg.vocab_size, seed=0,
+                          align=BLOCK, emit_tables=True, table_grid="flat")
+    batch = batch_to_device(make_batch(pipe, 0), device)
+    params = init_params(cfg, seed=0, device=device)
+    opt = adamw_init(params)
+    step = build_train_step(cfg, RunConfig(attention_impl="flash"),
+                            device=device)
+    _, audit = audit_step(step, params, opt, batch, 0)
+    for key in sorted({s.key for s in audit.sites}):
+        site = next(s for s in audit.sites if s.key == key)
+        print(f"[train] site {site.render()}")
+    print(f"[train] {audit.ops} ops, {len(audit.sites)} flagged")
+    return audit_findings(audit.sites, device.type)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="flashcheck_torch", description=__doc__.splitlines()[0])
@@ -320,7 +358,16 @@ def main(argv=None) -> int:
     ap.add_argument("--wire", action="store_true",
                     help="also audit the flashcp island's wire bytes "
                          "(2 gloo ranks on the CPU)")
+    ap.add_argument("--train", action="store_true",
+                    help="also audit one smoke training step for f64 and "
+                         "host syncs")
+    ap.add_argument("--device", default="cuda",
+                    help="the step audit's device (cuda, the default, or "
+                         "cpu)")
     args = ap.parse_args(argv)
+    if args.train:
+        from repro_torch.device import resolve_device
+        resolve_device(args.device)     # no card: fail before the checks
 
     findings = []
     n_configs = 0
@@ -370,6 +417,12 @@ def main(argv=None) -> int:
         findings += fs
         print(f"[wire] flashcp island at N={WIRE_WORLD}, "
               f"{'/'.join(WIRE_OVERLAPS)}: {len(errors(fs))} errors")
+
+    if args.train:
+        fs = run_train_audit(args.device)
+        findings += fs
+        print(f"[train] smoke train_step on {args.device}: "
+              f"{len(errors(fs))} errors")
 
     if findings:
         print()

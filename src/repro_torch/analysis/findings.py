@@ -11,7 +11,10 @@ that read XLA or Pallas program text: HLO101–HLO106 (collectives, f64,
 host transfers and buffer donation in lowered HLO) and KER001 (traced
 Python branches in Pallas kernel bodies).  In place of HLO101–HLO103 it
 has WIRE101–WIRE103, the same budget rules over the bytes each rank's
-``CPComm`` sent (:mod:`repro_torch.analysis.wire_audit`).
+``CPComm`` sent (:mod:`repro_torch.analysis.wire_audit`), and in place
+of HLO104–HLO105 STEP104–STEP105, the f64 and host-transfer rules over
+the ops of one eager training step (:mod:`repro_torch.analysis.
+step_audit`).
 """
 
 from __future__ import annotations
@@ -80,6 +83,10 @@ RULES: dict[str, str] = {
     "WIRE101": "no collective kind the plan's comm budget didn't predict",
     "WIRE102": "per-kind wire bytes within the analytic comm budget",
     "WIRE103": "no unintended full KV all-gather",
+    # --- Layer 2: step audit --------------------------------------- #
+    "STEP104": "no f64 values or f32->f64 upcasts in the step program",
+    "STEP105": "no host syncs in the step (.item(), device-to-host copies, "
+               "data-dependent shapes) but the device's named sites",
     # --- Layer 3: repo lint ---------------------------------------- #
     "RNG001": "no unseeded RNG in planner/, dispatch/, or autotune/ (replay purity)",
     "RNG002": "no set-iteration-order dependence in planner/dispatch/autotune",

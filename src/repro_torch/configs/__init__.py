@@ -6,8 +6,9 @@ backbone), resolved by ``--arch`` name.
 
 from __future__ import annotations
 
-from .base import (ModelConfig, RunConfig, reduce_for_smoke,
-                   run_config_from_dict, run_config_to_dict)
+from .base import (SHAPES, ModelConfig, RunConfig, ShapeConfig,
+                   reduce_for_smoke, run_config_from_dict,
+                   run_config_to_dict)
 
 from . import (dbrx_132b, granite_34b, internvl2_1b, jamba_v0_1_52b,
                musicgen_medium, olmoe_1b_7b, qwen3_32b, starcoder2_3b,
@@ -28,5 +29,6 @@ def get_config(name: str) -> ModelConfig:
     return ARCHS[key]
 
 
-__all__ = ["ModelConfig", "RunConfig", "ARCHS", "get_config",
+__all__ = ["ModelConfig", "RunConfig", "ShapeConfig", "SHAPES", "ARCHS",
+           "get_config",
            "reduce_for_smoke", "run_config_to_dict", "run_config_from_dict"]

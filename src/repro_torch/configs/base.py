@@ -4,8 +4,8 @@ The port's own copy of the part of the JAX package's config system that
 the ported families read: ``ModelConfig`` with the fields of the dense,
 MoE, hybrid (Jamba), SSM (xLSTM), audio (frame embeddings in place of
 tokens) and VLM (patch embeddings at masked positions) stacks, the
-serving, training and dispatch fields of ``RunConfig``, and
-``reduce_for_smoke``.
+serving, training and dispatch fields of ``RunConfig``, the input shapes
+of the dry run (``ShapeConfig``, ``SHAPES``) and ``reduce_for_smoke``.
 Plain frozen dataclasses; the values of every configuration are the
 same as the reference's.
 """
@@ -60,6 +60,11 @@ class ModelConfig:
     def uses_attention(self) -> bool:
         return self.family != "ssm"
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can this arch run 500K-token decode (SSM/hybrid families)?"""
+        return self.family in ("ssm", "hybrid")
+
     def _is_moe_layer(self, layer: int) -> bool:
         return self.num_experts > 0 \
             and layer % self.moe_every == self.moe_every - 1
@@ -110,6 +115,23 @@ class ModelConfig:
         n_moe = sum(self._is_moe_layer(i) for i in range(self.num_layers))
         return self.param_count() - n_moe * (self.num_experts
                                              - self.top_k) * ffn
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
+#: the assigned input-shape set (applies to every architecture)
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)

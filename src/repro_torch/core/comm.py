@@ -35,10 +35,21 @@ pass (``wire_bytes["forward"]``, ``["backward"]``): a hop sends its
 tensors once, an all-gather this rank's piece to the N-1 other ranks, a
 reduce-scatter N-1 of its N pieces.  Integer metadata (doc/pos) is not
 counted there.  A second counter, ``wire_bytes_by_kind``, keeps the
-same sends by collective kind (``"permute"``, ``"all_gather"``,
-``"reduce_scatter"``), the int32 metadata included, for the wire audit
-(:mod:`repro_torch.analysis.wire_audit`); ``wire_peak_by_kind`` keeps
-the largest result one call of each kind produced on this rank.
+sends by collective kind (``"permute"``, ``"all_gather"``,
+``"reduce_scatter"``, ``"all_to_all"``, ``"all_reduce"``), the int32
+metadata included, for the wire audit
+(:mod:`repro_torch.analysis.wire_audit`) and the dry run, with the
+reference's per-kind wire formulas (``launch/roofline.py``): a hop its
+tensors once, an all-gather its result x (g-1)/g, a reduce-scatter its
+operand x (g-1)/g, an all-to-all (g-1)/g of its operand, an all-reduce
+2(g-1)/g of its tensor; ``wire_peak_by_kind`` keeps the largest result
+one call of each kind produced on this rank.
+
+:class:`RecordingComm` has this interface without a process group: one
+rank ``rank`` of ``size``, whose collectives move nothing and return
+tensors of the right shapes (``meta`` tensors for ``meta`` inputs),
+counting the same bytes.  The islands and ZeRO-3 run on it unchanged:
+the dry run (``launch/dryrun.py``) traces one rank's step with it.
 
 The backend is an explicit argument, ``"nccl"`` or ``"gloo"``, never
 inferred.  With NCCL the transfers run on the process group's own NCCL
@@ -58,14 +69,15 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-__all__ = ["CPComm", "hop_start", "hop_wait", "all_gather_tiled",
+__all__ = ["CPComm", "RecordingComm", "hop_start", "hop_wait", "all_gather_tiled",
            "int8_all_gather", "quantize_int8", "dequantize_int8",
            "all_to_all_tiled", "all_reduce_sum", "all_reduce_",
            "broadcast_"]
 
 BACKENDS = ("nccl", "gloo")
 #: the collective kinds ``CPComm.wire_bytes_by_kind`` counts
-KINDS = ("permute", "all_gather", "reduce_scatter")
+KINDS = ("permute", "all_gather", "reduce_scatter", "all_to_all",
+         "all_reduce")
 
 
 class CPComm:
@@ -112,6 +124,24 @@ class CPComm:
     def _host_wire(self, x: torch.Tensor) -> bool:
         return self.backend == "gloo" and x.device.type != "cpu"
 
+    def _run(self, kind: str, out, wire, op=None) -> None:
+        """One collective over the group: ``all_gather`` /
+        ``reduce_scatter`` / ``all_to_all`` of ``wire`` into ``out``,
+        ``all_reduce`` of ``wire`` in place by ``op``, ``broadcast`` of
+        ``wire`` from global rank ``op``."""
+        if kind == "all_gather":
+            dist.all_gather_into_tensor(out, wire, group=self.group)
+        elif kind == "reduce_scatter":
+            dist.reduce_scatter_tensor(out, wire, group=self.group)
+        elif kind == "all_to_all":
+            dist.all_to_all_single(out, wire, group=self.group)
+        elif kind == "all_reduce":
+            dist.all_reduce(wire, op=op, group=self.group)
+        elif kind == "broadcast":
+            dist.broadcast(wire, op, group=self.group)
+        else:
+            raise ValueError(f"unknown collective {kind!r}")
+
     def start(self, xs, shift: int = 1, tag: str = "forward"
               ) -> "_Transfer":
         """Send each of ``xs`` to rank r+shift and receive the same shapes
@@ -138,6 +168,40 @@ class CPComm:
                  ) -> list[torch.Tensor]:
         """:meth:`start` and wait: the received tensors."""
         return self.start(xs, shift, tag).wait()
+
+
+class RecordingComm(CPComm):
+    """:class:`CPComm`'s interface for rank ``rank`` of a group of
+    ``size`` with no process group: every collective moves nothing and
+    its results have the right shapes and dtypes (what a ``meta`` input
+    gives, or uninitialized memory), while the byte counters count what
+    the real exchange would send.  The dry run's communicator."""
+
+    def __init__(self, rank: int, size: int):
+        if not 0 <= rank < size:
+            raise ValueError(f"rank {rank} of a group of {size}")
+        self.backend = "recording"
+        self.group = None
+        self.rank, self.size = rank, size
+        self.reset_wire()
+
+    def _global(self, r: int) -> int:
+        return r % self.size
+
+    def _host_wire(self, x: torch.Tensor) -> bool:
+        return False
+
+    def _run(self, kind: str, out, wire, op=None) -> None:
+        pass
+
+    def start(self, xs, shift: int = 1, tag: str = "forward"
+              ) -> "_Transfer":
+        self.count(tag, xs)
+        self.count_kind("permute", xs)
+        recv = [torch.empty_like(x.detach(),
+                                 memory_format=torch.contiguous_format)
+                for x in xs]
+        return _Transfer([], [], recv, [x.device for x in xs])
 
 
 class _Transfer:
@@ -265,10 +329,8 @@ def _along(x, comm: CPComm, dim: int, gather: bool, tag: str = "forward"):
     host = comm._host_wire(xt)
     wire = xt.cpu() if host else xt
     n = wire.shape[0] * comm.size if gather else wire.shape[0] // comm.size
-    collective = dist.all_gather_into_tensor if gather \
-        else dist.reduce_scatter_tensor
     out = wire.new_empty((n, *wire.shape[1:]))
-    collective(out, wire, group=comm.group)
+    comm._run("all_gather" if gather else "reduce_scatter", out, wire)
     if host:
         out = out.to(x.device)
     return out.movedim(0, dim).contiguous()
@@ -320,11 +382,13 @@ def int8_all_gather(x: torch.Tensor, comm: CPComm, dim: int) -> torch.Tensor:
 
 def _a2a(x, comm: CPComm, split_dim: int, concat_dim: int):
     """The tiled all-to-all of ``x`` (no gradient)."""
+    n = comm.size
+    comm.count_kind("all_to_all", (x,), (n - 1) / n)
     xs = x.detach().movedim(split_dim, 0).contiguous()
     host = comm._host_wire(xs)
     wire = xs.cpu() if host else xs
     out = torch.empty_like(wire)
-    dist.all_to_all_single(out, wire, group=comm.group)
+    comm._run("all_to_all", out, wire)
     if host:
         out = out.to(x.device)
     return torch.cat([p.movedim(0, split_dim)
@@ -385,10 +449,12 @@ def all_reduce_(tensors, comm: CPComm, op=dist.ReduceOp.SUM) -> None:
     by_dtype: dict = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
+    n = comm.size
     for group in by_dtype.values():
         flat = torch.cat([t.detach().reshape(-1) for t in group])
+        comm.count_kind("all_reduce", (flat,), 2 * (n - 1) / n)
         wire = flat.cpu() if comm._host_wire(flat) else flat
-        dist.all_reduce(wire, op=op, group=comm.group)
+        comm._run("all_reduce", None, wire, op)
         flat = wire.to(flat.device)
         off = 0
         for t in group:
@@ -401,7 +467,7 @@ def broadcast_(tensors, comm: CPComm, src: int = 0) -> None:
     """Overwrite each of ``tensors`` with rank ``src``'s, in place."""
     for t in tensors:
         wire = t.detach().cpu() if comm._host_wire(t) else t.detach()
-        dist.broadcast(wire, comm._global(src), group=comm.group)
+        comm._run("broadcast", None, wire, comm._global(src))
         if wire is not t:
             with torch.no_grad():
                 t.copy_(wire)

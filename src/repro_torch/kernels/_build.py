@@ -11,6 +11,7 @@ without ``nvcc``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -23,7 +24,7 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 __all__ = ["NVCC_FLAGS", "SOURCES", "build", "build_all", "flash_decode_lib",
-           "doc_attention_lib"]
+           "doc_attention_lib", "forbid_kernels"]
 
 HERE = Path(__file__).resolve().parent
 CSRC = HERE / "csrc"
@@ -87,9 +88,43 @@ def build_all(sources=SOURCES) -> dict[str, tuple[Path, str, float]]:
         return dict(pool.map(one, sources))
 
 
-@functools.lru_cache(maxsize=None)
+# set inside forbid_kernels(): a library handed out there raises
+_FORBIDDEN: list[str] = []
+
+
+@contextlib.contextmanager
+def forbid_kernels(why: str):
+    """Inside, asking for a kernel library raises (``why`` says who
+    forbids it): a trace on ``meta`` tensors must never hand its fake
+    pointers to a launch."""
+    _FORBIDDEN.append(why)
+    try:
+        yield
+    finally:
+        _FORBIDDEN.pop()
+
+
+def _allowed(name: str) -> None:
+    if _FORBIDDEN:
+        raise RuntimeError(f"the {name} kernels were reached inside "
+                           f"forbid_kernels ({_FORBIDDEN[-1]})")
+
+
 def flash_decode_lib() -> ctypes.CDLL:
     """The flash-decode library, built on first call, argtypes bound."""
+    _allowed("flash_decode")
+    return _flash_decode_lib()
+
+
+def doc_attention_lib() -> ctypes.CDLL:
+    """The doc-attention training kernels, built on first call, argtypes
+    bound."""
+    _allowed("doc_attention")
+    return _doc_attention_lib()
+
+
+@functools.lru_cache(maxsize=None)
+def _flash_decode_lib() -> ctypes.CDLL:
     path, _ = build("flash_decode.cu")
     lib = ctypes.CDLL(str(path))
     vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -117,10 +152,9 @@ def flash_decode_lib() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def doc_attention_lib() -> ctypes.CDLL:
-    """The doc-attention training kernels, built on first call, argtypes
-    bound.  The three entries share one argument list; dQ adds its
-    sub-tile, dK/dV its split."""
+def _doc_attention_lib() -> ctypes.CDLL:
+    """The three doc-attention entries share one argument list; dQ adds
+    its sub-tile, dK/dV its split."""
     path, _ = build("doc_attention.cu")
     lib = ctypes.CDLL(str(path))
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float

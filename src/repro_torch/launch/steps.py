@@ -10,26 +10,30 @@ their gradients, so the accumulated update equals the fused one on the
 same batch (the global masked CE mean is Σ ce_sum / Σ tokens either
 way).
 
-On a ``data x model`` mesh of more than one rank (``zero`` given, a
-:class:`~repro_torch.runtime.zero.Zero3`), the parameters and the
-optimizer state are this rank's ZeRO-3 shards, gathered layer by layer
-where they are used.  Every rank takes its rows of the batch (by its
-``data`` index) and its token slice (by its ``model`` index; the plan
+On a mesh of more than one rank (``data x model``, or ``pod x data x
+model``; ``zero`` given, a :class:`~repro_torch.runtime.zero.Zero3`),
+the parameters and the optimizer state are this rank's ZeRO-3 shards,
+gathered layer by layer where they are used.  Every rank takes its rows
+of the batch (by its ``pod`` and ``data`` indices, as
+:func:`~repro_torch.runtime.sharding.batch_specs` splits them) and its
+token slice (by its ``model`` index; the plan
 order puts CP worker j's tokens at ``[j t_loc, (j+1) t_loc)``), and runs
 its attention through the CP islands of its ``model`` row.  Each rank's
 loss is its masked-CE sum over the *world's* count of valid labels, so
 the losses of the ranks add up to the reference's global masked-CE mean
 and the gradients reaching each shard (summed by the gathers' reduce-
 scatters and, over the axes a leaf is whole on, by an all-reduce) are
-its gradient.  Rows that do not divide by the data axis go to every data
-rank, as the reference replicates them; the world's label count then
-counts them once per data rank, which weights each copy by 1/D.
+its gradient.  Rows that do not divide by the batch axes go to every
+rank of them, as the reference replicates them; the world's label count
+then counts them once per batch rank, which weights each copy by 1/D (D
+the product of the batch axes).
 Clipping and compression take their statistics over every rank's
 shards.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import numpy as np
@@ -45,7 +49,8 @@ from repro_torch.optim import (adamw_update, clip_by_global_norm,
                                compress_tree, warmup_cosine)
 from repro_torch.optim._slices import leaves
 from repro_torch.planner.registry import RECURRENT_FAMILIES, get_planner
-from repro_torch.runtime.sharding import batch_specs, take_shard
+from repro_torch.runtime.sharding import (batch_axes_of, batch_specs,
+                                          take_shard)
 
 __all__ = ["build_train_step", "batch_to_device", "rank_batch",
            "effective_strategy", "frontend_keys"]
@@ -140,11 +145,14 @@ def build_train_step(cfg: ModelConfig, run: RunConfig, *, q_chunk: int = 512,
     ``zero`` is this rank's ZeRO-3 layout when the step runs on a mesh
     of more than one rank (the batch then planned for its ``model``
     axis); ``params`` and ``opt_state`` are then this rank's shards.  The callable also exposes
-    ``loss_and_grads(params, batch)``, whose gradients are shards too.
+    ``loss_and_grads(params, batch)``, whose gradients are shards too,
+    and ``apply_grads(params, opt_state, grads, step)``, the rest of the
+    step.
     """
     resolve_device(device)
     exec_strategy = exec_style_of(effective_strategy(cfg, run.cp_strategy))
-    groups = 1 if zero is None else zero.axes["data"]
+    groups = 1 if zero is None else math.prod(
+        zero.axes[a] for a in batch_axes_of(zero.axes))
 
     def _ctx_of(batch):
         return make_cp_context(
@@ -194,8 +202,9 @@ def build_train_step(cfg: ModelConfig, run: RunConfig, *, q_chunk: int = 512,
 
     def _micro(batch, m):
         """Micro-batch m: rows ``[g spg + m spg/accum, g spg + (m+1)
-        spg/accum)`` of every data group g (``spg`` its rows), as the
-        reference slices them."""
+        spg/accum)`` of every batch group g (``spg`` its rows; the groups
+        are the ranks of the batch axes), as the reference slices
+        them."""
         def sl(v):
             n = v.shape[0] // (groups * accum)
             x = v.reshape((groups, accum, n) + v.shape[1:])
@@ -228,6 +237,14 @@ def build_train_step(cfg: ModelConfig, run: RunConfig, *, q_chunk: int = 512,
             grads = _unflatten(params, [g.div_(denom) for g in g_sum])
             metrics = {k: v / denom for k, v in metr_sum.items()}
             loss = loss_sum / denom
+        gnorm, lr = apply_grads(params, opt_state, grads, step)
+        return {"loss": loss, "grad_norm": gnorm, "lr": lr,
+                "tokens": torch.sum(batch["labels"] >= 0), **metrics}
+
+    def apply_grads(params, opt_state, grads, step):
+        """The step's update from its gradients, in place: clip by the
+        global norm (over every rank's shards), compress, the schedule's
+        lr, AdamW.  Returns (grad norm before clipping, lr)."""
         norm = None if zero is None else zero.global_norm(leaves(grads))
         grads, gnorm = clip_by_global_norm(grads, run.grad_clip, norm=norm)
         if run.grad_compression != "none":
@@ -238,8 +255,8 @@ def build_train_step(cfg: ModelConfig, run: RunConfig, *, q_chunk: int = 512,
                            total_steps=run.total_steps)
         adamw_update(params, grads, opt_state, lr=lr,
                      weight_decay=run.weight_decay)
-        return {"loss": loss, "grad_norm": gnorm, "lr": lr,
-                "tokens": torch.sum(batch["labels"] >= 0), **metrics}
+        return gnorm, lr
 
     train_step.loss_and_grads = loss_and_grads
+    train_step.apply_grads = apply_grads
     return train_step

@@ -16,9 +16,12 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_decode import (decode_reference,
+from repro_torch.core.merge import finalize_partial, merge_partials_axis
+from repro_torch.kernels.flash_decode import (decode_partial_reference,
+                                              decode_reference,
                                               flash_decode_paged,
                                               flash_decode_sharded,
+                                              local_lengths,
                                               paged_decode_reference)
 from repro_torch.kernels.ref import mha_reference
 from .layers import rope
@@ -95,7 +98,7 @@ def attn_paged_cache_init(cfg, periods: int, num_blocks: int,
 # dense stripes
 # ------------------------------------------------------------------ #
 def attn_decode(p, cfg, x_t, pos_t, cache, *, impl: str = "flash",
-                shards: int = 1, write_rows=None):
+                shards: int = 1, write_rows=None, comm=None):
     """One decode token per row.  x_t (B, d); pos_t (B,) int32 current
     positions.  The new K/V land in place at ``cache[b, :, pos_t[b]]``
     for the rows in ``write_rows`` (default: every row).
@@ -107,10 +110,22 @@ def attn_decode(p, cfg, x_t, pos_t, cache, *, impl: str = "flash",
     MoE layer routes every row, so an idle row takes expert capacity).
 
     ``impl="flash"`` runs the flash-decode kernel per cache shard and
-    merges the partials; ``"dense"`` is the softmax oracle."""
+    merges the partials; ``"dense"`` is the softmax oracle.
+
+    ``comm`` (a ``core.comm`` communicator over the ``model`` axis):
+    ``cache`` is this rank's slice of a cache whose S axis is split over
+    the group's ranks (``runtime.sharding.cache_specs``), positions
+    ``[r S_l, (r+1) S_l)``; the rank holding ``pos_t`` writes the new
+    K/V, each rank attends its slice densely in partial form, and the
+    partials merge over the group (``merge_partials_axis``), as the
+    reference's dense oracle runs on a sharded cache."""
     B, _ = x_t.shape
     hd = cfg.resolved_head_dim
     q, k, v = _qkv_roped(p, cfg, x_t[:, None, :], pos_t[:, None])
+    if comm is not None:
+        return _attn_decode_split(p, cache, q, k, v, pos_t, comm,
+                                  impl=impl, write_rows=write_rows,
+                                  scale=hd ** -0.5)
     rows = torch.arange(B, device=x_t.device)
     at = pos_t.long()
     kept = None
@@ -139,6 +154,28 @@ def attn_decode(p, cfg, x_t, pos_t, cache, *, impl: str = "flash",
         cache["k"][idle, :, at_idle] = k_old
         cache["v"][idle, :, at_idle] = v_old
     return _out(p, out.reshape(B, -1).to(x_t.dtype)), cache
+
+
+def _attn_decode_split(p, cache, q, k, v, pos_t, comm, *, impl, write_rows,
+                       scale):
+    """:func:`attn_decode` on this rank's S slice of a split cache."""
+    if impl != "dense" or write_rows is not None:
+        raise ValueError("a split cache decodes densely, every row")
+    B = q.shape[0]
+    S_l = cache["k"].shape[2]
+    at = pos_t.long() - comm.rank * S_l
+    mine = ((at >= 0) & (at < S_l))[:, None, None]
+    at = at.clamp(0, S_l - 1)
+    rows = torch.arange(B, device=q.device)
+    for name, new in (("k", k), ("v", v)):
+        old = cache[name][rows, :, at]
+        cache[name][rows, :, at] = torch.where(
+            mine, new[:, :, 0].to(old.dtype), old)
+    part = decode_partial_reference(
+        q[:, :, 0].contiguous(), cache["k"], cache["v"],
+        local_lengths(pos_t, comm.rank * S_l, S_l), scale=scale)
+    out = finalize_partial(merge_partials_axis(part, comm), q.dtype)
+    return _out(p, out.reshape(B, -1)), cache
 
 
 def attn_prefill(p, cfg, x, pos, cache, active, write_idx=None):

@@ -430,7 +430,8 @@ def prefill_forward(params, cfg: ModelConfig, cache, batch, pos, active, *,
 
 def decode_step(params, cfg: ModelConfig, cache, batch, pos_t, *,
                 attn_impl: str = "flash", attn_shards: int = 1,
-                block_tables=None, block_size: int = 0, write_mask=None):
+                block_tables=None, block_size: int = 0, write_mask=None,
+                gather=_whole, cache_comm=None):
     """One decode step.  batch {"tokens": (B,)}, or {"frame_embeds": (B,
     d)} for the audio family; pos_t (B,) int32 current positions.
     Returns (logits (B, vocab), cache), the cache updated in place.
@@ -440,12 +441,17 @@ def decode_step(params, cfg: ModelConfig, cache, batch, pos_t, *,
     ``write_mask`` (B,) bool restricts cache writes to its rows (the
     paged layout also hides all KV from the other rows); None writes
     every row.  MoE layers route the B rows (idle ones too) at the
-    config's capacity factor, as the reference's decode does."""
+    config's capacity factor, as the reference's decode does.
+
+    ``gather`` makes sharded parameters whole where they are used
+    (ZeRO-3: one layer at a time); ``cache_comm`` splits the attention
+    caches' S axis over its ranks (``attn_decode``'s ``comm``)."""
     kinds = block_kinds(cfg)
     if cfg.frontend == "audio_frames":
         x = batch["frame_embeds"].to(torch_dtype(cfg))
     else:
-        x = embed(params["embed"], batch["tokens"], torch_dtype(cfg))
+        x = embed(gather("embed", params["embed"]), batch["tokens"],
+                  torch_dtype(cfg))
     if block_tables is not None and write_mask is None:
         write_mask = torch.ones(x.shape[0], dtype=torch.bool,
                                 device=x.device)
@@ -453,7 +459,8 @@ def decode_step(params, cfg: ModelConfig, cache, batch, pos_t, *,
     for i in range(_n_periods(cfg)):
         lp, lc = _index(params["layers"], i), _index(cache, i)
         for j, (mixer, ffn) in enumerate(kinds):
-            sub, c = lp[f"sub_{j}"], lc[f"sub_{j}"]
+            sub = gather(f"layers/sub_{j}", lp[f"sub_{j}"])
+            c = lc[f"sub_{j}"]
             h = rmsnorm(sub["norm1"], x, cfg.norm_eps)
             if mixer != "attn":
                 mx = _recurrent_decode(sub, cfg, mixer, h, c, rows)
@@ -464,9 +471,9 @@ def decode_step(params, cfg: ModelConfig, cache, batch, pos_t, *,
             else:
                 mx, _ = attn_decode(sub["attn"], cfg, h, pos_t, c,
                                     impl=attn_impl, shards=attn_shards,
-                                    write_rows=rows)
+                                    write_rows=rows, comm=cache_comm)
             x, _ = _ffn(sub, cfg, ffn, x + mx)
-    return _head(params, cfg, x), cache
+    return _head(_head_params(params, gather), cfg, x), cache
 
 
 def _recurrent_decode(sub, cfg: ModelConfig, mixer: str, h, cache, rows):

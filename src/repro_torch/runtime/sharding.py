@@ -12,8 +12,9 @@ computes in, and their other dims greedily over the other axes.
 A *spec* has one entry per dim of a leaf: ``None`` (not split), an axis
 name, or a tuple of axis names (split over their flattened product,
 the first axis the major one), as a JAX ``PartitionSpec`` has.  Meshes
-are ``{axis: size}`` dicts in axis order, ``("data", "model")``: rows of
-a batch go over ``data``, tokens over ``model`` (the CP axis).  Decode
+are ``{axis: size}`` dicts in axis order, ``("data", "model")`` or
+``("pod", "data", "model")``: rows of a batch go over ``pod`` and
+``data``, tokens over ``model`` (the CP axis).  Decode
 caches (:func:`cache_specs`) put their batch over the batch axes
 (:func:`batch_axes_of`: ``pod`` and ``data`` where the mesh has them)
 and their largest dim that ``model`` divides over ``model``.
@@ -111,16 +112,21 @@ def param_specs(axes: dict, shapes: dict) -> dict:
 
 def batch_specs(axes: dict, batch_shapes: dict) -> dict:
     """Specs of the training batch's keys (the reference's
-    ``batch_specs``): rows over ``data`` unless the row count does not
-    divide by it (then every data rank takes every row), token columns
-    (of the token keys and of the frontends' per-token embeddings and
-    mask) and the per-rank table and ``send_idx`` axis over ``model``;
-    a dispatch batch's per-row ``seq_tokens`` and ``group_id`` by row."""
+    ``batch_specs``): rows over the batch axes (:func:`batch_axes_of`:
+    ``pod`` and ``data`` where the mesh has them, ``pod`` the major one)
+    unless the row count does not divide by their product (then every
+    rank of them takes every row), token columns (of the token keys and
+    of the frontends' per-token embeddings and mask) and the per-rank
+    table and ``send_idx`` axis over ``model``; a dispatch batch's
+    per-row ``seq_tokens`` and ``group_id`` by row."""
+    baxes = batch_axes_of(axes)
+    B = baxes if len(baxes) > 1 else (baxes[0] if baxes else None)
+    need = _size(axes, B) if B else 1
     specs = {}
     for key, shape in batch_shapes.items():
         ndim = len(shape)
         rows = shape[0] if ndim else 1
-        b = "data" if rows % axes["data"] == 0 else None
+        b = B if rows % need == 0 else None
         if key in TOKEN_KEYS:
             specs[key] = (b, "model") + (None,) * (ndim - 2)
         elif key == "send_idx":

@@ -1,4 +1,5 @@
-"""ZeRO-3 over a ``data x model`` mesh: each rank holds only its shard of
+"""ZeRO-3 over a mesh of any of the axes ``pod``, ``data`` and ``model``
+(``launch.mesh``): each rank holds only its shard of
 every parameter leaf, and of the optimizer's fp32 master, ``mu`` and
 ``nu`` (the layout of :mod:`repro_torch.runtime.sharding`; the
 reference shards the same way and lets XLA insert the collectives).
@@ -23,6 +24,11 @@ reference shards the same way and lets XLA insert the collectives).
 * **Norms and statistics** count each leaf once: a rank adds a leaf's
   squares only where its coordinate on every axis the leaf is whole on
   is 0.
+
+:meth:`Zero3.from_layout` builds one rank's layout from its axes,
+coordinates and leaf shapes with the communicators a factory gives (the
+dry run's recording comm, ``core.comm.RecordingComm``), so one rank's
+step runs without a process group.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ import math
 import torch
 
 from repro_torch.core.comm import CPComm, all_gather_tiled, all_reduce_
-from repro_torch.launch.mesh import AXES, mesh_axes, mesh_coords, mesh_world
+from repro_torch.launch.mesh import mesh_axes, mesh_coords, mesh_world
 from repro_torch.optim.clipping import sum_of_squares
 from .sharding import (is_expert_leaf, param_specs, replicated_axes,
                        shard_shape, take_shard)
@@ -68,10 +74,30 @@ class Zero3:
     them in that order (``optim._slices.leaves``)."""
 
     def __init__(self, mesh, backend: str, shapes: dict):
-        self.axes, self.coords = mesh_axes(mesh), mesh_coords(mesh)
-        self.comms = {a: CPComm(backend, mesh.get_group(a))
-                      for a in AXES if self.axes[a] > 1}
-        self.world = CPComm(backend, mesh_world(mesh))
+        axes = mesh_axes(mesh)
+        self._setup(axes, mesh_coords(mesh), shapes,
+                    {a: CPComm(backend, mesh.get_group(a))
+                     for a in axes if axes[a] > 1},
+                    CPComm(backend, mesh_world(mesh)))
+
+    @classmethod
+    def from_layout(cls, axes: dict, coords: dict, shapes: dict,
+                    comm_of) -> "Zero3":
+        """The layout of the rank at ``coords`` of a mesh of ``axes``
+        (``{axis: size}`` in axis order), with ``comm_of(axis)`` the
+        communicator of its line along ``axis`` and ``comm_of(None)``
+        that of every rank: no process group is needed."""
+        self = cls.__new__(cls)
+        self._setup(dict(axes), dict(coords), shapes,
+                    {a: comm_of(a) for a in axes if axes[a] > 1},
+                    comm_of(None))
+        return self
+
+    def _setup(self, axes: dict, coords: dict, shapes: dict, comms: dict,
+               world) -> None:
+        self.axes, self.coords = axes, coords
+        self.comms = comms
+        self.world = world
         self.shapes = dict(shapes)
         self.paths = list(self.shapes)
         self.specs = param_specs(self.axes, self.shapes)
@@ -125,16 +151,17 @@ class Zero3:
                     x = all_gather_tiled(x, self.comms[a], dim)
         return x
 
-    def gather(self, prefix: str, tree):
+    def gather(self, prefix: str, tree, *, experts: bool = False):
         """The whole leaves of this rank's shards ``tree`` at ``prefix``
         (differentiable: the backward reduce-scatters).  Under
         ``layers/`` the shards are one layer's slices of the stacked
-        leaves, and an expert leaf stays split over ``model``."""
+        leaves, and an expert leaf stays split over ``model`` unless
+        ``experts`` (a decode step, which routes with every expert)."""
         layer = prefix.startswith("layers")
 
         def one(p, x):
-            keep = ("model",) if is_expert_leaf(p, len(self.shapes[p])) \
-                else ()
+            keep = ("model",) if not experts and is_expert_leaf(
+                p, len(self.shapes[p])) else ()
             return self._gather_leaf(x, self._spec(p, layer), keep)
         return _map(tree, one, f"{prefix}/")
 

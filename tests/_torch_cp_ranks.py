@@ -132,26 +132,29 @@ def leaf_names(tree, prefix=""):
 
 def train_rank(rank, world, store, out_dir, params_file, pipe_kw, run_kw,
                cases, mesh_shape, arch="starcoder2_3b", cfg_kw=None):
-    """The train step on a ``mesh_shape`` (data, model) mesh of gloo ranks
-    (ZeRO-3) on the smoke ``arch`` (its config fields replaced by
-    ``cfg_kw``), from the converted parameters, for each (attention impl,
-    gradient compression) case: loss, metrics and the whole gradients of
-    step 0's batch, then one train step's metrics and the whole updated
-    parameters."""
+    """The train step on a ``mesh_shape`` mesh of gloo ranks (ZeRO-3):
+    (data, model), or (pod, data, model) for three sizes, on the smoke
+    ``arch`` (its config fields replaced by ``cfg_kw``), from the
+    converted parameters, for each (attention impl, gradient compression)
+    case: whether this rank's shards are exactly its slices of the whole
+    leaves, loss, metrics and the whole gradients of step 0's batch, then
+    one train step's metrics and the whole updated parameters."""
     import dataclasses
     from repro_torch import configs as tcfgs
     from repro_torch import optim as topt
     from repro_torch.data.pipeline import PipelineConfig, make_batch
-    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.mesh import AXES, POD_AXES, make_mesh
     from repro_torch.launch.steps import batch_to_device, build_train_step
     from repro_torch.models import params_from_numpy
     from repro_torch.optim._slices import leaves
-    from repro_torch.runtime.zero import Zero3, tree_shapes
+    from repro_torch.runtime.sharding import take_shard
+    from repro_torch.runtime.zero import Zero3, named_leaves, tree_shapes
 
     init_rank(rank, world, "gloo", store, "cpu")
     torch.set_num_threads(1)          # as in island_rank
     try:
-        mesh = make_local_mesh(*mesh_shape, device_type="cpu")
+        mesh = make_mesh(mesh_shape, AXES if len(mesh_shape) == 2
+                         else POD_AXES, device_type="cpu")
         cfg = dataclasses.replace(
             tcfgs.reduce_for_smoke(tcfgs.get_config(arch)), **(cfg_kw or {}))
         with np.load(params_file) as f:
@@ -162,11 +165,18 @@ def train_rank(rank, world, store, out_dir, params_file, pipe_kw, run_kw,
             names = leaf_names(whole)
             zero = Zero3(mesh, "gloo", tree_shapes(whole))
             params = zero.shard(whole)
+            shards = dict(named_leaves(params))
+            res[f"{impl}/{comp}/shards_exact"] = np.array(all(
+                tuple(shards[p].shape) == s and torch.equal(
+                    shards[p], take_shard(x, zero.specs[p], zero.axes,
+                                          zero.coords))
+                for (p, x), s in zip(named_leaves(whole),
+                                     zero.shard_shapes().values())))
             run = tcfgs.RunConfig(arch=cfg.name, attention_impl=impl,
                                   grad_compression=comp, **run_kw)
             step_fn = build_train_step(cfg, run, q_chunk=64, block_q=64,
                                        block_k=64, device="cpu", zero=zero)
-            pipe = PipelineConfig(**pipe_kw[impl], cp_size=mesh_shape[1],
+            pipe = PipelineConfig(**pipe_kw[impl], cp_size=mesh_shape[-1],
                                   vocab_size=cfg.vocab_size)
             batch = batch_to_device(make_batch(pipe, 0), "cpu")
             (loss, metrics), grads = step_fn.loss_and_grads(params, batch)

@@ -112,7 +112,7 @@ def decode_rank(rank, world, port, out_dir, lens_cases):
     """One rank joined through env:// (the variables a launcher sets):
     its S-slice of the cache, per length mix the sharded decode's output
     and the merged partial; then, at 4 ranks, what
-    ``make_production_mesh`` says of a world of 4."""
+    ``make_production_mesh`` says of a world of 4, one pod and two."""
     from repro_torch.kernels.flash_decode import (flash_decode,
                                                   flash_decode_ranks,
                                                   local_lengths)
@@ -141,10 +141,11 @@ def decode_rank(rank, world, port, out_dir, lens_cases):
         info = {"backend": comm.backend, "rank": dist.get_rank()}
         if world == 4:
             from repro_torch.launch.mesh import make_production_mesh
-            try:
-                make_production_mesh(device_type="cpu")
-            except ValueError as err:
-                info["production"] = str(err)
+            for key, pods in (("production", False), ("multi_pod", True)):
+                try:
+                    make_production_mesh(multi_pod=pods, device_type="cpu")
+                except ValueError as err:
+                    info[key] = str(err)
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
         with open(os.path.join(out_dir, f"info{rank}.json"), "w") as f:
             json.dump(info, f)

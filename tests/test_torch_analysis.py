@@ -2,7 +2,8 @@
 reference's (``repro.analysis``), on the same numpy inputs.
 
 * ``RULES``: the reference's registry minus the rules that read XLA or
-  Pallas program text (HLO101-HLO106, KER001), plus WIRE101-WIRE103,
+  Pallas program text (HLO101-HLO106, KER001), plus WIRE101-WIRE103 and
+  STEP104-STEP105,
   with the reference's text.
 * The plan checks (PLAN, ENC, TAB, WQ, SRV): the port's functions on the
   port's plans, encodings, tables and serving pool give the reference's
@@ -70,9 +71,12 @@ def _both(fn, *args):
 def test_rules_are_the_references_minus_program_text_plus_wire():
     dropped = {f"HLO10{i}" for i in range(1, 7)} | {"KER001"}
     wire = {"WIRE101", "WIRE102", "WIRE103"}
-    assert set(tfind.RULES) == (set(jfind.RULES) - dropped) | wire
-    for rule in set(tfind.RULES) - wire:
+    step = {"STEP104", "STEP105"}
+    assert set(tfind.RULES) == (set(jfind.RULES) - dropped) | wire | step
+    for rule in set(tfind.RULES) - wire - step:
         assert tfind.RULES[rule] == jfind.RULES[rule], rule
+    # the step audit's f64 rule is the reference's HLO104
+    assert tfind.RULES["STEP104"] == jfind.RULES["HLO104"]
     # the wire rules keep the collective rules' invariants
     for i in (1, 2):
         assert tfind.RULES[f"WIRE10{i}"].split()[-3:] == \

@@ -36,6 +36,18 @@ def test_dp_train_step_matches_jax(mesh, cases, tmp_path):
     check_mesh_step(mesh, tmp_path, cases)
 
 
+@pytest.mark.parametrize("mesh,rows", [((2, 1, 2), 2), ((2, 2, 1), 4)],
+                         ids=["2x1x2", "2x2x1"])
+def test_pod_train_step_matches_jax(mesh, rows, tmp_path):
+    """The step on the two-pod layout, a (pod, data, model) mesh of 4 gloo
+    ranks: rows over ``pod`` (and ``data``), tokens over ``model``, ZeRO-3
+    over all three axes; every rank's shards exact and step 0 against
+    the JAX step on the whole batch, at the bounds of
+    test_dp_train_step_matches_jax."""
+    check_mesh_step(mesh, tmp_path, [("plain", "none"), ("flash", "none")],
+                    rows=rows)
+
+
 def test_prefetcher_yields_make_batch_from_start_step_and_closes():
     cfg = PipelineConfig(context_len=256, batch_per_host=2, cp_size=2,
                          vocab_size=512, align=16, emit_tables=True,

@@ -12,9 +12,10 @@ the reference:
 * ``cache_specs`` against the reference's on the decode caches of four
   families at seven meshes (one of them the reference's two-pod
   2 x 16 x 16);
-* ``make_production_mesh``: a world of 4 and the two-pod form refused,
-  and the production grid's rank order against the reference's device
-  order (16 x 16, 256 simulated host devices in a subprocess);
+* ``make_production_mesh``: a world of 4 refused by both forms, and the
+  production grids' rank order against the reference's device order
+  (16 x 16 on 256 and 2 x 16 x 16 on 512 simulated host devices, in
+  subprocesses);
 * ``train.main(["--mesh", "2x2", ...])`` under env:// (4 gloo ranks on
   localhost) against the FileStore spawn: the same losses, bit for bit.
 """
@@ -41,7 +42,7 @@ from repro_torch import configs as tcfgs
 from repro_torch.core.merge import finalize_partial, merge_partials
 from repro_torch.kernels.flash_decode import (decode_reference, flash_decode,
                                               local_lengths)
-from repro_torch.launch.mesh import make_production_mesh, production_grid
+from repro_torch.launch.mesh import POD_AXES, grid_coords, production_grid
 from repro_torch.launch.ranks import spawn_ranks
 from repro_torch.launch.train import parse_mesh
 from repro_torch.models import init_cache
@@ -145,40 +146,61 @@ def test_sharded_decode_matches_one_process_and_reference(decoded):
                                    atol=TOL, rtol=TOL)
         if name == "empty_rank":
             assert not ranks[0][f"{name}/out"][2].any()
-    if n == 4:            # the production mesh refuses a world of 4
+    if n == 4:            # the production meshes refuse a world of 4
         for info in infos:
             assert "16x16 needs a world of 256 ranks, got 4" in \
                 info["production"]
+            assert "2x16x16 needs a world of 512 ranks, got 4" in \
+                info["multi_pod"]
 
 
 PROD_SCRIPT = r"""
 import os, sys
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=256"
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=" + \
+    sys.argv[2]
 sys.path.insert(0, sys.argv[1])
 import json
 import numpy as np
 from repro.launch.mesh import make_production_mesh
-mesh = make_production_mesh()
+mesh = make_production_mesh(multi_pod=sys.argv[2] == "512")
 ids = np.vectorize(lambda d: d.id)(mesh.devices)
 print("GRID", json.dumps({"axes": list(mesh.axis_names),
                           "ids": ids.tolist()}))
 """
 
 
-def test_production_grid_matches_reference_device_order():
+def _reference_grid(devices: int) -> dict:
+    """The reference's production mesh on ``devices`` simulated host
+    devices (256: one pod; 512: two): its axes and device ids."""
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     env.pop("XLA_FLAGS", None)
     proc = subprocess.run(
-        [sys.executable, "-c", PROD_SCRIPT, os.path.join(HERE, "..", "src")],
-        capture_output=True, text=True, timeout=300, env=env)
+        [sys.executable, "-c", PROD_SCRIPT, os.path.join(HERE, "..", "src"),
+         str(devices)], capture_output=True, text=True, timeout=300, env=env)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    ref = json.loads(proc.stdout.split("GRID", 1)[1])
+    return json.loads(proc.stdout.split("GRID", 1)[1])
+
+
+def test_production_grid_matches_reference_device_order():
+    ref = _reference_grid(256)
     assert ref["axes"] == ["data", "model"]
     np.testing.assert_array_equal(production_grid().numpy(),
                                   np.asarray(ref["ids"]))
-    with pytest.raises(NotImplementedError, match="pod batch axis"):
-        make_production_mesh(multi_pod=True, device_type="cpu")
     assert parse_mesh("prod") == tuple(production_grid().shape)
+
+
+def test_multi_pod_grid_matches_reference_device_order():
+    """The two-pod mesh (no longer refused): every rank at the
+    coordinate the reference's 2 x 16 x 16 mesh gives its device, the
+    coordinates the ranks read (``grid_coords``) those of the grid."""
+    ref = _reference_grid(512)
+    assert tuple(ref["axes"]) == POD_AXES
+    grid = production_grid(multi_pod=True)
+    np.testing.assert_array_equal(grid.numpy(), np.asarray(ref["ids"]))
+    for rank in (0, 17, 255, 256, 300, 511):
+        want = dict(zip(POD_AXES, np.argwhere(np.asarray(ref["ids"])
+                                              == rank)[0].tolist()))
+        assert grid_coords(grid, POD_AXES, rank) == want
 
 
 ARCHS = ("starcoder2_3b", "olmoe_1b_7b", "jamba_v0_1_52b", "xlstm_350m")

@@ -18,6 +18,7 @@ kernels' twins (CPU tensors).  Tolerances, with their reasons:
 """
 
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -75,8 +76,8 @@ def _models(arch, seed=0):
     return jc, tc, jp, params_from_numpy(_np_tree(jp), device="cpu")
 
 
-def _pipe_kw(cfg, tables, grid="flat"):
-    return dict(dataset="wlb_llm", context_len=SEQ, batch_per_host=BATCH,
+def _pipe_kw(cfg, tables, grid="flat", batch=BATCH):
+    return dict(dataset="wlb_llm", context_len=SEQ, batch_per_host=batch,
                 cp_size=1, strategy="flashcp", vocab_size=cfg.vocab_size,
                 seed=1, align=64 if tables else 1, emit_tables=tables,
                 table_grid=grid, table_block_q=64, table_block_k=64)
@@ -389,13 +390,14 @@ MESH_RUN_KW = dict(lr=1e-3, warmup_steps=1, total_steps=4)
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_step0(impl: str, comp: str):
+def _jax_step0(impl: str, comp: str, rows: int = BATCH):
     """The JAX reference of :func:`check_mesh_step` for one case (the same
-    for every mesh): step 0's loss, ce and gradients on the N = 1 batch,
-    and one train step's metrics and parameters, as numpy."""
+    for every mesh): step 0's loss, ce and gradients on the N = 1 batch
+    of ``rows`` rows, and one train step's metrics and parameters, as
+    numpy."""
     jc, _, jp, _ = _models("starcoder2_3b", seed=1)
     flash = impl == "flash"
-    batch = jbatch(JPipe(**_pipe_kw(jc, flash)), 0)
+    batch = jbatch(JPipe(**_pipe_kw(jc, flash, batch=rows)), 0)
     jb = {k: jnp.asarray(batch[k]) for k in ("tokens", "labels")}
     ctx = jctx(jnp.asarray(batch["doc"]), jnp.asarray(batch["pos"]),
                attention_impl="xla", q_chunk=64)
@@ -408,24 +410,26 @@ def _jax_step0(impl: str, comp: str):
             _flat(_np_tree(jparams)))
 
 
-def check_mesh_step(mesh_shape, tmp_path, cases):
+def check_mesh_step(mesh_shape, tmp_path, cases, rows=BATCH):
     """The port's train step on a ``mesh_shape`` mesh of gloo ranks (CPU,
-    ZeRO-3) on the mesh's batch of step 0 against the JAX step on the
-    same logical batch (its N = 1 batch: the same documents and tokens
-    in packed order), from the reference's own parameters, for each
-    (impl, gradient compression) case: loss 1e-5 relative, every whole
-    gradient 1e-4 of its leaf's largest entry, and after one step the
-    metrics and whole parameters at the bounds of
-    test_two_train_steps_match_jax.  Every case runs in one spawn."""
+    ZeRO-3; (data, model), or (pod, data, model)) on the mesh's batch of
+    step 0 (``rows`` rows) against the JAX step on the same logical batch
+    (its N = 1 batch: the same documents and tokens in packed order),
+    from the reference's own parameters, for each (impl, gradient
+    compression) case: every rank's shards exactly its slices of the
+    whole leaves, loss 1e-5 relative, every whole gradient 1e-4 of its
+    leaf's largest entry, and after one step the metrics and whole
+    parameters at the bounds of test_two_train_steps_match_jax.  Every
+    case runs in one spawn."""
     import _torch_cp_ranks as ranks
     from repro_torch.launch.ranks import spawn_ranks
 
-    world = mesh_shape[0] * mesh_shape[1]
+    world = math.prod(mesh_shape)
     jc, _, jp, _ = _models("starcoder2_3b", seed=1)
     np.savez(tmp_path / "params.npz", **_flat(_np_tree(jp)))
     pipe_kw = {}
     for impl in {impl for impl, _ in cases}:
-        kw = _pipe_kw(jc, impl == "flash")
+        kw = _pipe_kw(jc, impl == "flash", batch=rows)
         pipe_kw[impl] = {k: v for k, v in kw.items()
                          if k not in ("cp_size", "vocab_size")}
     spawn_ranks(ranks.train_rank, world,
@@ -436,9 +440,10 @@ def check_mesh_step(mesh_shape, tmp_path, cases):
     got = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(world)]
     for impl, comp in cases:
         key = f"{impl}/{comp}"
-        jl, jce, jgrads, jmetrics, jparams = _jax_step0(impl, comp)
+        jl, jce, jgrads, jmetrics, jparams = _jax_step0(impl, comp, rows)
         for r, res in enumerate(got):
             tag = f"{key} mesh {mesh_shape} rank {r}"
+            assert res[f"{key}/shards_exact"], tag
             np.testing.assert_allclose(res[f"{key}/loss"], jl, rtol=1e-5,
                                        err_msg=tag)
             np.testing.assert_allclose(res[f"{key}/ce"], jce, rtol=1e-5,

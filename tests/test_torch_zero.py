@@ -17,6 +17,8 @@ import pytest
 import torch
 
 import _torch_dp_ranks as ranks
+from repro.compat import make_abstract_mesh
+from repro.configs import ARCHS as jARCHS
 from repro.configs import get_config as jget_config
 from repro.models import init_params as jinit
 from repro.models.layers import embed as jembed
@@ -101,6 +103,72 @@ def test_batch_rule_matches_reference(mesh, rows):
             np.testing.assert_array_equal(mine["doc"], batch["doc"][r])
             np.testing.assert_array_equal(mine["tab_loc_fq_flags"],
                                           batch["tab_loc_fq_flags"][r])
+
+
+PROD_MESHES = [{"data": 16, "model": 16}, {"pod": 2, "data": 16, "model": 16}]
+
+
+def _spec(p) -> tuple:
+    return tuple(tuple(e) if isinstance(e, (tuple, list)) else e for e in p)
+
+
+@pytest.mark.parametrize("arch", sorted(jARCHS))
+def test_param_specs_match_reference_at_production_meshes(arch):
+    """Every full-width leaf of every arch (the expert leaves too) takes
+    the reference's ``param_shardings`` spec at 16x16 and 2x16x16: the
+    greedy order over ``data``, ``model`` and ``pod``."""
+    cfg = jget_config(arch)
+    tree = jax.eval_shape(lambda k: jinit(k, cfg), jax.random.PRNGKey(0))
+    flat = jax.tree_util.tree_flatten_with_path(tree)[0]
+    shapes = {"/".join(str(k.key) for k in path): tuple(leaf.shape)
+              for path, leaf in flat}
+    for axes in PROD_MESHES:
+        mesh = make_abstract_mesh(tuple(axes.values()), tuple(axes))
+        specs = jax.tree_util.tree_flatten_with_path(
+            jsharding.param_shardings(mesh, tree))[0]
+        want = {"/".join(str(k.key) for k in path): _spec(x.spec)
+                for path, x in specs}
+        assert sharding.param_specs(axes, shapes) == want, axes
+
+
+@pytest.mark.parametrize("axes,rows", [
+    ({"pod": 2, "data": 1, "model": 2}, 2),
+    ({"pod": 2, "data": 2, "model": 1}, 4),
+    ({"pod": 2, "data": 2, "model": 1}, 2),
+    ({"pod": 2, "data": 2, "model": 2}, 4)],
+    ids=["2x1x2-b2", "2x2x1-b4", "2x2x1-b2", "2x2x2-b4"])
+def test_batch_rule_with_pod_matches_reference(axes, rows):
+    """Rows over ``pod`` and ``data`` (``pod`` the major one; every rank
+    takes every row when they do not divide), as the reference's
+    ``batch_specs`` on a two-pod mesh; :func:`rank_batch` hands every
+    rank its rows and token columns."""
+    from repro_torch.data.pipeline import PipelineConfig, make_batch
+    from repro_torch.launch.steps import rank_batch
+
+    P_, D, M = axes.values()
+    pipe = PipelineConfig(context_len=256, batch_per_host=rows, cp_size=M,
+                          vocab_size=512, align=16, emit_tables=True,
+                          table_block_q=16, table_block_k=16)
+    batch = {k: v for k, v in make_batch(pipe, 0).items() if k != "stats"}
+    shapes = {k: v.shape for k, v in batch.items()}
+    mesh = make_abstract_mesh(tuple(axes.values()), tuple(axes))
+    want = jsharding.batch_specs(mesh, shapes)
+    assert sharding.batch_specs(axes, shapes) == \
+        {k: _spec(v) for k, v in want.items()}
+    tensors = {k: torch.from_numpy(v) for k, v in batch.items()}
+    split = rows % (P_ * D) == 0
+    n = rows // (P_ * D)
+    T = batch["tokens"].shape[1] // M
+    for p in range(P_):
+        for d in range(D):
+            for m in range(M):
+                mine = rank_batch(tensors, axes,
+                                  {"pod": p, "data": d, "model": m})
+                g = p * D + d
+                r = slice(g * n, (g + 1) * n) if split else slice(None)
+                np.testing.assert_array_equal(
+                    mine["tokens"], batch["tokens"][r, m * T:(m + 1) * T])
+                np.testing.assert_array_equal(mine["doc"], batch["doc"][r])
 
 
 @pytest.fixture(scope="module")
