@@ -41,6 +41,16 @@ launch count set to 0 just before and read just after:
   own artifacts: the TAB/WQ rules on every training step's tables
   (``train``), the SRV rules on both serving engines (``main_path``),
   WIRE101-103 on every native CP island (``cp_islands``);
+* the examples (``examples/*_torch.py``), each through its ``main``:
+  plan_explorer and quickstart's plans on the host, quickstart's tiny
+  training through the doc kernels (the loss falls, launches gated),
+  serve_decode on the paged layout (every request ok, launches gated),
+  and train_lm: lm_124m (12 layers, d 768, f32) trained its 300 steps
+  through the f32 doc kernels and again through the plain attention from
+  the same parameters (step 0 and the last 20 steps' mean loss gated,
+  the loss falls by a nat, launches gated), then resumed from its
+  step-300 checkpoint for 20 steps against an in-process continuation
+  (``examples``);
 * context parallelism, on one 32768-token wlb_llm sequence: the doc
   kernels at a CP hop's shape (``doc_hop_shapes``, with the kernel
   parity); the CP islands at N = 4 (flashcp chunked and monolithic,
@@ -316,9 +326,10 @@ SHARD_GEN = 32
 # the MoE family: olmoe_1b_7b at full width (d 2048, 16 heads of 128, 64
 # experts of d_ff 1024, top-8, vocab 50304).  Training cuts depth to 4
 # layers (16 layers of bf16 weights and gradients, fp32 master, mu and nu
-# are 111 GB); serving runs all 16.
+# are 111 GB); serving runs all 16 and decodes MOE_GEN tokens a request
+# (its decode steps are host-bound: 32 tokens took ~12 s of the phase).
 MOE_ARCH = "olmoe_1b_7b"
-MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 4, 3
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS, MOE_GEN = 4, 3, 8
 # one f32 decode step of the full model, flash vs the dense oracle,
 # relative to the largest logit (in bf16 a rounding difference can flip a
 # token's top-8 experts, which moves its logits by far more; printed)
@@ -394,6 +405,21 @@ DISPATCH_RUNS = (
     ("shrink", ("--hosts", "2", "--fail-at", "3:1", "--checkpoint-dir",
                 "{ckpt}", "--ckpt-every", "2")),
     ("straggle", ("--hosts", "2", "--straggle", "1:2.0", "--steps", "3")))
+# the examples (examples/*_torch.py) on the card.  train_lm trains
+# lm_124m (12 layers, d 768, 12 / 12 heads of 64, f32) for its default
+# 300 steps of one 256-token pile sequence through the f32 doc kernels
+# and again through the plain attention from the same parameters: the
+# losses at step 0 within EX_STEP0_TOL of each other (relative; the same
+# arithmetic in another order) and their means over the last EX_TAIL
+# steps within EX_TAIL_TOL (300 AdamW steps let f32 rounding grow); the
+# kernel run's last EX_TAIL losses at least EX_DROP nats below its
+# first.  The run is then continued EX_CONT steps in process, twice from
+# the same state (the spread two identical runs show), and resumed by
+# the example from its step-300 checkpoint with --steps 300 + EX_CONT:
+# its losses within EX_RESUME_SPREADS x the spread of the continuation's
+# (equal where the step is deterministic).
+EX_STEPS, EX_CONT, EX_TAIL = 300, 20, 20
+EX_STEP0_TOL, EX_TAIL_TOL, EX_DROP, EX_RESUME_SPREADS = 1e-5, 1e-2, 1.0, 2
 
 
 def emit(phase: str, **kw) -> None:
@@ -2842,7 +2868,7 @@ def moe_serve_phase(torch) -> dict:
          seconds=time.perf_counter() - t0,
          param_bytes=torch.cuda.memory_allocated())
     prompts = requests(cfg)
-    gen, L = 32, cfg.num_layers
+    gen, L = MOE_GEN, cfg.num_layers
     kw = dict(num_slots=6, prefill_chunk=128, block_size=16)
     out = {}
     for layout, kernel in (("paged", "flash_decode_paged"),
@@ -2873,13 +2899,15 @@ def moe_serve_phase(torch) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
 
-    # one decode step from the dense run's cache, flash vs dense oracle
+    # one decode step from the dense run's cache, flash vs dense oracle;
+    # the last position is the last one the longest request (1024 prompt
+    # tokens + gen) wrote
     gen_t = torch.Generator(device="cuda")
     gen_t.manual_seed(5)
     toks = torch.randint(0, cfg.vocab_size, (6,), generator=gen_t,
                          device="cuda")
-    pos = torch.tensor([255, 400, 600, 800, 1000, 1054], dtype=torch.int32,
-                       device="cuda")
+    pos = torch.tensor([255, 400, 600, 800, 1000, max(map(len, prompts))
+                        + gen - 2], dtype=torch.int32, device="cuda")
     diffs = {}
     for dtype in ("bfloat16", "float32"):
         c = dataclasses.replace(cfg, dtype=dtype)
@@ -4402,6 +4430,218 @@ def step_audit_phase(torch, res) -> dict:
     return {"sites": sites}
 
 
+def load_example(name: str):
+    """``examples/<name>.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _clone(tree):
+    from torch.utils._pytree import tree_map
+    return tree_map(lambda x: x.clone() if hasattr(x, "clone") else x, tree)
+
+
+def measured_run(torch, fn, *args, **kw) -> dict:
+    """``fn(*args, **kw)`` as ``res``, with its wall time, the doc
+    kernels' launches and the peak device memory."""
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = fn(*args, **kw)
+    return {"res": res, "wall_s": time.perf_counter() - t0,
+            "launches": {n: read_counts()[n] for n in DOC_KERNELS},
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def examples_plain_rank(rank, world, backend, store, out_dir, params_path):
+    """Worker 0 of the rank pool (no process group): train_lm's training
+    through the plain attention from the parameters at ``params_path``,
+    without its checkpoints (no gate reads them), its log in
+    ``out_dir``; losses, step times, launches, peak."""
+    import contextlib
+    import torch
+    import repro_torch.configs as configs
+
+    tl = load_example("train_lm_torch")
+    args = tl.train_args(["--attention-impl", "plain"])
+    args.checkpoint_dir, args.ckpt_every, args.resume = "", 0, False
+    configs.ARCHS[tl.LM_100M.name] = tl.LM_100M
+    params = torch.load(params_path, map_location="cuda")
+    try:
+        with open(Path(out_dir) / "train_lm_plain.log", "w") as log, \
+                contextlib.redirect_stdout(log):
+            run = measured_run(torch, train, args, params)
+    finally:
+        configs.ARCHS.pop(tl.LM_100M.name, None)
+    res = run.pop("res")
+    run.update(losses=res["losses"], step_s=res["step_s"])
+    with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(run, f)
+
+
+def examples_phase(torch) -> dict:
+    """The four examples' ``main`` on the card: plan_explorer and
+    quickstart's plans on the host; quickstart's tiny training through
+    the doc kernels (the loss falls, layers x (2, 1, 1) launches a step);
+    serve_decode on the paged layout (every request ok with its tokens,
+    ``flash_decode_paged`` launched (decode steps + the warmup's) x
+    layers times); train_lm: lm_124m for EX_STEPS steps through the f32
+    doc kernels (launches, the loss falls by EX_DROP nats) and, on a
+    worker of the rank pool at the same time (the two share the card),
+    the same steps through the plain attention from the same parameters
+    (EX_STEP0_TOL, EX_TAIL_TOL), then resumed by the example from its
+    checkpoint against an in-process continuation (see EX_*)."""
+    import dataclasses
+    import math
+    import tempfile
+    import repro_torch.configs as configs
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch.steps import batch_to_device, build_train_step
+    from repro_torch.models import init_params
+
+    out = {}
+    tl = load_example("train_lm_torch")
+    cfg = tl.LM_100M
+    with tempfile.TemporaryDirectory() as tmp:
+        # the plain run starts first, on a worker of the rank pool
+        params0 = init_params(cfg, seed=0, device="cuda")
+        torch.save(params0, f"{tmp}/params0.pt")
+        plain_job = PendingRanks(torch, examples_plain_rank, 1,
+                                 (f"{tmp}/params0.pt",))
+
+        t0 = time.perf_counter()
+        load_example("plan_explorer_torch").main([])
+        out["plan_explorer_s"] = time.perf_counter() - t0
+
+        qs = load_example("quickstart_torch")
+        qs.CKPT_DIR = f"{tmp}/quickstart"
+        L = reduce_for_smoke(get_config("starcoder2_3b")).num_layers
+        reset_counts()
+        t0 = time.perf_counter()
+        res = qs.main([])
+        q = {"wall_s": time.perf_counter() - t0, "losses": res["losses"],
+             "launches": {n: read_counts()[n] for n in DOC_KERNELS},
+             "expected_launches": {
+                 n: qs.TINY_STEPS * L * k
+                 for n, k in zip(DOC_KERNELS, (2, 1, 1))}}
+        del res
+        emit("examples_quickstart", **q)
+        if not (all(map(math.isfinite, q["losses"]))
+                and q["losses"][-1] < q["losses"][0]):
+            raise AssertionError(f"quickstart: losses {q['losses']}")
+        if q["launches"] != q["expected_launches"]:
+            raise AssertionError(f"quickstart: launches {q['launches']}")
+        out["quickstart"] = q
+
+        sd = load_example("serve_decode_torch")
+        reset_counts()
+        t0 = time.perf_counter()
+        res = sd.main([])
+        launches = read_counts()
+        gen = 16                         # the example's --gen
+        s = {"wall_s": time.perf_counter() - t0,
+             "kv_layout": res["kv_layout"],
+             "statuses": sorted(r["status"] for r in res["results"].values()),
+             "tokens": [len(t) for t in res["tokens"].values()],
+             "launches": launches["flash_decode_paged"],
+             # the engine's warmup is one all-inactive decode step
+             "expected_launches": (res["stats"]["decode_steps"] + 1) * L,
+             "decode_tok_s": res["throughput"]["decode_tok_s"]}
+        del res
+        emit("examples_serve_decode", **s)
+        if s["kv_layout"] != "paged" or s["statuses"] != ["ok"] * 4 \
+                or s["tokens"] != [gen] * 4:
+            raise AssertionError(f"serve_decode: {s}")
+        if s["launches"] != s["expected_launches"] or not s["launches"]:
+            raise AssertionError(f"serve_decode: launches {s['launches']}")
+        out["serve_decode"] = s
+
+        try:
+            tl.CKPT_DIR = f"{tmp}/lm_flash"
+            flash = measured_run(torch, tl.main, ["--attention-impl", "flash"],
+                                 params=params0)
+            del params0
+            # EX_CONT more steps in process, twice from the same state, on
+            # the learning-rate schedule of the resumed run (a
+            # EX_STEPS + EX_CONT step run)
+            res = flash.pop("res")
+            total = EX_STEPS + EX_CONT
+            run = dataclasses.replace(res["run"], total_steps=total,
+                                      warmup_steps=max(total // 10, 1))
+            step_fn = build_train_step(res["config"], run, q_chunk=128,
+                                       device="cuda")
+            dev = torch.device("cuda")
+            batches = [batch_to_device(make_batch(res["pipeline"], s), dev)
+                       for s in range(EX_STEPS, total)]
+            cont = []
+            for _ in range(2):
+                p, o = _clone(res["params"]), _clone(res["opt_state"])
+                cont.append([float(step_fn(p, o, b, s)["loss"]) for s, b
+                             in zip(range(EX_STEPS, total), batches)])
+                del p, o
+            lf, steps_s = res["losses"], res["step_s"]
+            del step_fn, batches, res
+            spread = max(abs(x - y) for x, y in zip(*cont))
+            t0 = time.perf_counter()
+            resumed = tl.main(["--steps", str(total)])["losses"]
+            resume_s = time.perf_counter() - t0
+            resume_gap = max(abs(x - y) for x, y in zip(resumed, cont[0])) \
+                if len(resumed) == EX_CONT else math.inf
+        finally:
+            configs.ARCHS.pop(cfg.name, None)
+        t0 = time.perf_counter()
+        (plain,) = plain_job.wait()
+        plain_wait_s = time.perf_counter() - t0
+    lp = plain["losses"]
+    tail_f = statistics.mean(lf[-EX_TAIL:])
+    tail_p = statistics.mean(lp[-EX_TAIL:])
+    step0_gap = abs(lf[0] - lp[0]) / abs(lp[0])
+    tail_gap = abs(tail_f - tail_p) / abs(tail_p)
+    want = {n: EX_STEPS * cfg.num_layers * k
+            for n, k in zip(DOC_KERNELS, (2, 1, 1))}
+    lm = {"arch": cfg.name, "params": cfg.param_count(),
+          "steps": EX_STEPS, "wall_s": flash["wall_s"],
+          "ms_per_step": 1e3 * statistics.mean(steps_s[1:]),
+          "plain_wall_s": plain["wall_s"],
+          "plain_ms_per_step": 1e3 * statistics.mean(plain["step_s"][1:]),
+          "plain_wait_s": plain_wait_s,
+          "loss_first": lf[0], "loss_last": lf[-1],
+          "loss_tail_mean": tail_f, "plain_loss_first": lp[0],
+          "plain_loss_tail_mean": tail_p,
+          "step0_gap": step0_gap, "step0_tol": EX_STEP0_TOL,
+          "tail_gap": tail_gap, "tail_tol": EX_TAIL_TOL,
+          "peak_bytes": flash["peak_bytes"],
+          "plain_peak_bytes": plain["peak_bytes"],
+          "launches": flash["launches"], "expected_launches": want,
+          "plain_launches": plain["launches"],
+          "continued": cont[0], "resumed": resumed,
+          "continuation_spread": spread, "resume_gap": resume_gap,
+          "resume_s": resume_s}
+    emit("examples_train_lm", **lm)
+    if not all(map(math.isfinite, lf + lp)):
+        raise AssertionError("train_lm: non-finite losses")
+    if not tail_f <= lf[0] - EX_DROP:
+        raise AssertionError(f"train_lm: the loss fell from {lf[0]} to a "
+                             f"mean of {tail_f} over the last {EX_TAIL}")
+    if lm["launches"] != want or any(lm["plain_launches"].values()):
+        raise AssertionError(f"train_lm: launches {lm['launches']} (want "
+                             f"{want}), plain {lm['plain_launches']}")
+    if step0_gap > EX_STEP0_TOL or tail_gap > EX_TAIL_TOL:
+        raise AssertionError(f"train_lm kernels vs plain: step 0 "
+                             f"{step0_gap}, last {EX_TAIL} {tail_gap}")
+    if not resume_gap <= EX_RESUME_SPREADS * spread:
+        raise AssertionError(f"train_lm resumed {resumed} against the "
+                             f"in-process {cont[0]} (spread {spread})")
+    out["train_lm"] = lm
+    return out
+
+
 def smoke_train_phase(torch) -> None:
     """A small f32 model trained 3 steps through the kernels on the card
     and through their twins on the CPU, from the same seed and batches."""
@@ -4786,7 +5026,20 @@ def dispatch_rank(rank, world, backend, store, out_dir, ckpt_root):
         dist.destroy_process_group()
 
 
-def dispatch_phase(torch) -> dict:
+def dispatch_start(torch) -> tuple:
+    """Hand :func:`dispatch_rank`'s 2x2 runs to the rank pool, whose
+    ranks move their ZeRO-3 state through host memory while the card
+    runs the next phases of this process; :func:`dispatch_phase` waits
+    for them.  Returns (job, its checkpoint root, start time)."""
+    import tempfile
+
+    ckpt_root = tempfile.TemporaryDirectory()
+    world = DISPATCH_MESH[0] * DISPATCH_MESH[1]
+    return (PendingRanks(torch, dispatch_rank, world, (ckpt_root.name,)),
+            ckpt_root, time.perf_counter())
+
+
+def dispatch_phase(torch, pending: tuple) -> dict:
     """``--dispatch`` and the elastic supervisor on full-width
     starcoder2_3b cut to DISPATCH_LAYERS layers, bf16, 4 rows of
     DISPATCH_SEQ tokens a step, seed DISPATCH_SEED (whose CP degrees are
@@ -4799,7 +5052,8 @@ def dispatch_phase(torch) -> dict:
     to 1x2 with accum 2 and matches the dispatched run; the one-rank run
     restarted at step 3 from its checkpoint matches the one-rank run;
     under --straggle 1:2.0 every rank makes rank 0's targets and
-    placements, and none hangs."""
+    placements, and none hangs.  The 2x2 runs were started by
+    :func:`dispatch_start` (``pending``); the one-rank runs go here."""
     import math
     import tempfile
 
@@ -4818,20 +5072,20 @@ def dispatch_phase(torch) -> dict:
         torch.cuda.empty_cache()
         return out
 
-    one_out = one_rank()
-    emit("dispatch_one_rank", **one_out)
-    if one_out["launches"] != dispatch_launches(one_out["degrees"]):
-        raise AssertionError(f"one rank launched {one_out['launches']}")
-    world = DISPATCH_MESH[0] * DISPATCH_MESH[1]
-    with tempfile.TemporaryDirectory() as ckpt_root:
-        t0 = time.perf_counter()
-        job = PendingRanks(torch, dispatch_rank, world, (ckpt_root,))
-        # the one-rank restart runs here while the 2x2 ranks run theirs
-        # on the pool (~20 s that would otherwise wait)
+    job, ckpt_root, t0 = pending
+    try:
+        # the one-rank runs go here while the 2x2 ranks run theirs on the
+        # pool
+        one_out = one_rank()
+        emit("dispatch_one_rank", **one_out)
+        if one_out["launches"] != dispatch_launches(one_out["degrees"]):
+            raise AssertionError(f"one rank launched {one_out['launches']}")
         with tempfile.TemporaryDirectory() as ckpt:
             restart = one_rank("--fail-at", "3", "--checkpoint-dir", ckpt,
                                "--ckpt-every", "2")
         ranks = job.wait(DISPATCH_TIMEOUT)
+    finally:
+        ckpt_root.cleanup()
     ranks_s = time.perf_counter() - t0
     restart["loss_rel_diff"] = max(
         abs(x - y) / abs(y) for x, y in zip(restart["losses"],
@@ -4964,6 +5218,9 @@ def main() -> int:
         timed(autotune_phase, torch, trained)
         gc.collect()
         torch.cuda.empty_cache()
+        timed(examples_phase, torch)
+        gc.collect()
+        torch.cuda.empty_cache()
         timed(cp_islands_phase, torch, decode_inputs)
         del decode_inputs
         cp = timed(cp_train_phase, torch)
@@ -5003,6 +5260,8 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         timed(frontend_kernels_phase, torch, timer)
+        # the dispatch phase's 2x2 ranks run on the pool meanwhile
+        pending = dispatch_start(torch)
         for arch, _, _ in FRONT_HEADS:
             gc.collect()
             torch.cuda.empty_cache()
@@ -5012,7 +5271,8 @@ def main() -> int:
             timed(frontend_serve_phase, torch, arch)
         gc.collect()
         torch.cuda.empty_cache()
-        timed(dispatch_phase, torch)
+        timed(dispatch_phase, torch, pending)
+        del pending
         errs = {**kern["err"], **doc["err"]}
         times = {**kern["times"], **doc["times"]}
         for name in REPLACES:

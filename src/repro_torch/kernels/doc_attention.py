@@ -74,6 +74,9 @@ DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
 NEG = -1e30  # finite -inf stand-in inside kernels (no nan from inf-inf)
 
+# block-pair kinds of the legacy builder
+KIND_SKIP, KIND_PARTIAL, KIND_FULL = 0, 1, 2
+
 # work-queue step flags (build_work_queue / the grid="flat" kernels)
 FLAG_FIRST = 1   # first step of its block-row: reset the accumulators
 FLAG_LAST = 2    # last step of its block-row: finalize + write outputs
@@ -313,14 +316,17 @@ def _pairs_intervals(qs, ks, cuts, nk):
 
 def build_block_tables(q_doc, q_pos, kv_doc, kv_pos, *,
                        block_q: int = DEFAULT_BLOCK_Q,
-                       block_k: int = DEFAULT_BLOCK_K) -> BlockTables:
+                       block_k: int = DEFAULT_BLOCK_K,
+                       legacy: bool = False) -> BlockTables:
     """Classify every (q-block, kv-block) pair as skipped or visited.
 
     A pair is skipped only when provably no element is visible.  Plan-
     ordered, (doc, pos)-monotone KV segments resolve each q block's
     visits by binary search on the block summaries; layouts with many
-    segments take the dense classification.  (The reference's
-    ``legacy=True`` list-of-lists builder is not ported.)
+    segments take the dense classification.  ``legacy=True`` selects the
+    reference's original O(nq x nk) list-of-lists construction
+    (:func:`_build_block_tables_legacy`), kept only as the parity and
+    benchmark baseline: it returns the same tables.
     """
     q_doc = np.asarray(q_doc)
     q_pos = np.asarray(q_pos)
@@ -332,6 +338,10 @@ def build_block_tables(q_doc, q_pos, kv_doc, kv_pos, *,
         raise ValueError(f"lengths {Tq}, {Tk} are not multiples of blocks "
                          f"{block_q}, {block_k}")
     nq, nk = Tq // block_q, Tk // block_k
+
+    if legacy:
+        return _build_block_tables_legacy(q_doc, q_pos, kv_doc, kv_pos,
+                                          block_q=block_q, block_k=block_k)
 
     qsum = _summ32(q_doc, q_pos, block_q)
     ksum = _summ32(kv_doc, kv_pos, block_k)
@@ -371,6 +381,82 @@ def build_block_tables(q_doc, q_pos, kv_doc, kv_pos, *,
         kv_idx=kv_idx, kv_nvis=kv_nvis, q_idx=q_idx, q_nvis=q_nvis,
         block_q=block_q, block_k=block_k,
         visited_frac=n_visited / max(B * nq * nk, 1),
+        full_frac=n_full / max(n_visited, 1),
+    )
+
+
+def _pad_lists(lists: list[list[int]], width: int) -> np.ndarray:
+    out = np.zeros((len(lists), width), dtype=np.int32)
+    for i, l in enumerate(lists):
+        if l:
+            out[i, : len(l)] = l
+            out[i, len(l):] = l[-1]  # repeat-last padding => no-op refetch
+    return out
+
+
+def _build_block_tables_legacy(q_doc, q_pos, kv_doc, kv_pos, *, block_q,
+                               block_k) -> BlockTables:
+    """The seed implementation, frozen as the parity/benchmark baseline:
+    every (b, q-block, kv-block) pair classified skip / partial / full on
+    broadcast block summaries, then the visit lists built in Python."""
+    B, Tq = q_doc.shape
+    _, Tk = kv_doc.shape
+    nq, nk = Tq // block_q, Tk // block_k
+
+    def summarize(doc, pos, blk):
+        d = doc.reshape(B, -1, blk)
+        p = pos.reshape(B, -1, blk)
+        valid = d >= 0
+        big = np.int64(1 << 40)
+        dmin = np.where(valid, d, big).min(-1)
+        dmax = np.where(valid, d, -1).max(-1)
+        pmin = np.where(valid, p, big).min(-1)
+        pmax = np.where(valid, p, -1).max(-1)
+        any_valid = valid.any(-1)
+        all_valid = valid.all(-1)
+        return dmin, dmax, pmin, pmax, any_valid, all_valid
+
+    qdmin, qdmax, qpmin, qpmax, q_any, q_all = summarize(q_doc, q_pos, block_q)
+    kdmin, kdmax, kpmin, kpmax, k_any, k_all = summarize(kv_doc, kv_pos,
+                                                         block_k)
+
+    # broadcast to (B, nq, nk)
+    def bq_(x):
+        return x[:, :, None]
+
+    def bk_(x):
+        return x[:, None, :]
+
+    overlap = (bq_(qdmax) >= bk_(kdmin)) & (bk_(kdmax) >= bq_(qdmin))
+    single_doc = (bq_(qdmin) == bq_(qdmax)) & (bk_(kdmin) == bk_(kdmax)) \
+        & (bq_(qdmin) == bk_(kdmin))
+    # single shared doc and strictly anti-causal -> nothing visible
+    anti = single_doc & (bq_(qpmax) < bk_(kpmin))
+    visited = overlap & ~anti & bq_(q_any) & bk_(k_any)
+    full = single_doc & (bq_(qpmin) >= bk_(kpmax)) & bq_(q_all) & bk_(k_all)
+    full &= visited
+
+    kinds = np.where(visited, np.where(full, KIND_FULL, KIND_PARTIAL),
+                     KIND_SKIP).astype(np.int32)
+
+    kv_lists = [[int(k) for k in np.nonzero(kinds[b, qi])[0]]
+                for b in range(B) for qi in range(nq)]
+    q_lists = [[int(q) for q in np.nonzero(kinds[b, :, ki])[0]]
+               for b in range(B) for ki in range(nk)]
+    Vk = max(1, max((len(l) for l in kv_lists), default=0))
+    Vq = max(1, max((len(l) for l in q_lists), default=0))
+
+    kv_idx = _pad_lists(kv_lists, Vk).reshape(B, nq, Vk)
+    kv_nvis = np.array([len(l) for l in kv_lists], np.int32).reshape(B, nq)
+    q_idx = _pad_lists(q_lists, Vq).reshape(B, nk, Vq)
+    q_nvis = np.array([len(l) for l in q_lists], np.int32).reshape(B, nk)
+
+    n_visited = int((kinds != KIND_SKIP).sum())
+    n_full = int((kinds == KIND_FULL).sum())
+    return BlockTables(
+        kv_idx=kv_idx, kv_nvis=kv_nvis, q_idx=q_idx, q_nvis=q_nvis,
+        block_q=block_q, block_k=block_k,
+        visited_frac=n_visited / max(kinds.size, 1),
         full_frac=n_full / max(n_visited, 1),
     )
 
