@@ -134,7 +134,7 @@ launch count set to 0 just before and read just after:
   layers) trained 3 steps on one 8192-token sequence through
   ``build_train_step`` with its frame or patch embeddings drawn from the
   seed in plan order (finite losses, layers x (2, 1, 1) launches a
-  step), and serving the main path's 12 requests on both layouts, the
+  step), and serving 6 of the main path's requests on both layouts, the
   audio prompts with their own frames (launches, paged vs dense tokens,
   a smoke f32 model card vs CPU);
 * adaptive dispatch and elastic recovery: starcoder2_3b at full width
@@ -146,7 +146,22 @@ launch count set to 0 just before and read just after:
   shrunk to 1x2 with 2 micro-batches a step from the step-3 checkpoint,
   and (on one rank) restarted at step 3, each against the same losses;
   and with host 1 twice as slow, every rank making rank 0's placements
-  (``dispatch``).
+  (``dispatch``);
+* the four configured archs no other phase runs, at full width: all
+  five kernels at the heads of qwen3_32b (64 over 8, GQA group 8),
+  granite_34b (48 over 1: MQA), starcoder2_7b (36 over 4: group 9) and
+  dbrx_132b (48 over 8: group 6), D 128, f32 and bf16 against their
+  plain versions and split twins, the bf16 dK/dV's group split gated at
+  2, 12, 3 and 2 slices, and each arch served 6 of the main path's
+  requests, 16 tokens, paged and dense (every request ok, launches, the
+  SRV rules, a bf16 decode step flash vs the dense oracle), while the
+  dispatch phase's ranks run (``archs_checks``); then, with the card to
+  itself, bf16 times of the five kernels at those heads beside the bound
+  and SDPA, and the first three archs trained 2 steps at 2 layers through
+  ``launch.train.train`` (finite losses, the TAB/WQ rules, launches, the
+  next batch through the kernels vs the plain attention), dbrx_132b at 1
+  layer one ``loss_and_grads`` through both (its optimizer state fits
+  no card), its dropped share of routed pairs printed (``archs``).
 
 Run from the repository root:
 
@@ -320,9 +335,11 @@ RES_PATIENCE, RES_DELAY_STEP, RES_DELAY_S = 8, 3, 0.25
 RES_SNAPSHOT_EVERY = 20
 # sharded dense decode: segments per stripe, and ranks the cache's S is
 # split over (flash_decode_ranks); the f32 runs at each segment count
-# generate SHARD_GEN tokens a request
+# serve SHARD_REQUESTS of the main path's requests, SHARD_GEN tokens each
+# (12 and 32 until the archs phases needed the time: the steps are
+# host-bound, mostly prefill chunks)
 SHARDS = (2, 4)
-SHARD_GEN = 32
+SHARD_REQUESTS, SHARD_GEN = 6, 16
 # the MoE family: olmoe_1b_7b at full width (d 2048, 16 heads of 128, 64
 # experts of d_ff 1024, top-8, vocab 50304).  Training cuts depth to 4
 # layers (16 layers of bf16 weights and gradients, fp32 master, mu and nu
@@ -379,10 +396,12 @@ REC_SMOKE_SEQ, REC_SMOKE_STEPS, XLSTM_STEPS = 1024, 3, 3
 # parameters held) and internvl2_1b (24 layers, d 896, 14 heads over 2 of
 # 64: group 7, vocab 151655).  The kernels at those heads (D 64) against
 # their plain versions at the main path's shapes; training FRONT_STEPS
-# steps of one SEQ-token sequence; serving the main path's 12 requests
-# with FRONT_GEN tokens each.
+# steps of one SEQ-token sequence; serving FRONT_REQUESTS of the main
+# path's requests with FRONT_GEN tokens each (12 and 32 until the archs
+# phases needed the time: the serving steps are host-bound, mostly
+# prefill chunks).
 FRONT_HEADS = (("musicgen_medium", 24, 24), ("internvl2_1b", 14, 2))
-FRONT_D, FRONT_STEPS, FRONT_GEN = 64, 3, 32
+FRONT_D, FRONT_STEPS, FRONT_GEN, FRONT_REQUESTS = 64, 3, 16, 6
 # adaptive dispatch and elastic recovery: full-width starcoder2_3b cut to
 # DISPATCH_LAYERS layers on a 2x2 mesh of ranks sharing the card, 4 rows
 # of DISPATCH_SEQ tokens a step; seed DISPATCH_SEED's stream dispatches
@@ -420,6 +439,23 @@ DISPATCH_RUNS = (
 # (equal where the step is deterministic).
 EX_STEPS, EX_CONT, EX_TAIL = 300, 20, 20
 EX_STEP0_TOL, EX_TAIL_TOL, EX_DROP, EX_RESUME_SPREADS = 1e-5, 1e-2, 1.0, 2
+# the four configured archs no other phase runs, at full width, depth
+# cut: (arch, layers, the bf16 dK/dV split plan (key parts, group slices)
+# of dkv_split_plan at one SEQ-token row of T_BLOCK blocks on 132 SMs).
+# Their GQA groups (8, 48 = MQA, 9, 6) run group code no other phase
+# reaches: the dK/dV group slices 2, 12, 3 and 2, the query-to-KV-head map
+# at groups that are not powers of two, the decode split plans at Hkv 8,
+# 1 and 4.  qwen3_32b (64 / 8 heads, qk_norm, vocab 151936), granite_34b
+# (48 / 1, gelu, d 6144) and starcoder2_7b (36 / 4) train ARCH_STEPS steps
+# through launch.train.train (2.53, 1.36 and 0.89 B parameters at 2
+# layers); dbrx_132b (48 / 8, 16 experts of d_ff 10752, top-4; 4.49 B
+# parameters at 1 layer) takes one loss_and_grads without an optimizer:
+# its fp32 master and AdamW moments alone would be ~72 GB.  Each serves
+# ARCH_REQUESTS of the main path's requests on 6 slots, ARCH_GEN tokens.
+ARCHS = (("qwen3_32b", 2, (1, 2)), ("granite_34b", 2, (1, 12)),
+         ("starcoder2_7b", 2, (1, 3)), ("dbrx_132b", 1, (1, 2)))
+ARCH_NO_OPT = "dbrx_132b"
+ARCH_STEPS, ARCH_REQUESTS, ARCH_GEN = 2, 6, 16
 
 
 def emit(phase: str, **kw) -> None:
@@ -935,11 +971,13 @@ def _err(a, b) -> float:
 
 
 def doc_times(torch, timer, gen, hq=T_HQ, hkv=T_HKV, d=T_D, *,
-              phase: str = "kernel_time", **tag) -> dict:
+              phase: str = "kernel_time", plain_reps: int = 20,
+              **tag) -> dict:
     """bf16 times of the three doc kernels at (hq, hkv, d) on the main
     path's schedule (flat grid, an unpadded SEQ-token batch), bounds from
-    this batch's visited blocks, each beside its plain version and SDPA;
-    emitted as ``phase`` lines with ``tag``."""
+    this batch's visited blocks, each beside its plain version (median of
+    ``plain_reps``; 0 leaves it untimed) and SDPA; emitted as ``phase``
+    lines with ``tag``."""
     import torch.nn.functional as F
     from repro_torch.kernels import doc_attention as da
     from repro_torch.kernels.ref import doc_mask
@@ -989,7 +1027,8 @@ def doc_times(torch, timer, gen, hq=T_HQ, hkv=T_HKV, d=T_D, *,
         flops = visits * hq * MATMULS[name] * 2 * T_BLOCK * T_BLOCK * d
         bms, by = bound_ms(rb, wb, flops, "bfloat16")
         ms = timer(call, reps=20)
-        times[name] = {"ms": ms, "plain_ms": timer(plain, reps=20),
+        times[name] = {"ms": ms, "plain_ms": timer(plain, reps=plain_reps)
+                       if plain_reps else None, "plain_reps": plain_reps,
                        "library_ms": timer(lib[name], reps=20),
                        "bound_ms": bms, "bound_by": by, "flops": flops,
                        "bytes": rb + wb, "visits": visits,
@@ -2450,7 +2489,7 @@ def dp_full_phase(torch) -> dict:
     d_loss = abs(r0["losses"][0] - one["loss"]) / abs(one["loss"])
     d_norm = abs(r0["grad_norms"][0] - one["grad_norm"]) / one["grad_norm"]
     L = cfg.num_layers
-    want = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    want = doc_launches(L)
     emit("dp_full", arch=ARCH, params=cfg.param_count(), layers=L,
          mesh=list(DP_FULL_MESH), backend=backend,
          exchange=("gloo through host memory, not NVLink"
@@ -2610,9 +2649,9 @@ def serve_sharded_phase(torch, serving) -> dict:
     segments' other accumulation order moves a rounding of the attention
     output, as the flash kernel does against the dense oracle).  Random
     weights leave near-tied logits that such a rounding flips, so the
-    served runs are gated in f32: greedy tokens equal to the one-shard
-    run's, and ``flash_decode`` launched decode steps x 30 x shards
-    times."""
+    served runs (SHARD_REQUESTS of the requests) are gated in f32:
+    greedy tokens equal to the one-shard run's, and ``flash_decode``
+    launched decode steps x 30 x shards times."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import decode_step
@@ -2643,7 +2682,7 @@ def serve_sharded_phase(torch, serving) -> dict:
 
     c32 = dataclasses.replace(cfg, dtype="float32")
     params = _widen(base.params)
-    prompts = requests(cfg)
+    prompts = requests(cfg, n=SHARD_REQUESTS)
     out, tokens = {}, {}
     for shards in (1, *SHARDS):
         eng, res, launches, wall, peak = serve_run(
@@ -2960,9 +2999,8 @@ def moe_train_phase(torch) -> dict:
     import math
     from repro_torch.configs import RunConfig, get_config
     from repro_torch.data.pipeline import make_batch
-    from repro_torch.launch.steps import batch_to_device, build_train_step
+    from repro_torch.launch.steps import batch_to_device
     from repro_torch.models import init_params
-    from repro_torch.optim import global_norm
 
     cfg = dataclasses.replace(get_config(MOE_ARCH),
                               num_layers=MOE_TRAIN_LAYERS)
@@ -2976,9 +3014,7 @@ def moe_train_phase(torch) -> dict:
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     L = MOE_TRAIN_LAYERS
-    want = {"flash_fwd": MOE_TRAIN_STEPS * L * 2,
-            "flash_bwd_dq": MOE_TRAIN_STEPS * L,
-            "flash_bwd_dkv": MOE_TRAIN_STEPS * L}
+    want = doc_launches(L, MOE_TRAIN_STEPS)
     mean_s = statistics.mean(res["step_s"][1:])
     out = {"arch": MOE_ARCH, "layers": L, "params": cfg.param_count(),
            "active_params": cfg.active_param_count(), "seq_len": SEQ,
@@ -2995,24 +3031,11 @@ def moe_train_phase(torch) -> dict:
     torch.cuda.empty_cache()
     params = init_params(cfg, seed=0, device="cuda")
     batch = batch_to_device(make_batch(pipe, 0), "cuda")
-    got = {}
-    for impl in ("flash", "plain"):
-        run = RunConfig(arch=MOE_ARCH, cp_strategy="flashcp",
-                        attention_impl=impl, kernel_grid="flat", seed=0)
-        fn = build_train_step(cfg, run, q_chunk=512, device="cuda")
-        (loss, _), grads = fn.loss_and_grads(params, batch)
-        got[impl] = {"loss": float(loss), "grad_norm": float(
-            global_norm(grads))}
-        del grads
-        torch.cuda.empty_cache()
-    d_loss = abs(got["flash"]["loss"] - got["plain"]["loss"]) \
-        / abs(got["plain"]["loss"])
-    d_norm = abs(got["flash"]["grad_norm"] - got["plain"]["grad_norm"]) \
-        / got["plain"]["grad_norm"]
-    out["step0_flash_vs_plain"] = {**got, "loss_rel_diff": d_loss,
-                                   "grad_norm_rel_diff": d_norm,
-                                   "loss_tol": STEP_LOSS_TOL,
-                                   "grad_norm_tol": STEP_GNORM_TOL}
+    run = RunConfig(arch=MOE_ARCH, cp_strategy="flashcp", kernel_grid="flat",
+                    seed=0)
+    par = flash_vs_plain(torch, cfg, run, params, batch)
+    del params, batch
+    out["step0_flash_vs_plain"] = par
     emit("moe_train", **out)
     if not all(math.isfinite(x) for x in
                out["losses"] + out["auxes"] + out["grad_norms"]):
@@ -3020,8 +3043,7 @@ def moe_train_phase(torch) -> dict:
     if any(launches[n] != want[n] for n in want):
         raise AssertionError(f"MoE training launches {launches}, want "
                              f"{want}")
-    if not (d_loss <= STEP_LOSS_TOL and d_norm <= STEP_GNORM_TOL):
-        raise AssertionError("MoE flash and plain steps disagree")
+    step_gate(MOE_ARCH, par, L)
     return out
 
 
@@ -3704,9 +3726,7 @@ def rec_cp_phase(torch) -> dict:
     world = REC_SMOKE_WORLD
     jcfg = reduce_for_smoke(get_config(JAMBA))
     L = attn_layers(jcfg)
-    jamba_want = {n: 0 for n in REPLACES} | {
-        "flash_fwd": 2 * L * world, "flash_bwd_dq": L * world,
-        "flash_bwd_dkv": L * world}
+    jamba_want = {n: 0 for n in REPLACES} | doc_launches(L, world)
     # (what, arch, smoke, layers, seq, cfg_kw), want launches, leaf bound
     cases = [(("jamba_smoke_cp", JAMBA, True, 0, REC_SMOKE_SEQ,
                {"capacity_factor": float(jcfg.num_experts) / jcfg.top_k}),
@@ -3797,10 +3817,7 @@ def jamba_smoke_phase(torch) -> dict:
                                      for p in leaves(res["params"])],
                      read_counts(), res["step_s"])
     L = attn_layers(cfg)
-    want = {n: 0 for n in REPLACES} | {
-        "flash_fwd": REC_SMOKE_STEPS * L * 2,
-        "flash_bwd_dq": REC_SMOKE_STEPS * L,
-        "flash_bwd_dkv": REC_SMOKE_STEPS * L}
+    want = {n: 0 for n in REPLACES} | doc_launches(L, REC_SMOKE_STEPS)
     d_loss = max(abs(a - b) / abs(b)
                  for a, b in zip(runs["cuda"][0], runs["cpu"][0]))
     d_par = max((a - b).abs().max().item()
@@ -4229,9 +4246,7 @@ def autotune_phase(torch, trained: dict) -> dict:
     from repro_torch.launch.train import main as train_main
 
     L = get_config(ARCH).num_layers
-    want = {"flash_fwd": AUTOTUNE_STEPS * L * 2,
-            "flash_bwd_dq": AUTOTUNE_STEPS * L,
-            "flash_bwd_dkv": AUTOTUNE_STEPS * L}
+    want = doc_launches(L, AUTOTUNE_STEPS)
     with tempfile.TemporaryDirectory() as cache:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -4315,8 +4330,7 @@ def train_phase(torch) -> dict:
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     L = cfg.num_layers
-    want = {"flash_fwd": STEPS * L * 2, "flash_bwd_dq": STEPS * L,
-            "flash_bwd_dkv": STEPS * L}
+    want = doc_launches(L, STEPS)
     visits = [visits_of(make_batch(res["pipeline"], s))
               for s in range(STEPS)]
     tokens = SEQ                       # processed per step (batch 1)
@@ -4354,34 +4368,14 @@ def train_phase(torch) -> dict:
 def step_parity_phase(torch, res) -> None:
     """One full-width step from the trained parameters and one batch,
     loss and gradients through the kernels vs the plain attention."""
-    import dataclasses
     from repro_torch.data.pipeline import make_batch
-    from repro_torch.launch.steps import batch_to_device, build_train_step
-    from repro_torch.optim import global_norm
+    from repro_torch.launch.steps import batch_to_device
 
     batch = batch_to_device(make_batch(res["pipeline"], STEPS + 1), "cuda")
-    got = {}
-    for impl in ("flash", "plain"):
-        run = dataclasses.replace(res["run"], attention_impl=impl)
-        fn = build_train_step(res["config"], run, q_chunk=512,
-                              device="cuda")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        (loss, _), grads = fn.loss_and_grads(res["params"], batch)
-        norm = float(global_norm(grads))
-        got[impl] = {"loss": float(loss), "grad_norm": norm,
-                     "seconds": time.perf_counter() - t0}
-        del grads
-        torch.cuda.empty_cache()
-    d_loss = abs(got["flash"]["loss"] - got["plain"]["loss"]) \
-        / abs(got["plain"]["loss"])
-    d_norm = abs(got["flash"]["grad_norm"] - got["plain"]["grad_norm"]) \
-        / got["plain"]["grad_norm"]
-    emit("train_step_flash_vs_plain", **got, loss_rel_diff=d_loss,
-         grad_norm_rel_diff=d_norm, loss_tol=STEP_LOSS_TOL,
-         grad_norm_tol=STEP_GNORM_TOL)
-    if not (d_loss <= STEP_LOSS_TOL and d_norm <= STEP_GNORM_TOL):
-        raise AssertionError("flash and plain training steps disagree")
+    par = flash_vs_plain(torch, res["config"], res["run"], res["params"],
+                         batch)
+    emit("train_step_flash_vs_plain", **par)
+    step_gate(ARCH, par, res["config"].num_layers)
 
 
 def step_audit_phase(torch, res) -> dict:
@@ -4409,7 +4403,7 @@ def step_audit_phase(torch, res) -> dict:
     seconds = time.perf_counter() - t0
     launches = read_counts()
     L = res["config"].num_layers
-    want = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    want = doc_launches(L)
     sites = sorted({s.render() for s in audit.sites})
     findings = audit_findings(audit.sites, "cuda")
     print(json.dumps({"phase": "step_audit_sites", "device": "cuda",
@@ -4703,11 +4697,13 @@ def frontend_inputs(cfg, perm, seed: int) -> dict:
             "patch_mask": valid & (perm < cfg.num_patch_tokens)}
 
 
-def decode_kernel_checks(torch, timer, gen, hq, hkv, d, tag) -> dict:
+def decode_kernel_checks(torch, timer, gen, hq, hkv, d, tag,
+                         prefix: str = "frontend") -> dict:
     """Both decode kernels at (hq, hkv, d) on the serving batch of B rows
     (lengths <= S_DENSE): f32 and bf16 against their plain versions and
-    split twins; bf16 times beside the bound, the plain version and one
-    SDPA call."""
+    split twins; with a ``timer``, bf16 times beside the bound, the plain
+    version and one SDPA call.  Lines ``{prefix}_decode_parity`` and
+    ``{prefix}_kernel_time``, the split plans on the parity line."""
     from repro_torch.core.merge import finalize_partial
     from repro_torch.kernels import flash_decode as fd
 
@@ -4721,7 +4717,7 @@ def decode_kernel_checks(torch, timer, gen, hq, hkv, d, tag) -> dict:
         ref = fd.decode_reference(q, k, v, ln)
         e_norm = _err(out, ref)
         e_part = _err(finalize_partial((o, m, l), torch.float32), ref)
-        dpps, _ = dense_split(torch, S_DENSE, hkv)
+        dpps, d_split = dense_split(torch, S_DENSE, hkv)
         tw = fd.decode_split_plain(q, k, v, ln, tile=fd.DENSE_TILE,
                                    pages_per_split=dpps, partial=True)
         e_dtwin = _err(finalize_partial((o, m, l), torch.float32),
@@ -4731,15 +4727,17 @@ def decode_kernel_checks(torch, timer, gen, hq, hkv, d, tag) -> dict:
         torch.cuda.synchronize()
         e_paged = _err(outp, fd.paged_decode_reference(
             qp, kp, vp, lp, tp, block_size=BLOCK))
-        pps, _ = paged_split(torch, tp, hkv)
+        pps, p_split = paged_split(torch, tp, hkv)
         e_ptwin = _err(outp, fd.paged_decode_split_plain(
             qp, kp, vp, lp, tp, block_size=BLOCK, pages_per_split=pps))
-        emit("frontend_decode_parity", arch=tag, heads=f"{hq}/{hkv}", d=d,
+        emit(f"{prefix}_decode_parity", arch=tag, heads=f"{hq}/{hkv}", d=d,
              dtype=name, tol=tol, flash_decode_err=e_norm,
              flash_decode_partial_err=e_part,
              flash_decode_vs_split_twin_err=e_dtwin,
              flash_decode_paged_err=e_paged,
-             flash_decode_paged_vs_split_twin_err=e_ptwin)
+             flash_decode_paged_vs_split_twin_err=e_ptwin,
+             dense_pages_per_split=dpps, dense_splits=d_split,
+             paged_pages_per_split=pps, paged_splits=p_split)
         if max(e_norm, e_part, e_dtwin, e_paged, e_ptwin) > tol:
             raise AssertionError(f"decode kernels at {hq}/{hkv} heads, D "
                                  f"{d}, {name}: parity failed")
@@ -4747,17 +4745,21 @@ def decode_kernel_checks(torch, timer, gen, hq, hkv, d, tag) -> dict:
                                   e_dtwin)
         err["flash_decode_paged"] = max(err["flash_decode_paged"], e_paged,
                                         e_ptwin)
-    return {"err": err, "times": decode_times(
+    return {"err": err, "times": timer and decode_times(
         torch, timer, gen, hq, hkv, d, normalized=False,
-        phase="frontend_kernel_time", arch=tag, heads=f"{hq}/{hkv}",
+        phase=f"{prefix}_kernel_time", arch=tag, heads=f"{hq}/{hkv}",
         head_dim=d)}
 
 
-def doc_kernel_checks(torch, timer, gen, hq, hkv, d, tag) -> dict:
+def doc_kernel_checks(torch, timer, gen, hq, hkv, d, tag,
+                      prefix: str = "frontend") -> dict:
     """The three doc kernels at (hq, hkv, d) on one SEQ-token wlb_llm
     sequence (blocks 128, flat tables): f32 and bf16 against their twins
-    on the batch with 300 padding tokens; bf16 times on the unpadded one
-    beside the bound, the twin and SDPA."""
+    on the batch with 300 padding tokens, the bf16 dK/dV also against
+    its group-split twin at the plan the wrapper picks; with a ``timer``,
+    bf16 times on the unpadded one beside the bound, the twin and SDPA.
+    Lines ``{prefix}_doc_parity`` and ``{prefix}_kernel_time``."""
+    from repro_torch.device import sm_count
     from repro_torch.kernels import doc_attention as da
 
     err = {n: 0.0 for n in DOC_KERNELS}
@@ -4784,14 +4786,23 @@ def doc_kernel_checks(torch, timer, gen, hq, hkv, d, tag) -> dict:
         pdk, pdv = da.flash_bwd_dkv_plain(q, k, v, do, plse, delta, *meta,
                                           rev_t, **kw)
         grads = {"dq": (dq, pdq), "dk": (dk, pdk), "dv": (dv, pdv)}
+        plan = None
+        if name == "bfloat16":
+            plan = da.dkv_split_plan(1, hkv, SEQ // T_BLOCK, hq // hkv,
+                                     T_BLOCK, sm_count(q.device))
+            sdk, sdv = da.flash_bwd_dkv_split_plain(
+                q, k, v, do, plse, delta, *meta, rev_t,
+                group_slices=plan[1], **kw)
+            grads.update({"dk_vs_split_twin": (dk, sdk),
+                          "dv_vs_split_twin": (dv, sdv)})
         rel = {n: _err(a, b) / max(b.float().abs().max().item(), 1e-30)
                for n, (a, b) in grads.items()}
         dkv_tol = DKV_BF16_TOL if name == "bfloat16" else tol
-        emit("frontend_doc_parity", arch=tag, heads=f"{hq}/{hkv}", d=d,
+        emit(f"{prefix}_doc_parity", arch=tag, heads=f"{hq}/{hkv}", d=d,
              dtype=name, tol=tol, dkv_tol=dkv_tol, o_err=e_o, lse_err=e_lse,
-             grad_rel_err=rel)
+             grad_rel_err=rel, dkv_split_plan=plan)
         if max(e_o, e_lse, rel["dq"]) > tol \
-                or max(rel["dk"], rel["dv"]) > dkv_tol:
+                or max(v for n, v in rel.items() if n != "dq") > dkv_tol:
             raise AssertionError(f"doc kernels at {hq}/{hkv} heads, D {d}, "
                                  f"{name}: parity failed")
         err["flash_fwd"] = max(err["flash_fwd"], e_o)
@@ -4799,8 +4810,8 @@ def doc_kernel_checks(torch, timer, gen, hq, hkv, d, tag) -> dict:
         err["flash_bwd_dkv"] = max(err["flash_bwd_dkv"], _err(dk, pdk),
                                    _err(dv, pdv))
         del q, k, v, do, o, po, dq, dk, dv, pdq, pdk, pdv, grads
-    return {"err": err, "times": doc_times(
-        torch, timer, gen, hq, hkv, d, phase="frontend_kernel_time",
+    return {"err": err, "plan": plan, "times": timer and doc_times(
+        torch, timer, gen, hq, hkv, d, phase=f"{prefix}_kernel_time",
         arch=tag, heads=f"{hq}/{hkv}", head_dim=d)}
 
 
@@ -4844,7 +4855,7 @@ def frontend_train_phase(torch, arch: str) -> dict:
                           batch_per_host=1, cp_size=1,
                           vocab_size=cfg.vocab_size, align=T_BLOCK,
                           emit_tables=True)
-    want = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    want = doc_launches(L)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, step_s, launches = [], [], []
@@ -4893,9 +4904,9 @@ def frontend_frames(cfg, prompts, seed: int):
 
 
 def frontend_serve_phase(torch, arch: str) -> dict:
-    """``arch`` at full width and depth serving the main path's 12
-    requests on 6 slots (the audio prompts with their own frames), paged
-    and dense: every request ok, the layout's decode kernel launched
+    """``arch`` at full width and depth serving FRONT_REQUESTS of the main
+    path's requests on 6 slots (the audio prompts with their own frames),
+    paged and dense: every request ok, the layout's decode kernel launched
     decode steps x layers times; paged vs dense identical requests
     reported; then the smoke-width f32 model on the card and on the CPU:
     the same greedy tokens on both layouts."""
@@ -4904,7 +4915,7 @@ def frontend_serve_phase(torch, arch: str) -> dict:
 
     cfg = get_config(arch)
     params = init_params(cfg, seed=0, device="cuda")
-    prompts = requests(cfg)
+    prompts = requests(cfg, n=FRONT_REQUESTS)
     frames = frontend_frames(cfg, prompts, seed=7)
     kw = dict(num_slots=6, prefill_chunk=128, block_size=16)
     tokens, out = {}, {}
@@ -5143,6 +5154,322 @@ def dispatch_phase(torch, pending: tuple) -> dict:
     return res
 
 
+# ----------------------------------------------------------------------- #
+# the configured archs no other phase runs, at full width
+# ----------------------------------------------------------------------- #
+def flash_vs_plain(torch, cfg, run, params, batch) -> dict:
+    """``loss_and_grads`` of one batch from ``params`` through the doc
+    kernels and through the plain attention (``q_chunk`` 512): each
+    loss, grad norm, seconds and launches, and their relative gaps."""
+    import dataclasses
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.optim import global_norm
+
+    got = {}
+    for impl in ("flash", "plain"):
+        fn = build_train_step(cfg, dataclasses.replace(
+            run, attention_impl=impl), q_chunk=512, device="cuda")
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        (loss, _), grads = fn.loss_and_grads(params, batch)
+        norm = float(global_norm(grads))
+        got[impl] = {"loss": float(loss), "grad_norm": norm,
+                     "seconds": time.perf_counter() - t0,
+                     "launches": read_counts()}
+        del grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    d_loss = abs(got["flash"]["loss"] - got["plain"]["loss"]) \
+        / abs(got["plain"]["loss"])
+    d_norm = abs(got["flash"]["grad_norm"] - got["plain"]["grad_norm"]) \
+        / got["plain"]["grad_norm"]
+    return {**got, "loss_rel_diff": d_loss, "grad_norm_rel_diff": d_norm,
+            "loss_tol": STEP_LOSS_TOL, "grad_norm_tol": STEP_GNORM_TOL,
+            "ok": d_loss <= STEP_LOSS_TOL and d_norm <= STEP_GNORM_TOL}
+
+
+def step_gate(arch: str, par: dict, layers: int) -> None:
+    """:func:`flash_vs_plain`'s gates: loss and grad norm within their
+    bounds, the kernel step's launches layers x (2, 1, 1), none in the
+    plain step."""
+    want = doc_launches(layers)
+    if not par["ok"]:
+        raise AssertionError(f"{arch}: flash and plain steps disagree")
+    if any(par["flash"]["launches"][n] != want[n] for n in want) \
+            or any(par["plain"]["launches"].values()):
+        raise AssertionError(f"{arch}: the steps launched "
+                             f"{par['flash']['launches']} (flash), "
+                             f"{par['plain']['launches']} (plain)")
+
+
+def doc_launches(layers: int, steps: int = 1) -> dict:
+    """Doc-kernel launches of ``steps`` training steps at one rank: the
+    forward twice a layer (remat), dQ and dK/dV once."""
+    return {"flash_fwd": 2 * layers * steps, "flash_bwd_dq": layers * steps,
+            "flash_bwd_dkv": layers * steps}
+
+
+def arch_cfg(arch: str):
+    """``arch`` at full width, depth cut to its ARCHS layers."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), num_layers=dict(
+        (a, n) for a, n, _ in ARCHS)[arch])
+
+
+def arch_heads(arch: str) -> tuple:
+    cfg = arch_cfg(arch)
+    return cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+
+def arch_kernels(torch) -> dict:
+    """All five kernels at the four archs' heads, D 128: f32 and bf16
+    against their plain versions and split twins, the bf16 dK/dV at the
+    group split the wrapper picks for one SEQ-token row, which must be
+    ARCHS' plan.  No timing: this part runs while other processes share
+    the card (:func:`arch_kernel_times` times the kernels)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2026)
+    out = {}
+    for arch, _, want_plan in ARCHS:
+        hq, hkv, d = arch_heads(arch)
+        out[arch] = {
+            "decode": decode_kernel_checks(torch, None, gen, hq, hkv, d,
+                                           arch, prefix="arch"),
+            "doc": doc_kernel_checks(torch, None, gen, hq, hkv, d, arch,
+                                     prefix="arch")}
+        plan = out[arch]["doc"]["plan"]
+        emit("arch_dkv_split_plan", arch=arch, heads=f"{hq}/{hkv}",
+             group=hq // hkv, tokens=SEQ, block=T_BLOCK, plan=plan,
+             expected=want_plan)
+        if tuple(plan) != want_plan:
+            raise AssertionError(f"{arch}: dK/dV split plan {plan}, want "
+                                 f"{want_plan}")
+    return out
+
+
+def arch_kernel_times(torch, timer) -> dict:
+    """bf16 times of the five kernels at the four archs' heads beside the
+    bound and SDPA (``arch_kernel_time`` lines).  The plain versions are
+    not timed here (``plain_reps`` 0 on the line): at 48-64 heads one
+    plain doc call takes hundreds of ms; they ran in the parity."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2027)
+    out = {}
+    for arch, _, _ in ARCHS:
+        hq, hkv, d = arch_heads(arch)
+        tag = dict(phase="arch_kernel_time", arch=arch, heads=f"{hq}/{hkv}",
+                   head_dim=d)
+        out[arch] = {**decode_times(torch, timer, gen, hq, hkv, d,
+                                    normalized=False, **tag),
+                     **doc_times(torch, timer, gen, hq, hkv, d,
+                                 plain_reps=0, **tag)}
+    return out
+
+
+def arch_train(torch, arch: str) -> dict:
+    """``arch`` through ``launch.train.train`` at full width, ARCHS'
+    depth, ARCH_STEPS steps of one SEQ-token wlb_llm sequence (seed 0,
+    flashcp at one rank, flat queue): finite losses, the TAB/WQ rules on
+    every step's tables, layers x (2, 1, 1) launches a step; then the next
+    batch from the trained parameters through the kernels and through
+    the plain attention within STEP_LOSS_TOL and STEP_GNORM_TOL."""
+    import math
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch.steps import batch_to_device
+
+    cfg = arch_cfg(arch)
+    L = cfg.num_layers
+    args = train_args("--arch", arch, "--layers", str(L), "--seq-len",
+                      str(SEQ), "--batch", "1", "--steps", str(ARCH_STEPS),
+                      "--device", "cuda", "--log-every", "100")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = train(args)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    want = doc_launches(L, ARCH_STEPS)
+    mean_s = statistics.mean(res["step_s"][1:])
+    out = {"arch": arch, "layers": L, "params": cfg.param_count(),
+           "heads": f"{cfg.num_heads}/{cfg.num_kv_heads}",
+           "seq_len": SEQ, "steps": ARCH_STEPS, "wall_s": wall,
+           "losses": res["losses"], "grad_norms": res["grad_norms"],
+           "step_s": res["step_s"], "step_s_after_first": mean_s,
+           "tokens_per_s": SEQ / mean_s,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches, "expected_launches": want}
+    emit("arch_train", card=card_line(), **out)
+    if not all(math.isfinite(x) for x in res["losses"] + res["grad_norms"]):
+        raise AssertionError(f"{arch}: non-finite training losses")
+    if any(launches[n] != want[n] for n in want):
+        raise AssertionError(f"{arch}: launches {launches}, want {want}")
+    table_gate(res["pipeline"], ARCH_STEPS)
+    res["opt_state"] = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = batch_to_device(make_batch(res["pipeline"], ARCH_STEPS), "cuda")
+    par = flash_vs_plain(torch, res["config"], res["run"], res["params"],
+                         batch)
+    emit("arch_step_flash_vs_plain", arch=arch, **par)
+    del res, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_gate(arch, par, L)
+    return {**out, "flash_vs_plain": par}
+
+
+def arch_grads(torch, arch: str) -> dict:
+    """``arch`` (an MoE family whose training state fits no card beside
+    its activations) at full width and ARCHS' depth: one
+    ``loss_and_grads`` of one SEQ-token wlb_llm sequence from seed-0
+    parameters through the kernels and through the plain attention, no
+    optimizer; loss and grad norm within STEP_LOSS_TOL and STEP_GNORM_TOL,
+    the kernel run's launches layers x (2, 1, 1), the routed pairs the
+    capacity drops counted."""
+    import math
+    from repro_torch.configs import RunConfig
+    from repro_torch.data.pipeline import PipelineConfig, make_batch
+    from repro_torch.launch.steps import batch_to_device
+    from repro_torch.models import init_params
+
+    cfg = arch_cfg(arch)
+    L = cfg.num_layers
+    params = init_params(cfg, seed=0, device="cuda")
+    pipe = PipelineConfig(dataset="wlb_llm", context_len=SEQ,
+                          batch_per_host=1, cp_size=1,
+                          vocab_size=cfg.vocab_size, align=T_BLOCK,
+                          emit_tables=True)
+    batch = batch_to_device(make_batch(pipe, 0), "cuda")
+    run = RunConfig(arch=arch, cp_strategy="flashcp", kernel_grid="flat",
+                    seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with DropCounter() as drops:
+        par = flash_vs_plain(torch, cfg, run, params, batch)
+    out = {"arch": arch, "layers": L, "params": cfg.param_count(),
+           "active_params": cfg.active_param_count(),
+           "heads": f"{cfg.num_heads}/{cfg.num_kv_heads}", "seq_len": SEQ,
+           "capacity_factor": cfg.capacity_factor,
+           "routed_pairs": drops.pairs,
+           "dropped_share": drops.dropped_share(),
+           "peak_bytes": torch.cuda.max_memory_allocated(), **par}
+    emit("arch_grads", card=card_line(), **out)
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(math.isfinite(par[i][k]) for i in ("flash", "plain")
+               for k in ("loss", "grad_norm")):
+        raise AssertionError(f"{arch}: non-finite loss or gradients")
+    step_gate(arch, par, L)
+    return out
+
+
+def arch_serve(torch, arch: str) -> dict:
+    """``arch`` at full width and ARCHS' depth serving ARCH_REQUESTS of
+    the main path's requests on 6 slots, ARCH_GEN greedy tokens each,
+    paged and then dense: every request ok, the layout's decode kernel
+    launched decode steps x attention layers times, the SRV rules; the
+    paged and dense tokens compared (printed); one bf16 decode step from
+    the dense cache, flash vs the dense oracle, within
+    DECODE_STEP_BF16_TOL of the largest logit."""
+    from repro_torch.models import decode_step, init_params
+
+    cfg = arch_cfg(arch)
+    params = init_params(cfg, seed=0, device="cuda")
+    prompts = requests(cfg, n=ARCH_REQUESTS)
+    kw = dict(num_slots=6, prefill_chunk=128, block_size=16)
+    out, tokens = {"arch": arch}, {}
+    for layout, kernel in (("paged", "flash_decode_paged"),
+                           ("dense", "flash_decode")):
+        with DropCounter(rows=kw["num_slots"]) as drops:
+            eng, res, launches, wall, peak = serve_run(
+                torch, cfg, params, layout, prompts, ARCH_GEN, **kw)
+        want = eng.stats["decode_steps"] * attn_layers(cfg)
+        out[layout] = {"wall_s": wall, **eng.throughput(),
+                       "peak_bytes": peak, "launches": launches[kernel],
+                       "expected_launches": want,
+                       "decode_dropped_share": drops.dropped_share(),
+                       "latency": eng.latency_percentiles()}
+        emit("arch_serve", arch=arch, layout=layout, layers=cfg.num_layers,
+             requests=len(prompts), gen=ARCH_GEN, card=card_line(),
+             **out[layout])
+        if launches[kernel] != want or not want:
+            raise AssertionError(f"{arch} {layout}: {kernel} launched "
+                                 f"{launches[kernel]} times, want {want}")
+        serve_state_gate(eng, f"{arch}_serve_{layout}")
+        tokens[layout] = {r: e["tokens"] for r, e in res.items()}
+        if layout == "paged":
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+    out["identical_requests"] = sum(
+        int((tokens["paged"][r] == tokens["dense"][r]).all())
+        for r in tokens["paged"])
+    emit("arch_paged_vs_dense_tokens", arch=arch,
+         identical_requests=out["identical_requests"], of=len(prompts))
+
+    gen_t = torch.Generator(device="cuda")
+    gen_t.manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (6,), generator=gen_t,
+                         device="cuda")
+    pos = torch.tensor([255, 400, 600, 800, 1000, max(map(len, prompts))
+                        + ARCH_GEN - 2], dtype=torch.int32, device="cuda")
+    logits = {}
+    for impl in ("flash", "dense"):
+        cache = {j: {n: t.clone() for n, t in sub.items()}
+                 for j, sub in eng.cache.items()}
+        logits[impl] = decode_step(params, cfg, cache, {"tokens": toks},
+                                   pos, attn_impl=impl)[0].float()
+        del cache
+    diff = (logits["flash"] - logits["dense"]).abs().max().item()
+    scale = logits["dense"].abs().max().item()
+    out["decode_step"] = {"max_abs_diff": diff, "max_abs_logit": scale,
+                          "limit": DECODE_STEP_BF16_TOL * scale}
+    emit("arch_decode_step_flash_vs_dense", arch=arch, **out["decode_step"])
+    del eng, params, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not diff <= DECODE_STEP_BF16_TOL * scale:
+        raise AssertionError(f"{arch}: flash and dense decode steps "
+                             "disagree")
+    return out
+
+
+def arch_parts(torch, parts) -> dict:
+    """Each ``(name, fn, *args)`` of ``parts`` as ``fn(torch, *args)``,
+    its wall time on an ``arch_part_seconds`` line."""
+    out = {}
+    for name, fn, *args in parts:
+        t0 = time.perf_counter()
+        out[name] = fn(torch, *args)
+        emit("arch_part_seconds", part=name,
+             seconds=time.perf_counter() - t0)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def archs_checks_phase(torch) -> dict:
+    """The four configured archs no other phase runs (ARCHS), first half:
+    all five kernels at their heads against their plain versions, and
+    each served at full width.  Nothing here is timed against a bound,
+    so it runs while the dispatch phase's ranks share the card."""
+    return arch_parts(torch, [("kernels", arch_kernels)] + [
+        (f"{arch}_serve", arch_serve, arch) for arch, _, _ in ARCHS])
+
+
+def archs_phase(torch, timer) -> dict:
+    """The four archs, second half, with the card to itself: the kernels'
+    times at their heads, then each trained at full width (dbrx_132b:
+    one ``loss_and_grads``, its optimizer state fits no card)."""
+    return arch_parts(torch, [("kernel_times", arch_kernel_times, timer)] + [
+        (f"{arch}_train", arch_grads if arch == ARCH_NO_OPT else arch_train,
+         arch) for arch, _, _ in ARCHS])
+
+
 def timed(fn, *args):
     """``fn(*args)``, its wall time emitted as a ``phase_seconds`` line."""
     t0 = time.perf_counter()
@@ -5253,15 +5580,16 @@ def main() -> int:
         timed(xlstm_train_phase, torch)
         gc.collect()
         torch.cuda.empty_cache()
+        # timed kernels, before the pool's ranks share the card
+        timed(frontend_kernels_phase, torch, timer)
+        gc.collect()
+        torch.cuda.empty_cache()
         timed(rec_cp_phase, torch)
         gc.collect()
         torch.cuda.empty_cache()
-        timed(xlstm_serve_phase, torch)
-        gc.collect()
-        torch.cuda.empty_cache()
-        timed(frontend_kernels_phase, torch, timer)
         # the dispatch phase's 2x2 ranks run on the pool meanwhile
         pending = dispatch_start(torch)
+        timed(xlstm_serve_phase, torch)
         for arch, _, _ in FRONT_HEADS:
             gc.collect()
             torch.cuda.empty_cache()
@@ -5271,8 +5599,15 @@ def main() -> int:
             timed(frontend_serve_phase, torch, arch)
         gc.collect()
         torch.cuda.empty_cache()
+        # so do the four archs' kernel checks and serving
+        timed(archs_checks_phase, torch)
+        gc.collect()
+        torch.cuda.empty_cache()
         timed(dispatch_phase, torch, pending)
         del pending
+        gc.collect()
+        torch.cuda.empty_cache()
+        timed(archs_phase, torch, timer)
         errs = {**kern["err"], **doc["err"]}
         times = {**kern["times"], **doc["times"]}
         for name in REPLACES:

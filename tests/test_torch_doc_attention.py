@@ -164,6 +164,12 @@ KCASES = {
     "G3": (1, 6, 2, 96, 96, 32, 32, 16, 3, 0, 7, "f32"),
     "empty_rows": (1, 3, 1, 64, 64, 16, 16, 16, 3, 20, 0, "f32"),
     "bf16": (2, 4, 2, 64, 128, 16, 16, 16, 4, 3, 5, "bf16"),
+    # the groups of dbrx_132b (6), qwen3_32b (8), starcoder2_7b (9) and
+    # granite_34b (48, MQA)
+    "G6": (1, 6, 1, 48, 64, 16, 16, 16, 3, 2, 3, "f32"),
+    "G8_bf16": (1, 16, 2, 64, 64, 16, 16, 16, 3, 3, 0, "bf16"),
+    "G9": (1, 18, 2, 64, 64, 16, 16, 16, 4, 0, 5, "f32"),
+    "G48": (1, 48, 1, 32, 64, 16, 16, 16, 3, 2, 2, "f32"),
 }
 
 
@@ -229,14 +235,17 @@ def test_kernel_twins_match_pallas(case, grid):
 
 @pytest.mark.parametrize("case,slices", [("G2_bq_ne_bk", 2),
                                          ("G2_bq_ne_bk", 3), ("G3", 2),
-                                         ("G3", 3), ("bf16", 2)])
+                                         ("G3", 3), ("bf16", 2), ("G6", 2),
+                                         ("G8_bf16", 2), ("G9", 3),
+                                         ("G48", 12)])
 @pytest.mark.parametrize("grid", ["flat", "rect"])
 def test_dkv_split_plain_matches_pallas(case, slices, grid):
     """The bf16 dK/dV kernel's group split in plain form (each slice's
     f32 partial over its heads, the slices summed in order) against the
     Pallas flash_bwd_dkv: uneven slices (G 3 in 2), an empty slice (G 2
-    in 3) and one head per slice.  Tolerances as the twins': f32 5e-4,
-    bf16 3e-2."""
+    in 3), one head per slice, and the configured archs' plans at 8192
+    tokens (G 6 and 8 in 2, 9 in 3, 48 in 12).  Tolerances as the twins':
+    f32 5e-4, bf16 3e-2."""
     meta, (q, k, v, do), tabs, bq, bk, _, tol_b = _kernel_inputs(case)
     jm = tuple(jnp.asarray(a) for a in meta)
     tm = tuple(_t(a) for a in meta)
@@ -256,16 +265,30 @@ def test_dkv_split_plain_matches_pallas(case, slices, grid):
     np.testing.assert_allclose(_f32(tdv), _f32(jdv), atol=tol_b, rtol=0)
 
 
+# the plan at one 8192-token row of 128-token blocks on 132 SMs, for the
+# main path's heads and the configured archs' (Hkv, G)
+PINNED_PLANS = {(1, 2, 64, 12, 128): (1, 6),     # starcoder2_3b
+                (1, 8, 64, 8, 128): (1, 2),      # qwen3_32b
+                (1, 1, 64, 48, 128): (1, 12),    # granite_34b
+                (1, 4, 64, 9, 128): (1, 3),      # starcoder2_7b
+                (1, 8, 64, 6, 128): (1, 2)}      # dbrx_132b
+
+
 @pytest.mark.parametrize("B,Hkv,rows,G,bk", [(1, 2, 64, 12, 128),
                                              (2, 2, 8, 3, 64),
                                              (8, 8, 64, 4, 128),
                                              (1, 1, 4, 1, 32),
-                                             (1, 2, 6, 12, 96)])
+                                             (1, 2, 6, 12, 96),
+                                             (1, 8, 64, 8, 128),
+                                             (1, 1, 64, 48, 128),
+                                             (1, 4, 64, 9, 128),
+                                             (1, 8, 64, 6, 128)])
 def test_dkv_split_plan_divides_rows_and_group(B, Hkv, rows, G, bk):
     """Key parts of 16-key warps that divide block_k; group slices a
     divisor of G, the fewest that give DKV_CTAS_PER_SM CTAs per SM (or
-    G).  At the training shape (one 8192-token row, Hkv 2, G 12, blocks
-    128) the group splits 6 ways."""
+    G).  At one 8192-token row of 128-token blocks the group splits 6
+    ways at the training heads (Hkv 2, G 12), and 2, 12, 3 and 2 ways at
+    qwen3_32b's, granite_34b's, starcoder2_7b's and dbrx_132b's."""
     parts, slices = tda.dkv_split_plan(B, Hkv, rows, G, bk, sms=132)
     assert parts >= 1 and bk % (16 * parts) == 0
     assert slices >= 1 and G % slices == 0
@@ -274,9 +297,9 @@ def test_dkv_split_plan_divides_rows_and_group(B, Hkv, rows, G, bk):
     assert ctas * slices >= target or slices == G
     smaller = [d for d in range(1, slices) if G % d == 0]
     assert all(ctas * d < target for d in smaller)
-    if (B, Hkv, rows, G, bk) == (1, 2, 64, 12, 128) \
+    if (B, Hkv, rows, G, bk) in PINNED_PLANS \
             and tda.DKV_KEY_PARTS == 1 and tda.DKV_CTAS_PER_SM == 4:
-        assert (parts, slices) == (1, 6)
+        assert (parts, slices) == PINNED_PLANS[B, Hkv, rows, G, bk]
 
 
 def test_wrappers_raise_on_mixed_devices_and_bad_grid():

@@ -6,18 +6,19 @@ machine with one (the H100 the port targets):
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
 Shapes sweep what ``chip_smoke.py`` does not.  Decode kernels (both
-split-KV): MHA (G 1) and wide groups (G 8, 12, 48), head dims 64 and
-128, cache lengths that are not a multiple of the tile, shard slices
+split-KV): MHA (G 1) and wide groups (G 6, 8, 9, 12, 48), head dims 64
+and 128, cache lengths that are not a multiple of the tile, shard slices
 (strided views), block sizes 8 and 32, against the oracles and the
 split twins, and the inputs the kernels refuse; tolerances f32 1e-5 (the
 same arithmetic in another summation order), bf16 2e-2 on the normalized
 output (bf16 rounding of the output and of p before PV).  Doc-attention
 training kernels (flash_fwd, flash_bwd_dq, flash_bwd_dkv) against their
-twins: G 1/2/3/12, D 64/128, blocks 32/48/64/128, flat and rect, padded
-documents and all-empty rows; tolerances in ``DOC_TOL`` and, for the
-bf16 dQ and dK/dV, ``DQ_BF16_TOL`` and ``DKV_BF16_TOL``; one CP hop's
-shape (Tq != Tk, the keys' own doc/pos, the partial op with an lse
-cotangent); and the bf16 head dims the tensor-core kernels refuse.
+twins: G 1/2/3/6/8/9/12/48, D 64/128, blocks 32/48/64/128, flat and
+rect, padded documents and all-empty rows; tolerances in ``DOC_TOL``
+and, for the bf16 dQ and dK/dV, ``DQ_BF16_TOL`` and ``DKV_BF16_TOL``;
+one CP hop's shape (Tq != Tk, the keys' own doc/pos, the partial op
+with an lse cotangent); and the bf16 head dims the tensor-core kernels
+refuse.
 """
 
 import pytest
@@ -78,9 +79,12 @@ def _check_dense(q, k, v, ln, tol):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Hq,Hkv,D,S", [(4, 4, 64, 77), (16, 2, 128, 300),
                                         (24, 2, 128, 1056), (8, 1, 64, 33),
-                                        (12, 1, 128, 300), (48, 1, 128, 77)])
+                                        (12, 1, 128, 300), (48, 1, 128, 77),
+                                        (48, 8, 128, 1040),
+                                        (36, 4, 128, 300)])
 def test_dense_kernel_matches_plain(gen, dtype, Hq, Hkv, D, S):
-    """G 1, 8, 12 and 48 (MQA), S a multiple of the tile or not."""
+    """G 1, 6 (dbrx_132b's heads), 8, 9 (starcoder2_7b's), 12 and 48
+    (MQA), S a multiple of the tile or not."""
     B = 5
     q = _randn(gen, (B, Hq, D), dtype)
     k = _randn(gen, (B, Hkv, S, D), dtype)
@@ -140,11 +144,12 @@ def test_paged_kernel_matches_plain(gen, dtype, bs, G):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bs", [8, 16, 32])
-@pytest.mark.parametrize("G", [1, 8, 12, 48])
+@pytest.mark.parametrize("G", [1, 6, 8, 9, 12, 48])
 def test_paged_split_kernel_matches_plain(gen, dtype, bs, G):
     """The split-KV kernel over long tables (many splits, splits past the
     shorter lengths, a shared prefix, lengths -1 and 0), G up to 48
-    (MQA), against the gather oracle and the split twin."""
+    (MQA), the odd 9 among them, against the gather oracle and the split
+    twin."""
     B, Hkv, D, nk = 5, 2 if G < 48 else 1, 128, 70
     nb = B * nk + 3
     kp = _randn(gen, (Hkv, nb * bs, D), dtype)
@@ -254,6 +259,12 @@ def _maxerr(a, b):
     (4, 1, 128, 128, 64, 384, 384),      # all rows empty
     (4, 2, 64, 48, 64, 384, 20),         # block_q 48: 16-row dK/dV units
     (4, 2, 128, 64, 32, 256, 10),        # block_k 32: the smallest sub-tile
+    # the configured archs' heads at 2 x 4096 tokens, where the bf16
+    # dK/dV splits the group as at one 8192-token row: 2, 12, 3, 2 slices
+    (64, 8, 128, 128, 128, 4096, 0),     # qwen3_32b, G 8
+    (48, 1, 128, 128, 128, 4096, 0),     # granite_34b, G 48 (MQA)
+    (36, 4, 128, 128, 128, 4096, 0),     # starcoder2_7b, G 9
+    (48, 8, 128, 128, 128, 4096, 0),     # dbrx_132b, G 6
 ])
 def test_doc_kernels_match_twins(gen, grid, dtype, Hq, Hkv, D, bq, bk, T,
                                  pad):

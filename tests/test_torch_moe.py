@@ -252,6 +252,51 @@ def test_smoke_olmoe_loss_and_grads_match_jax(cf):
     np.testing.assert_allclose(hl.item(), tl.item(), rtol=TOL)
 
 
+@pytest.mark.parametrize("impl", ["plain", "flash"])
+def test_smoke_dbrx_loss_and_grads_match_jax(impl):
+    """dbrx_132b's MoE stack at its own GQA group (6: Hq 12 over Hkv 2,
+    D 16, which reduce_for_smoke cuts to 4 / 2), its 16 experts and
+    top-4, its capacity factor (1.25: tokens clipped), 4 smoke layers:
+    loss, aux and gradients against the reference through the plain
+    attention (its XLA oracle) and the kernels' twins (its Pallas
+    kernels in interpret mode), at the olmoe test's bounds."""
+    def cfg(mod):
+        c = mod.get_config("dbrx_132b")
+        return dataclasses.replace(mod.reduce_for_smoke(c), num_heads=12,
+                                   num_kv_heads=2,
+                                   num_experts=c.num_experts,
+                                   top_k=c.top_k)
+    jc, tc = cfg(jcfgs), cfg(tcfgs)
+    jp = jinit(jax.random.PRNGKey(0), jc)
+    tp = params_from_numpy(_np_tree(jp), device="cpu")
+    flash = impl == "flash"
+    batch = _batch(jc)
+    jb = {k: jnp.asarray(batch[k]) for k in ("tokens", "labels")}
+    ctx = jctx(jnp.asarray(batch["doc"]), jnp.asarray(batch["pos"]),
+               attention_impl="pallas" if flash else "xla", interpret=True,
+               q_chunk=64, grid="flat")
+    (jl, jm), jg = jax.value_and_grad(
+        lambda p: jtm.loss_fn(p, jc, ctx, jb, remat=True), has_aux=True)(jp)
+    tb = batch_to_device(batch, "cpu")
+    tctx = make_local_context(tb["doc"], tb["pos"], attention_impl=impl,
+                              q_chunk=64, grid="flat")
+    names = sorted(_flat(tp))
+    leaves = dict(zip(names, _leaves(tp)))
+    for t in leaves.values():
+        t.requires_grad_(True)
+    tl, tmet = tm.loss_fn(tp, tc, tctx, tb, remat=True)
+    tg = torch.autograd.grad(tl, list(leaves.values()))
+    assert (tc.num_heads // tc.num_kv_heads, tc.num_experts, tc.top_k) \
+        == (6, 16, 4)
+    np.testing.assert_allclose(tl.item(), float(jl), rtol=TOL)
+    np.testing.assert_allclose(tmet["ce"].item(), float(jm["ce"]), rtol=TOL)
+    np.testing.assert_allclose(tmet["aux"].item(), float(jm["aux"]),
+                               rtol=TOL)
+    want = _flat(_np_tree(jg))
+    for name, g in zip(names, tg):
+        _close(g, want[name], 1e-4, name)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _leaves(tree[k])]

@@ -17,6 +17,7 @@ kernels' twins (CPU tensors).  Tolerances, with their reasons:
   everything else agrees to ~1e-7.
 """
 
+import dataclasses
 import functools
 import math
 
@@ -69,9 +70,19 @@ def _flat(tree, prefix=""):
     return {prefix[:-1]: np.asarray(tree).astype(np.float32)}
 
 
-def _models(arch, seed=0):
+# smoke configs that keep an arch's GQA group, which reduce_for_smoke
+# cuts (48 / 1 to 4 / 1, 36 / 4 and 64 / 8 to 4 / 2): (Hkv, Hq) at D 16
+ARCH_GROUPS = {"granite_34b": (1, 48), "starcoder2_7b": (2, 18),
+               "qwen3_32b": (2, 16)}
+
+
+def _models(arch, seed=0, group=False):
     jc = jcfgs.reduce_for_smoke(jcfgs.get_config(arch))
     tc = tcfgs.reduce_for_smoke(tcfgs.get_config(arch))
+    if group:
+        hkv, hq = ARCH_GROUPS[arch]
+        jc, tc = (dataclasses.replace(c, num_heads=hq, num_kv_heads=hkv)
+                  for c in (jc, tc))
     jp = jinit(jax.random.PRNGKey(seed), jc)
     return jc, tc, jp, params_from_numpy(_np_tree(jp), device="cpu")
 
@@ -148,11 +159,17 @@ def test_make_batch_refuses_cp_and_unknown_strategy():
 # --------------------------------------------------------------------- #
 # loss and gradients
 # --------------------------------------------------------------------- #
-@pytest.mark.parametrize("arch,impl", [
-    ("starcoder2_3b", "plain"), ("starcoder2_3b", "flash"),
-    ("qwen3_32b", "plain"), ("qwen3_32b", "flash")])
-def test_loss_and_grads_match_jax(arch, impl):
-    jc, tc, jp, tp = _models(arch)
+@pytest.mark.parametrize("arch,impl,group", [
+    pytest.param(a, i, g, id=f"{a}-G{ARCH_GROUPS[a][1] // ARCH_GROUPS[a][0]}"
+                 f"-{i}" if g else f"{a}-{i}")
+    for a, g in (("starcoder2_3b", False), ("qwen3_32b", False),
+                 ("granite_34b", True), ("starcoder2_7b", True),
+                 ("qwen3_32b", True))
+    for i in ("plain", "flash")])
+def test_loss_and_grads_match_jax(arch, impl, group):
+    """Smoke models (4 layers, D 16), the last three at their arch's GQA
+    group (``ARCH_GROUPS``: 48, 9, 8)."""
+    jc, tc, jp, tp = _models(arch, group=group)
     flash = impl == "flash"
     batch = jbatch(JPipe(**_pipe_kw(jc, False)), 2)
     doc, pos = batch["doc"], batch["pos"]
