@@ -58,6 +58,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.device import sm_count
 from repro_torch.table_layout import GRID_TABLE_HALF
 
@@ -896,8 +897,9 @@ def flash_fwd(q, k, v, q_doc, q_pos, kv_doc, kv_pos, tables, *,
                          "it must be positive")
     out = torch.empty_like(q)
     lse = torch.empty((B, Hq, Tq), dtype=torch.float32, device=q.device)
-    _launch("fwd", "flash_fwd", q, k, v, q_doc, q_pos, kv_doc, kv_pos,
-            tables, grid, block_q, block_k, scale, (out, lse))
+    with obs.span("doc_attention.fwd"):
+        _launch("fwd", "flash_fwd", q, k, v, q_doc, q_pos, kv_doc, kv_pos,
+                tables, grid, block_q, block_k, scale, (out, lse))
     flash_fwd.launches += 1
     return out, lse
 
@@ -918,9 +920,10 @@ def flash_bwd_dq(q, k, v, do, lse, delta, q_doc, q_pos, kv_doc, kv_pos,
                                   block_q=block_q, block_k=block_k,
                                   grid=grid)
     dq = torch.empty_like(q)
-    _launch("dq", "flash_bwd_dq", q, k, v, q_doc, q_pos, kv_doc, kv_pos,
-            tables, grid, block_q, block_k, scale, (dq,), do=do, lse=lse,
-            delta=delta)
+    with obs.span("doc_attention.dq"):
+        _launch("dq", "flash_bwd_dq", q, k, v, q_doc, q_pos, kv_doc, kv_pos,
+                tables, grid, block_q, block_k, scale, (dq,), do=do,
+                lse=lse, delta=delta)
     flash_bwd_dq.launches += 1
     return dq
 
@@ -943,9 +946,10 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, q_doc, q_pos, kv_doc, kv_pos,
                                    grid=grid)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _launch("dkv", "flash_bwd_dkv", q, k, v, q_doc, q_pos, kv_doc, kv_pos,
-            tables, grid, block_q, block_k, scale, (dk, dv), do=do, lse=lse,
-            delta=delta)
+    with obs.span("doc_attention.dkv"):
+        _launch("dkv", "flash_bwd_dkv", q, k, v, q_doc, q_pos, kv_doc,
+                kv_pos, tables, grid, block_q, block_k, scale, (dk, dv),
+                do=do, lse=lse, delta=delta)
     flash_bwd_dkv.launches += 1
     return dk, dv
 

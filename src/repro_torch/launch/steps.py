@@ -39,6 +39,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.comm import all_reduce_
 from repro_torch.core.cp_attention import make_cp_context
@@ -73,8 +74,9 @@ def batch_to_device(batch: dict[str, Any], device) -> dict[str, Any]:
     """The pipeline's numpy batch as tensors on ``device`` (``perm`` and
     ``stats`` are host-side and dropped)."""
     dev = resolve_device(device)
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-            for k, v in batch.items() if k not in ("stats", "perm")}
+    with obs.span("batch_to_device"):
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                for k, v in batch.items() if k not in ("stats", "perm")}
 
 
 def _plan_keys(batch):
@@ -149,7 +151,7 @@ def build_train_step(cfg: ModelConfig, run: RunConfig, *, q_chunk: int = 512,
     and ``apply_grads(params, opt_state, grads, step)``, the rest of the
     step.
     """
-    resolve_device(device)
+    cuda = resolve_device(device).type == "cuda"
     exec_strategy = exec_style_of(effective_strategy(cfg, run.cp_strategy))
     groups = 1 if zero is None else math.prod(
         zero.axes[a] for a in batch_axes_of(zero.axes))
@@ -182,8 +184,9 @@ def build_train_step(cfg: ModelConfig, run: RunConfig, *, q_chunk: int = 512,
         if zero is not None:
             batch = rank_batch(batch, zero.axes, zero.coords)
             kw["gather"] = zero.gather
-        loss, metrics = loss_fn(params, cfg, _ctx_of(batch), batch,
-                                remat=run.remat, **kw)
+        with obs.span("step.forward", device=cuda):
+            loss, metrics = loss_fn(params, cfg, _ctx_of(batch), batch,
+                                    remat=run.remat, **kw)
         if zero is not None:
             # local mean -> local sum over the world's token count
             n_loc = torch.sum(batch["labels"] >= 0).float()
@@ -192,7 +195,8 @@ def build_train_step(cfg: ModelConfig, run: RunConfig, *, q_chunk: int = 512,
             weight = n_loc / torch.clamp(n_glob, min=1.0)
             loss = loss * weight
             metrics = {k: v * weight for k, v in metrics.items()}
-        grads = torch.autograd.grad(loss, flat)
+        with obs.span("step.backward", device=cuda):
+            grads = torch.autograd.grad(loss, flat)
         loss = loss.detach().clone()
         metrics = {k: v.detach() for k, v in metrics.items()}
         if zero is not None:
@@ -212,6 +216,10 @@ def build_train_step(cfg: ModelConfig, run: RunConfig, *, q_chunk: int = 512,
         return {k: sl(v) for k, v in batch.items()}
 
     def train_step(params, opt_state, batch, step):
+        with obs.span("step", step=step, device=cuda):
+            return _train_step(params, opt_state, batch, step)
+
+    def _train_step(params, opt_state, batch, step):
         if accum == 1:
             (loss, metrics), grads = loss_and_grads(params, batch)
         else:
@@ -245,16 +253,18 @@ def build_train_step(cfg: ModelConfig, run: RunConfig, *, q_chunk: int = 512,
         """The step's update from its gradients, in place: clip by the
         global norm (over every rank's shards), compress, the schedule's
         lr, AdamW.  Returns (grad norm before clipping, lr)."""
-        norm = None if zero is None else zero.global_norm(leaves(grads))
-        grads, gnorm = clip_by_global_norm(grads, run.grad_clip, norm=norm)
-        if run.grad_compression != "none":
-            grads, _ = compress_tree(grads, None, run.grad_compression,
-                                     layout=zero)
-        lr = warmup_cosine(step, base_lr=run.lr,
-                           warmup_steps=run.warmup_steps,
-                           total_steps=run.total_steps)
-        adamw_update(params, grads, opt_state, lr=lr,
-                     weight_decay=run.weight_decay)
+        with obs.span("step.optimizer", device=cuda):
+            norm = None if zero is None else zero.global_norm(leaves(grads))
+            grads, gnorm = clip_by_global_norm(grads, run.grad_clip,
+                                               norm=norm)
+            if run.grad_compression != "none":
+                grads, _ = compress_tree(grads, None, run.grad_compression,
+                                         layout=zero)
+            lr = warmup_cosine(step, base_lr=run.lr,
+                               warmup_steps=run.warmup_steps,
+                               total_steps=run.total_steps)
+            adamw_update(params, grads, opt_state, lr=lr,
+                         weight_decay=run.weight_decay)
         return gnorm, lr
 
     train_step.loss_and_grads = loss_and_grads

@@ -29,6 +29,7 @@ from collections import OrderedDict
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.kernels.doc_attention import build_block_tables
 from repro_torch.table_layout import FLAT_TABLE_NAMES
 
@@ -233,31 +234,32 @@ def encode_plan_batch(
     are encoded one after the other, each straight into its row of the
     stacked output.
     """
-    N = plans[0].num_workers
-    assert all(p.num_workers == N for p in plans)
+    with obs.span("encode"):
+        N = plans[0].num_workers
+        assert all(p.num_workers == N for p in plans)
 
-    hints = [plan_shape_hints(p, align=align) for p in plans]
-    need_t = max(h[0] for h in hints)
-    if t_loc is None:
-        t_loc = need_t
-    assert t_loc >= need_t, (t_loc, need_t)
-    if buf_len is None:
-        buf_len = max(h[1] for h in hints)
+        hints = [plan_shape_hints(p, align=align) for p in plans]
+        need_t = max(h[0] for h in hints)
+        if t_loc is None:
+            t_loc = need_t
+        assert t_loc >= need_t, (t_loc, need_t)
+        if buf_len is None:
+            buf_len = max(h[1] for h in hints)
 
-    B = len(plans)
-    C_pad = N * t_loc
-    stack = {
-        "perm": np.empty((B, C_pad), np.int64),
-        "doc": np.empty((B, C_pad), np.int32),
-        "pos": np.empty((B, C_pad), np.int32),
-        "send_idx": np.empty((B, N, buf_len), np.int32),
-        "gath_doc": np.empty((B, N * buf_len), np.int32),
-        "gath_pos": np.empty((B, N * buf_len), np.int32),
-    }
-    encs = [encode_plan(plans[b], buf_len=buf_len, t_loc=t_loc,
-                        _out={k: v[b] for k, v in stack.items()})
-            for b in range(B)]
-    return stack, encs
+        B = len(plans)
+        C_pad = N * t_loc
+        stack = {
+            "perm": np.empty((B, C_pad), np.int64),
+            "doc": np.empty((B, C_pad), np.int32),
+            "pos": np.empty((B, C_pad), np.int32),
+            "send_idx": np.empty((B, N, buf_len), np.int32),
+            "gath_doc": np.empty((B, N * buf_len), np.int32),
+            "gath_pos": np.empty((B, N * buf_len), np.int32),
+        }
+        encs = [encode_plan(plans[b], buf_len=buf_len, t_loc=t_loc,
+                            _out={k: v[b] for k, v in stack.items()})
+                for b in range(B)]
+        return stack, encs
 
 
 def _table_style(strategy: str) -> str:
@@ -377,98 +379,102 @@ def emit_visit_tables(
     pad to a pow2 bucket (``pad_to="bucket"``) or to the worst case of
     :func:`visit_table_shapes` (``"full"``).
     """
-    doc = np.ascontiguousarray(doc, np.int32)
-    pos = np.ascontiguousarray(pos, np.int32)
-    style = _table_style(strategy)
-    if grid not in ("rect", "flat", "both"):
-        raise ValueError(f"unknown table grid {grid!r}")
-    if style == "flashcp":
-        if gath_doc is None or gath_pos is None:
-            raise ValueError("flashcp tables need the Eq.5 buffer metadata")
-        gath_doc = np.ascontiguousarray(gath_doc, np.int32)
-        gath_pos = np.ascontiguousarray(gath_pos, np.int32)
-
-    key = None
-    if cache:
-        h = hashlib.blake2b(digest_size=16)
-        for a in (doc, pos, gath_doc, gath_pos):
-            h.update(b"|" if a is None else a.tobytes())
-        h.update(f"{num_workers}/{style}/{overlap}/{block_q}/{block_k}/"
-                 f"{pad_to}/{grid}".encode())
-        key = h.digest()
-        hit = _TABLE_CACHE.get(key)
-        if hit is not None:
-            _TABLE_CACHE.move_to_end(key)
-            return dict(hit)
-
-    B, C = doc.shape
-    N = num_workers
-    t_loc = C // N
-    ld = doc.reshape(B, N, t_loc)
-    lp = pos.reshape(B, N, t_loc)
-    kw = dict(block_q=block_q, block_k=block_k, pad_to=pad_to, grid=grid)
-
-    if overlap == "none":
+    with obs.span("tables"):
+        doc = np.ascontiguousarray(doc, np.int32)
+        pos = np.ascontiguousarray(pos, np.int32)
+        style = _table_style(strategy)
+        if grid not in ("rect", "flat", "both"):
+            raise ValueError(f"unknown table grid {grid!r}")
         if style == "flashcp":
-            L = gath_doc.shape[-1]
-            buf = L // N
-            gd = np.broadcast_to(gath_doc[:, None], (B, N, L)).copy()
-            seg = np.arange(L) // buf
-            gd[:, seg == np.arange(N)[:, None]] = -2     # self-masked
-            gp = np.broadcast_to(gath_pos[:, None], (B, N, L))
-            kd = np.concatenate([ld, gd], axis=-1)
-            kp = np.concatenate([lp, gp], axis=-1)
-        else:
-            kd = np.broadcast_to(doc[:, None], (B, N, C))
-            kp = np.broadcast_to(pos[:, None], (B, N, C))
-        out = {f"tab_{name}": a for name, a in
-               _build_group(ld, lp, kd, kp, (B, N), **kw).items()}
-    elif overlap == "chunked":
-        out = {f"tab_loc_{name}": a for name, a in
-               _build_group(ld, lp, ld, lp, (B, N), **kw).items()}
-        H = N - 1
-        if style == "flashcp":
-            L = gath_doc.shape[-1]
-            segs_d = gath_doc.reshape(B, N, L // N)
-            segs_p = gath_pos.reshape(B, N, L // N)
-        else:
-            segs_d, segs_p = ld, lp
-        src = (np.arange(N)[:, None] - 1
-               - np.arange(max(H, 1))[None, :]) % N     # (N, H)
-        hop_kd = segs_d[:, src][:, :, :H]               # (B, N, H, seg)
-        hop_kp = segs_p[:, src][:, :, :H]
-        hop_qd = np.broadcast_to(ld[:, :, None], (B, N, max(H, 1), t_loc)
-                                 )[:, :, :H]
-        hop_qp = np.broadcast_to(lp[:, :, None], (B, N, max(H, 1), t_loc)
-                                 )[:, :, :H]
-        if H > 0:
-            out.update({f"tab_hop_{name}": a for name, a in
-                        _build_group(hop_qd, hop_qp, hop_kd, hop_kp,
-                                     (B, N, H), **kw).items()})
-        else:
-            # zero-hop (N == 1) placeholders, width-matched to
-            # visit_table_shapes
-            nq = t_loc // block_q
-            nk = segs_d.shape[-1] // block_k
-            if grid in ("rect", "both"):
-                out.update({
-                    "tab_hop_kv_idx": np.zeros((B, N, 0, nq, nk), np.int32),
-                    "tab_hop_kv_nvis": np.zeros((B, N, 0, nq), np.int32),
-                    "tab_hop_q_idx": np.zeros((B, N, 0, nk, nq), np.int32),
-                    "tab_hop_q_nvis": np.zeros((B, N, 0, nk), np.int32),
-                })
-            if grid in ("flat", "both"):
-                out.update({f"tab_hop_{name}":
-                            np.zeros((B, N, 0, nq * nk), np.int32)
-                            for name in FLAT_TABLE_NAMES})
-    else:
-        raise ValueError(f"unknown overlap mode {overlap!r}")
+            if gath_doc is None or gath_pos is None:
+                raise ValueError("flashcp tables need the Eq.5 buffer "
+                                 "metadata")
+            gath_doc = np.ascontiguousarray(gath_doc, np.int32)
+            gath_pos = np.ascontiguousarray(gath_pos, np.int32)
 
-    if cache and key is not None:
-        _TABLE_CACHE[key] = dict(out)
-        while len(_TABLE_CACHE) > _TABLE_CACHE_MAX:
-            _TABLE_CACHE.popitem(last=False)
-    return out
+        key = None
+        if cache:
+            h = hashlib.blake2b(digest_size=16)
+            for a in (doc, pos, gath_doc, gath_pos):
+                h.update(b"|" if a is None else a.tobytes())
+            h.update(f"{num_workers}/{style}/{overlap}/{block_q}/{block_k}/"
+                     f"{pad_to}/{grid}".encode())
+            key = h.digest()
+            hit = _TABLE_CACHE.get(key)
+            if hit is not None:
+                _TABLE_CACHE.move_to_end(key)
+                return dict(hit)
+
+        B, C = doc.shape
+        N = num_workers
+        t_loc = C // N
+        ld = doc.reshape(B, N, t_loc)
+        lp = pos.reshape(B, N, t_loc)
+        kw = dict(block_q=block_q, block_k=block_k, pad_to=pad_to, grid=grid)
+
+        if overlap == "none":
+            if style == "flashcp":
+                L = gath_doc.shape[-1]
+                buf = L // N
+                gd = np.broadcast_to(gath_doc[:, None], (B, N, L)).copy()
+                seg = np.arange(L) // buf
+                gd[:, seg == np.arange(N)[:, None]] = -2     # self-masked
+                gp = np.broadcast_to(gath_pos[:, None], (B, N, L))
+                kd = np.concatenate([ld, gd], axis=-1)
+                kp = np.concatenate([lp, gp], axis=-1)
+            else:
+                kd = np.broadcast_to(doc[:, None], (B, N, C))
+                kp = np.broadcast_to(pos[:, None], (B, N, C))
+            out = {f"tab_{name}": a for name, a in
+                   _build_group(ld, lp, kd, kp, (B, N), **kw).items()}
+        elif overlap == "chunked":
+            out = {f"tab_loc_{name}": a for name, a in
+                   _build_group(ld, lp, ld, lp, (B, N), **kw).items()}
+            H = N - 1
+            if style == "flashcp":
+                L = gath_doc.shape[-1]
+                segs_d = gath_doc.reshape(B, N, L // N)
+                segs_p = gath_pos.reshape(B, N, L // N)
+            else:
+                segs_d, segs_p = ld, lp
+            src = (np.arange(N)[:, None] - 1
+                   - np.arange(max(H, 1))[None, :]) % N     # (N, H)
+            hop_kd = segs_d[:, src][:, :, :H]               # (B, N, H, seg)
+            hop_kp = segs_p[:, src][:, :, :H]
+            hop_qd = np.broadcast_to(ld[:, :, None], (B, N, max(H, 1), t_loc)
+                                     )[:, :, :H]
+            hop_qp = np.broadcast_to(lp[:, :, None], (B, N, max(H, 1), t_loc)
+                                     )[:, :, :H]
+            if H > 0:
+                out.update({f"tab_hop_{name}": a for name, a in
+                            _build_group(hop_qd, hop_qp, hop_kd, hop_kp,
+                                         (B, N, H), **kw).items()})
+            else:
+                # zero-hop (N == 1) placeholders, width-matched to
+                # visit_table_shapes
+                nq = t_loc // block_q
+                nk = segs_d.shape[-1] // block_k
+                if grid in ("rect", "both"):
+                    out.update({
+                        "tab_hop_kv_idx": np.zeros((B, N, 0, nq, nk),
+                                                   np.int32),
+                        "tab_hop_kv_nvis": np.zeros((B, N, 0, nq), np.int32),
+                        "tab_hop_q_idx": np.zeros((B, N, 0, nk, nq),
+                                                  np.int32),
+                        "tab_hop_q_nvis": np.zeros((B, N, 0, nk), np.int32),
+                    })
+                if grid in ("flat", "both"):
+                    out.update({f"tab_hop_{name}":
+                                np.zeros((B, N, 0, nq * nk), np.int32)
+                                for name in FLAT_TABLE_NAMES})
+        else:
+            raise ValueError(f"unknown overlap mode {overlap!r}")
+
+        if cache and key is not None:
+            _TABLE_CACHE[key] = dict(out)
+            while len(_TABLE_CACHE) > _TABLE_CACHE_MAX:
+                _TABLE_CACHE.popitem(last=False)
+        return out
 
 
 def _group_shapes(prefix: str, lead: tuple, nq: int, nk: int,

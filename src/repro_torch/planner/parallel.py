@@ -16,6 +16,8 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Sequence
 
+from repro_torch import obs
+
 __all__ = ["PlannerPool", "get_pool", "default_workers", "plan_many"]
 
 
@@ -62,4 +64,5 @@ def plan_many(plan_fn: Callable, lens_list: Sequence, *,
     auto-sizes."""
     if workers <= 0:
         workers = default_workers(len(lens_list))
-    return get_pool(workers).map(plan_fn, lens_list)
+    with obs.span("plan"):
+        return get_pool(workers).map(plan_fn, lens_list)
