@@ -1046,13 +1046,32 @@ def doc_kernel_phase(torch, timer, quick: bool) -> dict:
     geometry (Hq 24, Hkv 2, D 128, SEQ tokens, blocks 128): f32 and bf16
     on the flat grid with 300 padding tokens (two empty q-block rows and
     a part-empty one), f32 and bf16 on the rect grid (the grid the
-    autotuner may pick) under the flat grid's tolerances; then bf16
-    times."""
+    autotuner may pick) under the flat grid's tolerances; the bf16
+    forward once more at block_k 32, the shape class that keeps
+    ``fwd_mma_kernel``; then bf16 times.  Each line names the forward
+    kernel that ran (``flash_fwd.wgmma_launches`` around the call)."""
     from repro_torch.kernels import doc_attention as da
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4321)
     err = {n: 0.0 for n in DOC_KERNELS}
+
+    def fwd_parity(q, k, v, meta, tables, dtype, **kw):
+        """flash_fwd vs its plain version -> (o err, lse err, empty rows
+        exact, plain o, plain lse, the forward kernel that ran)."""
+        before = da.flash_fwd.wgmma_launches
+        o, lse = da.flash_fwd(q, k, v, *meta, tables, **kw)
+        torch.cuda.synchronize()
+        ran = "fwd_wgmma_kernel" if da.flash_fwd.wgmma_launches > before \
+            else "fwd_mma_kernel" if dtype == torch.bfloat16 else "fwd_kernel"
+        po, plse = da.flash_fwd_plain(q, k, v, *meta, tables, **kw)
+        empty = torch.isinf(plse)
+        fin = ~empty
+        e_lse = (lse[fin] - plse[fin]).abs().max().item()
+        empty_ok = bool(torch.equal(torch.isneginf(lse), empty)
+                        and (o[empty[..., None].expand_as(o)] == 0).all())
+        return _err(o, po), e_lse, empty_ok, po, plse, ran
+
     for name, grid, pad in (("float32", "flat", 300), ("bfloat16", "flat", 300),
                             ("float32", "rect", 0), ("bfloat16", "rect", 0)):
         dtype = getattr(torch, name)
@@ -1063,15 +1082,9 @@ def doc_kernel_phase(torch, timer, quick: bool) -> dict:
         q, k, v, do = doc_inputs(torch, gen, dtype)
         kw = dict(scale=T_D ** -0.5, block_q=T_BLOCK, block_k=T_BLOCK,
                   grid=grid)
-        o, lse = da.flash_fwd(q, k, v, *meta, fwd_t, **kw)
-        torch.cuda.synchronize()
-        po, plse = da.flash_fwd_plain(q, k, v, *meta, fwd_t, **kw)
+        e_o, e_lse, empty_ok, po, plse, ran = fwd_parity(
+            q, k, v, meta, fwd_t, dtype, **kw)
         empty = torch.isinf(plse)
-        fin = ~empty
-        e_o = _err(o, po)
-        e_lse = (lse[fin] - plse[fin]).abs().max().item()
-        empty_ok = bool(torch.equal(torch.isneginf(lse), empty)
-                        and (o[empty[..., None].expand_as(o)] == 0).all())
         delta = (do.float() * po.float()).sum(-1)
         dq = da.flash_bwd_dq(q, k, v, do, plse, delta, *meta, fwd_t, **kw)
         dk, dv = da.flash_bwd_dkv(q, k, v, do, plse, delta, *meta, rev_t,
@@ -1086,19 +1099,41 @@ def doc_kernel_phase(torch, timer, quick: bool) -> dict:
                for n, (a, b) in grads.items()}
         dkv_tol = DKV_BF16_TOL if name == "bfloat16" else tol
         emit("doc_kernel_parity", dtype=name, grid=grid, pad_tokens=pad,
-             tol=tol, dkv_tol=dkv_tol, o_err=e_o, lse_err=e_lse,
+             fwd_kernel=ran, tol=tol, dkv_tol=dkv_tol, o_err=e_o,
+             lse_err=e_lse,
              grad_rel_err=rel, grad_abs_err={n: _err(a, b) for n, (a, b)
                                              in grads.items()},
              empty_rows=int(empty.sum()), empty_rows_exact=empty_ok,
              visits=visits_of(batch))
         if max(e_o, e_lse, rel["dq"]) > tol or not empty_ok \
-                or max(rel["dk"], rel["dv"]) > dkv_tol:
-            raise AssertionError(f"doc kernel parity failed: {name} {grid}")
+                or max(rel["dk"], rel["dv"]) > dkv_tol \
+                or (name == "bfloat16" and ran != "fwd_wgmma_kernel"):
+            raise AssertionError(f"doc kernel parity failed: {name} {grid} "
+                                 f"({ran})")
         err["flash_fwd"] = max(err["flash_fwd"], e_o)
         err["flash_bwd_dq"] = max(err["flash_bwd_dq"], _err(dq, pdq))
         err["flash_bwd_dkv"] = max(err["flash_bwd_dkv"], _err(dk, pdk),
                                    _err(dv, pdv))
-        del q, k, v, do, o, po, dq, dk, dv, pdq, pdk, pdv, grads
+        del q, k, v, do, po, dq, dk, dv, pdq, pdk, pdv, grads
+    # the bf16 forward at block_k 32 runs fwd_mma_kernel (fwd_kernel_for)
+    batch = doc_batch(pad=300)
+    meta = [batch[k] for k in ("doc", "pos", "doc", "pos")]
+    host = [m.cpu().numpy() for m in meta]
+    fwd_t = da.build_block_tables(*host, block_q=T_BLOCK,
+                                  block_k=32).flat_as_torch("cuda")[:3]
+    q, k, v, _ = doc_inputs(torch, gen, torch.bfloat16)
+    tol = DOC_TOL["bfloat16"]
+    e_o, e_lse, empty_ok, _, plse, ran = fwd_parity(
+        q, k, v, meta, fwd_t, torch.bfloat16, scale=T_D ** -0.5,
+        block_q=T_BLOCK, block_k=32, grid="flat")
+    emit("doc_kernel_parity", dtype="bfloat16", grid="flat", pad_tokens=300,
+         block_k=32, fwd_kernel=ran, tol=tol, o_err=e_o, lse_err=e_lse,
+         empty_rows=int(torch.isinf(plse).sum()), empty_rows_exact=empty_ok)
+    if max(e_o, e_lse) > tol or not empty_ok or ran != "fwd_mma_kernel":
+        raise AssertionError("doc kernel parity failed: bf16 flat block_k "
+                             f"32 ({ran})")
+    err["flash_fwd"] = max(err["flash_fwd"], e_o)
+    del q, k, v
     for name, e in doc_hop_phase(torch, gen).items():
         err[name] = max(err[name], e)
     if quick:
@@ -3936,7 +3971,8 @@ def train(args, params=None, mesh=None, device=None):
 
 
 # device-time categories of a profile, by kernel name
-CATEGORIES = (("doc_attention", ("fwd_kernel", "fwd_mma_kernel", "dq_kernel",
+CATEGORIES = (("doc_attention", ("fwd_kernel", "fwd_mma_kernel",
+                                  "fwd_wgmma_kernel", "dq_kernel",
                                   "dq_mma_kernel", "dkv_kernel",
                                   "dkv_mma_kernel", "dkv_sum_kernel")),
               ("flash_decode", ("decode_split_kernel",

@@ -153,8 +153,8 @@ def _flash_decode_lib() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def _doc_attention_lib() -> ctypes.CDLL:
-    """The three doc-attention entries share one argument list; dQ adds
-    its sub-tile, dK/dV its split."""
+    """The three doc-attention entries share one argument list; the
+    forward adds its kernel choice, dQ its sub-tile, dK/dV its split."""
     path, _ = build("doc_attention.cu")
     lib = ctypes.CDLL(str(path))
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -169,8 +169,10 @@ def _doc_attention_lib() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = i32
-    # dQ also takes the bf16 kernel's keys per sub-tile; dK/dV its split:
-    # key parts, group slices, f32 slice workspace
+    # the forward also takes its kind (0, or 3 for the wgmma kernel); dQ
+    # the bf16 kernel's keys per sub-tile; dK/dV its split: key parts,
+    # group slices, f32 slice workspace
+    lib.doc_attn_fwd.argtypes = args + [i32]
     lib.doc_attn_dq.argtypes = args + [i32]
     lib.doc_attn_dkv.argtypes = args + [i32, i32, vp]
     # kind dtype bq bk D parts key_tile

@@ -3,7 +3,9 @@
 // work queues).
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/doc_attention.py:
-//   * fwd_mma_kernel<FLAT, KT>  <- ::flash_fwd in bf16, and
+//   * fwd_wgmma_kernel<FLAT, BK, D> <- ::flash_fwd in bf16 at block_q,
+//     block_k and D each 64 or 128, fwd_mma_kernel<FLAT, KT> <- ::flash_fwd
+//     in bf16 at every other shape, and
 //     fwd_kernel<float, FLAT>   <- ::flash_fwd in f32 (_fwd_kernel /
 //     _fwd_kernel_flat over _fwd_init, _fwd_visit, _fwd_finalize);
 //   * dq_mma_kernel<FLAT, KT>   <- ::flash_bwd_dq in bf16, and
@@ -18,7 +20,14 @@
 // the forward, 3 in dQ, 4 in dK/dV, against about (bq + 2 bk) * D * 2
 // bytes of input, far above the ridge point, so the tensor cores set the
 // bound that chip_smoke.py reports.
-//   * fwd_mma_kernel (bf16) runs both products on the tensor cores
+//   * fwd_wgmma_kernel (bf16) runs both products as wgmma (Hopper's full
+//     tensor-core rate) on K and V tiles that one producer thread brings
+//     by TMA into a 2-stage mbarrier ring, for two (block_q 128) or one
+//     consumer warpgroups of 64 q rows, and masks only the tiles that need
+//     it; its design is described above the kernel.  The wrapper
+//     (kernels/doc_attention.py::fwd_kernel_for) picks it by shape alone.
+//   * fwd_mma_kernel (bf16, the shapes fwd_wgmma_kernel does not take)
+//     runs both products on the tensor cores
 //     (mma.sync m16n8k16, bf16 in, f32 accumulate).  bq / 16 warps each
 //     own 16 q rows: the Q tile is copied once with cp.async and held in
 //     registers as A fragments (ldmatrix); K and V stream in KT-key bf16
@@ -83,11 +92,14 @@
 // Plain C interface for ctypes; each entry returns cudaGetLastError() right
 // after its launch.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include <algorithm>
+#include <climits>
 
 namespace {
 
@@ -823,6 +835,495 @@ __global__ void __launch_bounds__(256, 1) fwd_mma_kernel(Params p) {
                  ((long long)b * p.Hq + h) * p.Tq + (long long)row * BQ;
     lse[r0] = lt0 > 0.f ? m0 * p.scale + logf(lt0) : -INFINITY;
     lse[r1] = lt1 > 0.f ? m1 * p.scale + logf(lt1) : -INFINITY;
+  }
+}
+
+// ------------------------------------------------------------------------
+// bf16 forward on Hopper's own path: fwd_wgmma_kernel<FLAT, BK, D>.
+// Replaces flash_fwd (src/repro/kernels/doc_attention.py:634) for bf16 at
+// block_q in {64, 128}, block_k in {64, 128} and D in {64, 128}; every
+// other bf16 shape (block_q 16-48, 80-112; block_k 32, 96; D 16-48,
+// 80-112) keeps fwd_mma_kernel.  Bound: operations, 4 bq bk D flops per
+// visit and head (at the main path's 8192-token wlb_llm row, 24/2 heads of
+// 128: 0.3564 ms at 989 TFLOP/s).
+//
+// Design.  CTA = (q-block row, b, hq), numbered row ordinal outermost as
+// the other kernels, walking the same rect lists or flat queue.  Threads:
+// bq / 64 consumer warpgroups, each owning 64 q rows, then one producer
+// warpgroup of which one thread works; setmaxnreg gives the producer 40
+// registers and the consumers 232.  The producer issues TMA loads: the Q
+// tile once, then per VALID visit the K and V tiles (block_k x D, 128-byte
+// swizzle, D / 64 boxes of 64 columns) and the visit's kv doc and pos words
+// (two bulk copies) into a 2-stage ring, each stage with a full barrier for
+// K (with doc and pos) and one for V, and an empty barrier that the
+// consumer warps release; no __syncthreads() after the set-up.  A stage
+// word tells the consumers whether it holds a tile or ends the walk, so
+// they never read the tables.  Each consumer warpgroup runs S = Q K^T as
+// wgmma m64n{BK}k16 with Q and K from shared memory, the online softmax
+// on S in registers (the same arithmetic as fwd_mma_kernel), then O += P V
+// as wgmma m64n{D}k16 with P (rounded to bf16) from registers and V read
+// through the descriptor's transpose (MN-major), O and m, l in registers
+// until the one write at the end.  Masking only where needed: a warp whose
+// 16 rows share one document (>= 0) skips the per-element test on a tile
+// whose every key is of that document at or before the rows' smallest
+// position, decided from the doc and pos words the tile brought (read
+// while S runs); elsewhere it masks as fwd_mma_kernel does.  A warp
+// rescales O only when the running max moved for one of its rows; with
+// the early read, 0.75 instead of 0.81 ms at the main path's shape on an
+// H100.  The wrapper builds the three tensor maps on the host at each
+// launch and passes them as __grid_constant__ parameters; the kernel
+// allocates nothing.  Issuing one visit's P V beside the next visit's S
+// (in each warpgroup, or with the two warpgroups taking turns on named
+// barriers) measured slower there (0.88-0.97 ms, against 0.81 ms for
+// this design before the two refinements above): the two
+// warpgroups left to themselves already overlap one's softmax with the
+// other's products, and ptxas serialises wgmma whose operands are live
+// across the extra overlap.
+// ------------------------------------------------------------------------
+constexpr int WG_THREADS = 128;
+constexpr int WG_STAGES = 2;
+constexpr int WG_BOX = 64;             // columns of one 128-byte TMA box
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+// one arrival that also expects `bytes` of asynchronous copies
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+// wait until the barrier's phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const unsigned a = smem_addr(bar);
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// TMA: the box at (column c0, row c1) of a 2-D tensor map into `dst`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+// a bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// wgmma descriptor of a 128-byte-swizzled tile at `p` (1024-byte atoms of
+// 8 rows of 128 bytes): lbo, sbo in bytes
+__device__ __forceinline__ uint64_t wg_desc(const void* p, int lbo, int sbo) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving reads or writes of an accumulator across
+// the asynchronous products that own it
+template <int N>
+__device__ __forceinline__ void wg_hold(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 64, f32) = (scale_d ? d : 0) + A B^T: A and B K-major in
+// shared memory (descriptors a, b)
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 64, f32) += A B: A bf16 fragments in registers, B MN-major in
+// shared memory (descriptor b, read transposed)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const unsigned (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 128, f32) = (scale_d ? d : 0) + A B^T: A and B K-major in
+// shared memory (descriptors a, b)
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 128, f32) += A B: A bf16 fragments in registers, B MN-major in
+// shared memory (descriptor b, read transposed)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const unsigned (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// bytes of shared memory of one fwd_wgmma_kernel CTA: 1024 of alignment
+// slack, the Q tile, the ring's K and V tiles, their doc / pos words, the
+// stage words and the barriers
+__host__ __device__ inline long long wgmma_smem_bytes(int bq, int bk, int D) {
+  return 1024 + 2LL * bq * D + WG_STAGES * (4LL * bk * D + 8LL * bk) +
+         16 + 8 * (1 + 3 * WG_STAGES);
+}
+
+template <bool FLAT, int BK, int D>
+__global__ void __launch_bounds__(3 * WG_THREADS, 1)
+    fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const Params p) {
+  constexpr int NS = BK / 8;             // 8-key column groups of S
+  constexpr int NO = D / 8;              // 8-wide column groups of O
+  constexpr int BOXES = D / WG_BOX;      // 128-byte boxes of a row
+  constexpr int TILE = BK * D * 2;       // bytes of a K or V tile
+  extern __shared__ unsigned char smem_raw[];
+  // TMA's 128-byte swizzle repeats every 1024 bytes: align the tiles so
+  unsigned char* base =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const int BQ = p.bq, NWG = BQ / 64;
+  unsigned char* q_s = base;                       // BOXES x (BQ x 128 B)
+  unsigned char* ring = q_s + BQ * D * 2;          // stage: K, V tiles
+  int* meta = reinterpret_cast<int*>(ring + 2 * WG_STAGES * TILE);
+  int* info = meta + 2 * WG_STAGES * BK;           // stage: 1 tile, 0 end
+  uint64_t* bars = reinterpret_cast<uint64_t*>(info + 4);
+  uint64_t* full_q = bars;
+  uint64_t* full_k = bars + 1;                     // K, doc, pos arrived
+  uint64_t* full_v = full_k + WG_STAGES;           // V arrived
+  uint64_t* empty = full_v + WG_STAGES;            // the consumers are done
+
+  int rest;
+  const int i_row = cta_row(p.B * p.Hq, &rest);
+  const int b = rest / p.Hq, h = rest - b * p.Hq, hkv = h / p.G;
+  int s0, row;
+  if (!walk_begin<FLAT>(p, b, i_row, &s0, &row)) return;
+  const int tid = threadIdx.x, wg = tid / WG_THREADS;
+  if (tid == 0) {
+    mbar_init(full_q, 1);
+    for (int st = 0; st < WG_STAGES; ++st) {
+      mbar_init(full_k + st, 1);
+      mbar_init(full_v + st, 1);
+      mbar_init(empty + st, 4 * NWG);              // one arrival a warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == NWG) {
+    // ---- producer: one thread walks the row and issues every copy ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == NWG * WG_THREADS) {
+      const int qrow = (b * p.Hq + h) * p.Tq + row * BQ;
+      const int krow = (b * p.Hkv + hkv) * p.Tk;
+      const int* kd_g = p.kv_doc + (long long)b * p.Tk;
+      const int* kp_g = p.kv_pos + (long long)b * p.Tk;
+      Cursor cur = walk_start<FLAT>(p, b, row, s0);
+      int st = 0, ph = 0;
+      bool q_sent = false;
+      while (advance_by<FLAT>(p, b, row, s0, cur, BK, BK)) {
+        if (!q_sent) {   // only a row with a visit loads its Q tile
+          mbar_expect_tx(full_q, BQ * D * 2);
+          for (int x = 0; x < BOXES; ++x)
+            tma_load(q_s + x * BQ * 128, &tm_q, full_q, WG_BOX * x, qrow);
+          q_sent = true;
+        }
+        mbar_wait(empty + st, ph ^ 1);
+        info[st] = 1;
+        const int key0 = cur.col * BK;
+        unsigned char* ks = ring + 2 * st * TILE;
+        int* ms = meta + 2 * st * BK;
+        mbar_expect_tx(full_k + st, TILE + 8 * BK);
+        for (int x = 0; x < BOXES; ++x)
+          tma_load(ks + x * BK * 128, &tm_k, full_k + st, WG_BOX * x,
+                   krow + key0);
+        bulk_load(ms, kd_g + key0, 4 * BK, full_k + st);
+        bulk_load(ms + BK, kp_g + key0, 4 * BK, full_k + st);
+        mbar_expect_tx(full_v + st, TILE);
+        for (int x = 0; x < BOXES; ++x)
+          tma_load(ks + TILE + x * BK * 128, &tm_v, full_v + st, WG_BOX * x,
+                   krow + key0);
+        if (++st == WG_STAGES) {
+          st = 0;
+          ph ^= 1;
+        }
+      }
+      mbar_wait(empty + st, ph ^ 1);   // the walk is over: say so
+      info[st] = 0;
+      mbar_arrive(full_k + st);
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns q rows 64 wg .. 64 wg + 63 ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, tq = lane & 3;
+    // this thread's two q rows (accumulator rows g and g + 8 of its warp)
+    const int r0 = wg * 64 + (warp & 3) * 16 + g, r1 = r0 + 8;
+    const long long tok = (long long)b * p.Tq + (long long)row * BQ;
+    const int qd0 = p.q_doc[tok + r0], qp0 = p.q_pos[tok + r0];
+    const int qd1 = p.q_doc[tok + r1], qp1 = p.q_pos[tok + r1];
+    // the warp's 16 rows: one document (>= 0)?  their smallest position
+    const int dlo = __reduce_min_sync(0xffffffffu, min(qd0, qd1));
+    const int dhi = __reduce_max_sync(0xffffffffu, max(qd0, qd1));
+    const int qmin = __reduce_min_sync(0xffffffffu, min(qp0, qp1));
+    const bool one_doc = dlo == dhi && dlo >= 0;
+
+    float o[D / 2], s[BK / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+    // m: row max of the unscaled scores; l: this thread's share of the sum
+    float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;
+    const float c2 = p.scale * 1.4426950408889634f;   // scale * log2(e)
+    const unsigned char* qa = q_s + wg * 64 * 128;   // this warpgroup's rows
+    int st = 0, ph = 0;
+    bool q_ready = false;
+    for (;;) {
+      mbar_wait(full_k + st, ph);
+      if (info[st] == 0) break;
+      if (!q_ready) {
+        mbar_wait(full_q, 0);
+        q_ready = true;
+      }
+      const unsigned char* ks = ring + 2 * st * TILE;
+      const int* kd_s = meta + 2 * st * BK;
+      const int* kp_s = kd_s + BK;
+
+      // S = Q K^T: D / 16 steps of 16 columns, 4 to a 128-byte box
+      wg_hold(s);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int x = kk / 4, off = (kk % 4) * 32;
+        wgmma_ss(s, wg_desc(qa + x * BQ * 128 + off, 16, 1024),
+                 wg_desc(ks + x * BK * 128 + off, 16, 1024), kk > 0);
+      }
+      wg_commit();
+
+      // the warp's tile is interior when every key is of the rows' one
+      // document at or before their smallest position (read while S runs)
+      bool ok = one_doc;
+      if (ok) {
+#pragma unroll
+        for (int k = lane; k < BK; k += 32)
+          ok = ok && kd_s[k] == dlo && kp_s[k] <= qmin;
+      }
+      const bool interior = __all_sync(0xffffffffu, ok);
+      wg_wait_all();
+      wg_hold(s);
+
+      // mask where needed, online softmax in f32 (rows r0: s[4j + 0..1],
+      // r1: s[4j + 2..3]; key 8 j + 2 tq + 0..1) on unscaled scores, as in
+      // fwd_mma_kernel: a masked score is -inf, m never drops below NEG
+      float mx0 = NEG, mx1 = NEG;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        if (!interior) {
+          const int key = 8 * j + 2 * tq;
+          const int2 kd = *reinterpret_cast<const int2*>(kd_s + key);
+          const int2 kp = *reinterpret_cast<const int2*>(kp_s + key);
+          s[4 * j] = visible(qd0, qp0, kd.x, kp.x) ? s[4 * j] : -INFINITY;
+          s[4 * j + 1] =
+              visible(qd0, qp0, kd.y, kp.y) ? s[4 * j + 1] : -INFINITY;
+          s[4 * j + 2] =
+              visible(qd1, qp1, kd.x, kp.x) ? s[4 * j + 2] : -INFINITY;
+          s[4 * j + 3] =
+              visible(qd1, qp1, kd.y, kp.y) ? s[4 * j + 3] : -INFINITY;
+        }
+        mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+      const float mn0 = fmaxf(m0, quad_max(mx0));
+      const float mn1 = fmaxf(m1, quad_max(mx1));
+      const float a0 = ex2((m0 - mn0) * c2), a1 = ex2((m1 - mn1) * c2);
+      m0 = mn0;
+      m1 = mn1;
+      const float mc0 = mn0 * c2, mc1 = mn1 * c2;
+      float sum0 = 0.f, sum1 = 0.f;
+      unsigned pf[BK / 16][4];       // P as A fragments, in V's dtype
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const float p0 = ex2(fmaf(s[4 * j], c2, -mc0));
+        const float p1 = ex2(fmaf(s[4 * j + 1], c2, -mc0));
+        const float p2 = ex2(fmaf(s[4 * j + 2], c2, -mc1));
+        const float p3 = ex2(fmaf(s[4 * j + 3], c2, -mc1));
+        sum0 += p0 + p1;
+        sum1 += p2 + p3;
+        pf[j / 2][(j & 1) * 2] = pack_bf16(p0, p1);
+        pf[j / 2][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+      }
+      l0 = l0 * a0 + sum0;
+      l1 = l1 * a1 + sum1;
+      // a max that moved for none of the warp's rows leaves O as it is
+      if (!__all_sync(0xffffffffu, a0 == 1.f && a1 == 1.f)) {
+#pragma unroll
+        for (int n = 0; n < NO; ++n) {
+          o[4 * n] *= a0;
+          o[4 * n + 1] *= a0;
+          o[4 * n + 2] *= a1;
+          o[4 * n + 3] *= a1;
+        }
+      }
+
+      // O += P V: BK / 16 steps of 16 keys (2048 bytes of V each); N = D
+      // spans the D / 64 boxes of V, BK x 128 bytes apart
+      mbar_wait(full_v + st, ph);
+      wg_hold(o);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs(o, pf[kk], wg_desc(ks + TILE + kk * 2048, BK * 128, 1024));
+      wg_commit();
+      wg_wait_all();
+      wg_hold(o);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + st);   // the stage is free
+      if (++st == WG_STAGES) {
+        st = 0;
+        ph ^= 1;
+      }
+    }
+
+    // epilogue: o = acc / l (0 where l = 0), lse = m + log l (-inf there)
+    const float lt0 = quad_sum(l0), lt1 = quad_sum(l1);
+    const long long q0 =
+        ((long long)b * p.Hq + h) * p.Tq + (long long)row * BQ;
+    __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.out0) + q0 * D;
+    const float d0 = fmaxf(lt0, 1e-30f), d1 = fmaxf(lt1, 1e-30f);
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const int c = 8 * n + 2 * tq;
+      *reinterpret_cast<__nv_bfloat162*>(og + (long long)r0 * D + c) =
+          lt0 > 0.f ? __floats2bfloat162_rn(o[4 * n] / d0, o[4 * n + 1] / d0)
+                    : __floats2bfloat162_rn(0.f, 0.f);
+      *reinterpret_cast<__nv_bfloat162*>(og + (long long)r1 * D + c) =
+          lt1 > 0.f
+              ? __floats2bfloat162_rn(o[4 * n + 2] / d1, o[4 * n + 3] / d1)
+              : __floats2bfloat162_rn(0.f, 0.f);
+    }
+    if (tq == 0) {
+      float* lse = static_cast<float*>(p.out1) + q0;
+      lse[r0] = lt0 > 0.f ? m0 * p.scale + logf(lt0) : -INFINITY;
+      lse[r1] = lt1 > 0.f ? m1 * p.scale + logf(lt1) : -INFINITY;
+    }
   }
 }
 
@@ -1597,10 +2098,11 @@ int dq_key_tile(const Params& p) {
 int dkv_rows(const Params& p) { return p.bq % 32 == 0 ? 32 : 16; }
 
 // shared-memory bytes of the CTA that dispatch() launches for (kind,
-// dtype): kind 0 = fwd, 1 = dq, 2 = dkv; dtype 0 = f32 (the scalar
-// kernels), 1 = bf16 (the tensor-core kernels)
+// dtype): kind 0 = fwd, 1 = dq, 2 = dkv, 3 = fwd on wgmma (bf16 only);
+// dtype 0 = f32 (the scalar kernels), 1 = bf16 (the tensor-core kernels)
 long long smem_bytes(const Params& p, int kind, int dtype) {
   if (dtype == 1) {
+    if (kind == 3) return wgmma_smem_bytes(p.bq, p.bk, p.D);
     if (kind == 0) return mma_smem_bytes(p.bq, p.D, fwd_key_tile(p));
     if (kind == 1) return dq_mma_smem_bytes(p.bq, p.D, dq_key_tile(p));
     return dkv_mma_smem_bytes(p.bk / std::max(p.parts, 1), p.D, dkv_rows(p));
@@ -1629,6 +2131,94 @@ int launch_fwd_mma(const Params& p, long long blocks, int flat,
   Kernel k = k64 ? (flat ? fwd_mma_kernel<true, 64> : fwd_mma_kernel<false, 64>)
                  : (flat ? fwd_mma_kernel<true, 32> : fwd_mma_kernel<false, 32>);
   return launch(k, p, blocks, 2 * p.bq, (size_t)smem_bytes(p, 0, 1), s);
+}
+
+// the shapes fwd_wgmma_kernel takes (the wrapper's rule picks it for them)
+bool wgmma_shape_ok(int bq, int bk, int D) {
+  return (bq == 64 || bq == 128) && (bk == 64 || bk == 128) &&
+         (D == 64 || D == 128);
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled (libcuda), found through the runtime's entry-point
+// query, so the library links no -lcuda
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q{};
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a (rows x D) bf16 matrix as boxes of (box_rows x 64), 128-byte swizzle
+bool tile_map(CUtensorMap* map, const void* base, long long rows, int D,
+              int box_rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)D * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)WG_BOX, (cuuint32_t)box_rows};
+  const cuuint32_t step[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+             const_cast<void*>(base), dims, strides, box, step,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+bool aligned16(const void* x) {
+  return (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+}
+
+using WgmmaKernel = void (*)(CUtensorMap, CUtensorMap, CUtensorMap, Params);
+
+template <bool FLAT>
+WgmmaKernel wgmma_kernel(int bk, int D) {
+  if (bk == 64)
+    return D == 64 ? fwd_wgmma_kernel<FLAT, 64, 64>
+                   : fwd_wgmma_kernel<FLAT, 64, 128>;
+  return D == 64 ? fwd_wgmma_kernel<FLAT, 128, 64>
+                 : fwd_wgmma_kernel<FLAT, 128, 128>;
+}
+
+// the bf16 forward on wgmma: the tensor maps of q, k and v built here,
+// at each launch
+int launch_fwd_wgmma(const Params& p, long long blocks, int flat,
+                     cudaStream_t s) {
+  if (!wgmma_shape_ok(p.bq, p.bk, p.D) || !(p.scale > 0.f) ||
+      !aligned16(p.q) || !aligned16(p.k) || !aligned16(p.v) ||
+      !aligned16(p.kv_doc) || !aligned16(p.kv_pos))
+    return (int)cudaErrorInvalidValue;
+  if (blocks == 0) return (int)cudaGetLastError();
+  // TMA coordinates are 32-bit
+  if ((long long)p.B * p.Hq * p.Tq > INT_MAX ||
+      (long long)p.B * p.Hkv * p.Tk > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv;
+  if (!tile_map(&mq, p.q, (long long)p.B * p.Hq * p.Tq, p.D, p.bq) ||
+      !tile_map(&mk, p.k, (long long)p.B * p.Hkv * p.Tk, p.D, p.bk) ||
+      !tile_map(&mv, p.v, (long long)p.B * p.Hkv * p.Tk, p.D, p.bk))
+    return (int)cudaErrorInvalidValue;
+  const WgmmaKernel k =
+      flat ? wgmma_kernel<true>(p.bk, p.D) : wgmma_kernel<false>(p.bk, p.D);
+  const int smem = (int)wgmma_smem_bytes(p.bq, p.bk, p.D);
+  const cudaError_t e = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  k<<<(unsigned)blocks, WG_THREADS * (p.bq / 64 + 1), smem, s>>>(mq, mk, mv,
+                                                                  p);
+  return (int)cudaGetLastError();
 }
 
 // the bf16 dQ
@@ -1663,11 +2253,13 @@ int launch_dkv_mma(const Params& p, int flat, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-// bf16: fwd_mma_kernel, dq_mma_kernel, dkv_mma_kernel; f32: fwd_kernel,
-// dq_kernel, dkv_kernel (the scalar parity references)
+// bf16: fwd_wgmma_kernel (kind 3) or fwd_mma_kernel, dq_mma_kernel,
+// dkv_mma_kernel; f32: fwd_kernel, dq_kernel, dkv_kernel (the scalar
+// parity references)
 int dispatch(const Params& p, int kind, long long blocks, int flat, int dtype,
              cudaStream_t s) {
   if (dtype == 1) {
+    if (kind == 3) return launch_fwd_wgmma(p, blocks, flat, s);
     if (kind == 0) return launch_fwd_mma(p, blocks, flat, s);
     if (kind == 1) return launch_dq_mma(p, blocks, flat, s);
     if (kind == 2) return launch_dkv_mma(p, flat, s);
@@ -1708,12 +2300,16 @@ bool shapes_ok(int Hq, int Hkv, int D, int bq, int bk) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; flat: 0 = rect tables, 1 = work queue
-int doc_attn_fwd(DOC_ATTN_ARGS) {
-  if (!shapes_ok(Hq, Hkv, D, bq, bk)) return (int)cudaErrorInvalidValue;
+// dtype: 0 = float32, 1 = bfloat16; flat: 0 = rect tables, 1 = work queue;
+// kind: 3 runs fwd_wgmma_kernel (bf16 at the shapes wgmma_shape_ok takes;
+// others are refused), 0 the dtype's other forward
+int doc_attn_fwd(DOC_ATTN_ARGS, int kind) {
+  if (!shapes_ok(Hq, Hkv, D, bq, bk) || (kind != 0 && kind != 3) ||
+      (kind == 3 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
   const Params p = DOC_ATTN_PARAMS;
-  return dispatch(p, 0, (long long)rows * B * Hq, flat, dtype,
-                          static_cast<cudaStream_t>(stream));
+  return dispatch(p, kind, (long long)rows * B * Hq, flat, dtype,
+                  static_cast<cudaStream_t>(stream));
 }
 
 // key_tile: the bf16 kernel's keys per sub-tile (32, or 64 where block_k
@@ -1740,7 +2336,8 @@ int doc_attn_dkv(DOC_ATTN_ARGS, int parts, int slices, float* ws) {
 }
 
 // shared-memory bytes of the CTA that the entry of `kind` launches for
-// these arguments (parts: dK/dV's key parts; key_tile: dQ's sub-tile)
+// these arguments (kind 3: the forward on wgmma; parts: dK/dV's key
+// parts; key_tile: dQ's sub-tile)
 long long doc_attn_smem_bytes(int kind, int dtype, int bq, int bk, int D,
                               int parts, int key_tile) {
   Params p{};

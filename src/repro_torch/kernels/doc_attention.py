@@ -25,7 +25,10 @@ each with the reference's signature minus ``interpret``:
 
 * :func:`flash_fwd` -> ``(o, lse)``: o in q's dtype, lse f32 (-inf on
   rows that see nothing; their o is 0).  In bf16 it runs on the tensor
-  cores and takes head dims that are a multiple of 16 (others raise);
+  cores and takes head dims that are a multiple of 16 (others raise):
+  on wgmma from TMA-fed shared memory where block_q, block_k and D are
+  each 64 or 128, on mma.sync elsewhere (:func:`fwd_kernel_for`, by
+  shape alone; ``.wgmma_launches`` counts the first);
 * :func:`flash_bwd_dq` -> dq, over the same q-block rows and tables.
   In bf16 it runs on the tensor cores, takes head dims that are a
   multiple of 16 (others raise), and rounds only where the reference
@@ -66,7 +69,8 @@ __all__ = [
     "BlockTables", "build_block_tables", "build_work_queue",
     "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
     "flash_fwd_plain", "flash_bwd_dq_plain", "flash_bwd_dkv_plain",
-    "flash_bwd_dkv_split_plain", "dkv_split_plan", "run_starts",
+    "flash_bwd_dkv_split_plain", "dkv_split_plan", "fwd_kernel_for",
+    "run_starts",
     "DEFAULT_BLOCK_Q", "DEFAULT_BLOCK_K",
     "FLAG_FIRST", "FLAG_LAST", "FLAG_VALID", "NEG",
 ]
@@ -695,7 +699,7 @@ def flash_bwd_dkv_split_plain(q, k, v, do, lse, delta, q_doc, q_pos, kv_doc,
 # kernel wrappers
 # ===================================================================== #
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_KINDS = {"fwd": 0, "dq": 1, "dkv": 2}
+_KINDS = {"fwd": 0, "dq": 1, "dkv": 2, "fwd_wgmma": 3}
 #: shared memory one block may use on Hopper
 _SMEM_LIMIT = 232_448
 #: keys per sub-tile of the CUDA kernels: block_k must be a multiple
@@ -755,6 +759,51 @@ def run_starts(flags, n_rows: int):
     return starts[:, :n_rows].contiguous()
 
 
+def _check_shapes(kind: str, dtype, D: int, block_q: int, block_k: int):
+    """Raise on a dtype, head dim or block that no CUDA kernel of
+    ``kind`` takes."""
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"unsupported dtype {dtype}; use float32 or "
+                        "bfloat16")
+    esize = torch.finfo(dtype).bits // 8
+    if D > 128 or (D * esize) % 16:
+        raise ValueError(f"head dim {D} unsupported: at most 128 and a "
+                         "multiple of 16 bytes")
+    if dtype == torch.bfloat16 and D % 16:
+        what = {"fwd": "forward", "dq": "dQ", "dkv": "dK/dV"}[kind]
+        raise ValueError(f"head dim {D} unsupported by the bf16 tensor-core "
+                         f"{what}: a multiple of 16")
+    if not (16 <= block_q <= 128 and block_q % 16 == 0):
+        raise ValueError(f"block_q {block_q} unsupported: a multiple of 16 "
+                         "up to 128")
+    if not (KEY_TILE <= block_k <= 128 and block_k % KEY_TILE == 0):
+        raise ValueError(f"block_k {block_k} unsupported: a multiple of "
+                         f"{KEY_TILE} up to 128")
+
+
+#: block sizes and head dims of the bf16 forward on wgmma
+WGMMA_SIZES = (64, 128)
+
+
+def fwd_kernel_for(dtype, block_q: int, block_k: int, head_dim: int) -> str:
+    """The CUDA forward that :func:`flash_fwd` launches for these shapes,
+    by shape alone: ``"wgmma"`` (``fwd_wgmma_kernel``: bf16 with block_q,
+    block_k and D each in ``WGMMA_SIZES``), ``"mma"`` (``fwd_mma_kernel``:
+    every other bf16 shape) or ``"scalar"`` (``fwd_kernel``: f32).  Raises
+    on what no forward takes."""
+    _check_shapes("fwd", dtype, head_dim, block_q, block_k)
+    return _fwd_kernel(dtype, block_q, block_k, head_dim)
+
+
+def _fwd_kernel(dtype, block_q: int, block_k: int, head_dim: int) -> str:
+    """:func:`fwd_kernel_for`'s rule on shapes already checked."""
+    if dtype == torch.float32:
+        return "scalar"
+    if all(x in WGMMA_SIZES for x in (block_q, block_k, head_dim)):
+        return "wgmma"
+    return "mma"
+
+
 def _check_kernel_inputs(kind, q, k, v, metas, tables, grid, block_q,
                          block_k, extra=()):
     """Validate what the CUDA kernels take; returns (B, Hq, Hkv, Tq, Tk,
@@ -765,29 +814,13 @@ def _check_kernel_inputs(kind, q, k, v, metas, tables, grid, block_q,
                          f"{tuple(v.shape)}")
     B, Hq, Tq, D = q.shape
     _, Hkv, Tk, _ = k.shape
-    if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"unsupported dtype {q.dtype}; use float32 or "
-                        "bfloat16")
     for t in (k, v, *extra[:1]):
         if t.dtype != q.dtype:
             raise TypeError(f"dtypes differ: {q.dtype} vs {t.dtype}")
     if k.shape[0] != B or k.shape[3] != D or Hkv <= 0 or Hq % Hkv:
         raise ValueError(f"q {tuple(q.shape)} does not match k "
                          f"{tuple(k.shape)}")
-    esize = q.element_size()
-    if D > 128 or (D * esize) % 16:
-        raise ValueError(f"head dim {D} unsupported: at most 128 and a "
-                         "multiple of 16 bytes")
-    if q.dtype == torch.bfloat16 and D % 16:
-        what = {"fwd": "forward", "dq": "dQ", "dkv": "dK/dV"}[kind]
-        raise ValueError(f"head dim {D} unsupported by the bf16 tensor-core "
-                         f"{what}: a multiple of 16")
-    if not (16 <= block_q <= 128 and block_q % 16 == 0):
-        raise ValueError(f"block_q {block_q} unsupported: a multiple of 16 "
-                         "up to 128")
-    if not (KEY_TILE <= block_k <= 128 and block_k % KEY_TILE == 0):
-        raise ValueError(f"block_k {block_k} unsupported: a multiple of "
-                         f"{KEY_TILE} up to 128")
+    _check_shapes(kind, q.dtype, D, block_q, block_k)
     if Tq % block_q or Tk % block_k:
         raise ValueError(f"lengths {Tq}, {Tk} are not multiples of blocks "
                          f"{block_q}, {block_k}")
@@ -829,15 +862,22 @@ def _check_kernel_inputs(kind, q, k, v, metas, tables, grid, block_q,
 def _launch(kind: str, name: str, q, k, v, q_doc, q_pos, kv_doc, kv_pos,
             tables, grid, block_q, block_k, scale, outs, do=None, lse=None,
             delta=None):
-    """Check the inputs and launch one entry of the library; dQ also gets
-    its sub-tile, dK/dV in bf16 its split plan and, for more than one
-    group slice, its f32 slice workspace."""
+    """Check the inputs and launch one entry of the library (``kind`` a
+    key of ``_KINDS``: ``"fwd_wgmma"`` is the forward's entry running
+    ``fwd_wgmma_kernel``); the forward also gets its kind, dQ its
+    sub-tile, dK/dV in bf16 its split plan and, for more than one group
+    slice, its f32 slice workspace."""
     from ._build import doc_attention_lib
 
+    entry = "fwd" if kind == "fwd_wgmma" else kind
     extra = () if do is None else (do, lse, delta)
     B, Hq, Hkv, Tq, Tk, D, rows, width = _check_kernel_inputs(
-        kind, q, k, v, (q_doc, q_pos, kv_doc, kv_pos), tables, grid,
+        entry, q, k, v, (q_doc, q_pos, kv_doc, kv_pos), tables, grid,
         block_q, block_k, extra)
+    if kind == "fwd_wgmma" \
+            and (kv_doc.data_ptr() % 16 or kv_pos.data_ptr() % 16):
+        raise ValueError(f"{name}: kv_doc and kv_pos must be 16-byte "
+                         "aligned (the wgmma forward copies them in bulk)")
     lib = doc_attention_lib()
     parts, slices = 1, 1
     if kind == "dkv" and q.dtype == torch.bfloat16:
@@ -866,7 +906,9 @@ def _launch(kind: str, name: str, q, k, v, q_doc, q_pos, kv_doc, kv_pos,
                 B, Hq, Hkv, Tq, Tk, D, block_q, block_k, rows, width,
                 int(grid == "flat"), float(scale), _DTYPE_CODE[q.dtype],
                 ctypes.c_void_p(stream)]
-        if kind == "dq":
+        if entry == "fwd":
+            args.append(_KINDS[kind])
+        elif kind == "dq":
             args.append(DQ_KEY_TILE)
         elif kind == "dkv":
             ws = None
@@ -874,7 +916,7 @@ def _launch(kind: str, name: str, q, k, v, q_doc, q_pos, kv_doc, kv_pos,
                 ws = torch.empty((2, slices, B, Hkv, Tk, D),
                                  dtype=torch.float32, device=q.device)
             args += [parts, slices, ptr(ws)]
-        code = getattr(lib, f"doc_attn_{kind}")(*args)
+        code = getattr(lib, f"doc_attn_{entry}")(*args)
     if code != 0:
         msg = lib.doc_attn_error_string(code).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({code})")
@@ -895,16 +937,24 @@ def flash_fwd(q, k, v, q_doc, q_pos, kv_doc, kv_pos, tables, *,
     if q.dtype == torch.bfloat16 and not scale > 0:
         raise ValueError(f"scale {scale} unsupported by the bf16 forward: "
                          "it must be positive")
+    wgmma = _fwd_kernel(q.dtype, block_q, block_k, D) == "wgmma"
     out = torch.empty_like(q)
     lse = torch.empty((B, Hq, Tq), dtype=torch.float32, device=q.device)
     with obs.span("doc_attention.fwd"):
-        _launch("fwd", "flash_fwd", q, k, v, q_doc, q_pos, kv_doc, kv_pos,
-                tables, grid, block_q, block_k, scale, (out, lse))
+        _launch("fwd_wgmma" if wgmma else "fwd", "flash_fwd", q, k, v,
+                q_doc, q_pos, kv_doc, kv_pos, tables, grid, block_q,
+                block_k, scale, (out, lse))
+        if wgmma:
+            obs.count("doc_attention.fwd_wgmma")
     flash_fwd.launches += 1
+    flash_fwd.wgmma_launches += wgmma
     return out, lse
 
 
 flash_fwd.launches = 0
+#: the launches that went to fwd_wgmma_kernel (the rest of ``.launches``
+#: to fwd_mma_kernel or, in f32, fwd_kernel)
+flash_fwd.wgmma_launches = 0
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, q_doc, q_pos, kv_doc, kv_pos,

@@ -302,6 +302,38 @@ def test_dkv_split_plan_divides_rows_and_group(B, Hkv, rows, G, bk):
         assert (parts, slices) == PINNED_PLANS[B, Hkv, rows, G, bk]
 
 
+@pytest.mark.parametrize("dtype,bq,bk,D,want", [
+    (torch.bfloat16, 128, 128, 128, "wgmma"),    # the main path's shape
+    (torch.bfloat16, 64, 64, 64, "wgmma"),
+    (torch.bfloat16, 64, 128, 128, "wgmma"),     # a CP hop's 64 / 128
+    (torch.bfloat16, 128, 64, 64, "wgmma"),
+    (torch.bfloat16, 48, 64, 64, "mma"),         # block_q 48
+    (torch.bfloat16, 16, 64, 128, "mma"),
+    (torch.bfloat16, 128, 32, 128, "mma"),       # block_k 32
+    (torch.bfloat16, 128, 96, 128, "mma"),
+    (torch.bfloat16, 128, 128, 32, "mma"),       # D 32
+    (torch.bfloat16, 64, 64, 80, "mma"),
+    (torch.float32, 128, 128, 128, "scalar"),
+    (torch.float32, 64, 64, 24, "scalar"),       # 96 bytes a row
+    (torch.bfloat16, 64, 64, 24, ValueError),    # not a multiple of 16
+    (torch.bfloat16, 128, 128, 256, ValueError),  # D over 128
+    (torch.bfloat16, 128, 16, 128, ValueError),  # block_k under 32
+    (torch.bfloat16, 40, 64, 64, ValueError),    # block_q not /16
+    (torch.bfloat16, 256, 128, 128, ValueError),  # block_q over 128
+    (torch.float16, 128, 128, 128, TypeError),   # no f16 forward
+])
+def test_forward_kernel_rule_by_shape(dtype, bq, bk, D, want):
+    """Which CUDA forward ``flash_fwd`` launches, from the dtype and the
+    shapes alone: bf16 at block_q, block_k and D each 64 or 128 on wgmma,
+    the other bf16 shapes on mma.sync, f32 on the scalar kernel; what no
+    forward takes raises."""
+    if isinstance(want, str):
+        assert tda.fwd_kernel_for(dtype, bq, bk, D) == want
+    else:
+        with pytest.raises(want):
+            tda.fwd_kernel_for(dtype, bq, bk, D)
+
+
 def test_wrappers_raise_on_mixed_devices_and_bad_grid():
     meta, (q, k, v, _), tabs, bq, bk, _, _ = _kernel_inputs("G1")
     tm = tuple(_t(a) for a in meta)

@@ -14,7 +14,10 @@ same arithmetic in another summation order), bf16 2e-2 on the normalized
 output (bf16 rounding of the output and of p before PV).  Doc-attention
 training kernels (flash_fwd, flash_bwd_dq, flash_bwd_dkv) against their
 twins: G 1/2/3/6/8/9/12/48, D 64/128, blocks 32/48/64/128, flat and
-rect, padded documents and all-empty rows; tolerances in ``DOC_TOL``
+rect, padded documents and all-empty rows, each bf16 forward asserted on
+the kernel it takes (``fwd_wgmma_kernel`` where block_q, block_k and D
+are each 64 or 128, else ``fwd_mma_kernel``), the wgmma forward's
+masked and unmasked tiles; tolerances in ``DOC_TOL``
 and, for the bf16 dQ and dK/dV, ``DQ_BF16_TOL`` and ``DKV_BF16_TOL``;
 one CP hop's shape (Tq != Tk, the keys' own doc/pos, the partial op
 with an lse cotangent); and the bf16 head dims the tensor-core kernels
@@ -238,6 +241,13 @@ def _doc_case(gen, B, Hq, Hkv, T, D, bq, bk, dtype, pad, seed=0):
     return q, k, v, do, meta, tabs
 
 
+def _takes_wgmma(dtype, bq, bk, D) -> bool:
+    """Whether the forward runs on fwd_wgmma_kernel: bf16 with block_q,
+    block_k and D each 64 or 128 (else fwd_mma_kernel, or in f32
+    fwd_kernel)."""
+    return dtype == torch.bfloat16 and {bq, bk, D} <= {64, 128}
+
+
 def _halves(tabs, grid):
     t = tabs.flat_as_torch("cuda") if grid == "flat" \
         else tabs.as_torch("cuda")
@@ -259,6 +269,13 @@ def _maxerr(a, b):
     (4, 1, 128, 128, 64, 384, 384),      # all rows empty
     (4, 2, 64, 48, 64, 384, 20),         # block_q 48: 16-row dK/dV units
     (4, 2, 128, 64, 32, 256, 10),        # block_k 32: the smallest sub-tile
+    # the rest of the bf16 wgmma forward's shapes (block_q, block_k, D
+    # each 64 or 128; one or two consumer warpgroups)
+    (4, 2, 128, 64, 64, 512, 0),
+    (4, 2, 128, 64, 128, 512, 0),
+    (4, 2, 64, 128, 64, 512, 0),
+    (4, 2, 64, 128, 128, 512, 15),
+    (4, 2, 128, 128, 64, 512, 0),
     # the configured archs' heads at 2 x 4096 tokens, where the bf16
     # dK/dV splits the group as at one 8192-token row: 2, 12, 3, 2 slices
     (64, 8, 128, 128, 128, 4096, 0),     # qwen3_32b, G 8
@@ -274,8 +291,12 @@ def test_doc_kernels_match_twins(gen, grid, dtype, Hq, Hkv, D, bq, bk, T,
     fwd_t, rev_t = _halves(tabs, grid)
     kw = dict(scale=D ** -0.5, block_q=bq, block_k=bk, grid=grid)
     tol = DOC_TOL[dtype]
+    before = da.flash_fwd.launches, da.flash_fwd.wgmma_launches
     o, lse = da.flash_fwd(q, k, v, *meta, fwd_t, **kw)
     torch.cuda.synchronize()
+    assert (da.flash_fwd.launches - before[0],
+            da.flash_fwd.wgmma_launches - before[1]) \
+        == (1, int(_takes_wgmma(dtype, bq, bk, D)))
     po, plse = da.flash_fwd_plain(q, k, v, *meta, fwd_t, **kw)
     assert _maxerr(o, po) <= tol
     assert torch.equal(torch.isinf(lse), torch.isinf(plse))
@@ -302,6 +323,40 @@ def test_doc_kernels_match_twins(gen, grid, dtype, Hq, Hkv, D, bq, bk, T,
     assert rel(dv, pdv) <= dkv_tol
     if pad == T:
         assert not dq.any() and not dk.any() and not dv.any()
+
+
+@pytest.mark.parametrize("layout", ["one_document", "boundary_in_tile"])
+@pytest.mark.parametrize("bq,bk,D", [(128, 128, 128), (64, 64, 64),
+                                     (128, 64, 128), (64, 128, 64)])
+def test_wgmma_forward_masks_only_where_it_must(gen, layout, bq, bk, D):
+    """The bf16 wgmma forward skips the per-element mask on a warp's tile
+    whose keys all lie in its rows' one document at or before their
+    smallest position, and masks every other tile: one document over the
+    whole row (the tiles below the diagonal interior, the diagonal ones
+    masked), and documents that meet inside a tile (those tiles masked,
+    their neighbours interior), both against the twin."""
+    import numpy as np
+    from repro_torch.kernels import doc_attention as da
+    T = 1024
+    lengths = [T] if layout == "one_document" else [200, 500, T - 700]
+    doc = np.repeat(np.arange(len(lengths)), lengths).astype(np.int32)
+    pos = np.concatenate([np.arange(n) for n in lengths]).astype(np.int32)
+    doc, pos = doc[None], pos[None]
+    tabs = da.build_block_tables(doc, pos, doc, pos, block_q=bq, block_k=bk)
+    meta = [torch.from_numpy(a).cuda() for a in (doc, pos, doc, pos)]
+    q = _randn(gen, (1, 4, T, D), torch.bfloat16)
+    k = _randn(gen, (1, 2, T, D), torch.bfloat16)
+    v = _randn(gen, (1, 2, T, D), torch.bfloat16)
+    fwd_t, _ = _halves(tabs, "flat")
+    kw = dict(scale=D ** -0.5, block_q=bq, block_k=bk, grid="flat")
+    before = da.flash_fwd.wgmma_launches
+    o, lse = da.flash_fwd(q, k, v, *meta, fwd_t, **kw)
+    torch.cuda.synchronize()
+    assert da.flash_fwd.wgmma_launches == before + 1
+    po, plse = da.flash_fwd_plain(q, k, v, *meta, fwd_t, **kw)
+    assert torch.isfinite(plse).all() and torch.isfinite(lse).all()
+    assert _maxerr(o, po) <= DOC_TOL[torch.bfloat16]
+    assert (lse - plse).abs().max().item() <= DOC_TOL[torch.bfloat16]
 
 
 def _hop_layout(Tq, Tk, n_docs, seed):
@@ -347,8 +402,12 @@ def test_doc_kernels_at_a_hop_shape_in_partial_mode(gen, grid, dtype, Hq,
     v = _randn(gen, (1, Hkv, Tk, D), dtype).requires_grad_(True)
     do = _randn(gen, (1, Hq, Tq, D), dtype)
     dlse = _randn(gen, (1, Hq, Tq), torch.float32)
+    before = da.flash_fwd.launches, da.flash_fwd.wgmma_launches
     o, lse = kops.doc_flash_attention(q, k, v, *meta, tabs, scale=D ** -0.5,
                                       grid=grid, partial=True)
+    launched = da.flash_fwd.launches - before[0]
+    assert launched >= 1 and da.flash_fwd.wgmma_launches - before[1] \
+        == launched * _takes_wgmma(dtype, blk, blk, D)
     m = torch.clamp(lse, min=NEG)
     dq, dk, dv = torch.autograd.grad((o.float() * do.float()).sum()
                                      + (m * dlse).sum(), (q, k, v))

@@ -262,6 +262,36 @@ def test_batch_to_device_records_one_span():
     assert obs.summary()["spans"]["batch_to_device"]["calls"] == 1
 
 
+def test_the_wgmma_forward_is_counted_inside_its_span(monkeypatch):
+    """``flash_fwd`` counts a launch of the wgmma forward in
+    ``.wgmma_launches`` and, under a profiler, in the
+    ``doc_attention.fwd_wgmma`` counter of its step, inside its
+    ``doc_attention.fwd`` span; a shape that goes to the mma.sync forward
+    counts in neither.  The launch itself is stubbed (no card here)."""
+    from repro_torch.kernels import doc_attention as da
+    chosen = []
+    monkeypatch.setattr(da, "_on_cpu", lambda *t: False)
+    monkeypatch.setattr(da, "_launch",
+                        lambda kind, *a, **kw: chosen.append(kind))
+    q = torch.zeros((1, 2, 128, 64), dtype=torch.bfloat16)
+    k = torch.zeros((1, 1, 128, 64), dtype=torch.bfloat16)
+    meta = [torch.zeros((1, 128), dtype=torch.int32)] * 4
+    tables = (torch.zeros((1, 2, 2), dtype=torch.int32),
+              torch.zeros((1, 2), dtype=torch.int32))
+    before = da.flash_fwd.launches, da.flash_fwd.wgmma_launches
+    with _cpu_profile():
+        with obs.span("step", step=3):
+            for bq in (64, 32):                 # wgmma, then mma.sync
+                da.flash_fwd(q, k, k, *meta, tables, scale=0.125,
+                             block_q=bq, block_k=64)
+    assert chosen == ["fwd_wgmma", "fwd"]
+    assert (da.flash_fwd.launches - before[0],
+            da.flash_fwd.wgmma_launches - before[1]) == (2, 1)
+    s = obs.summary()
+    assert s["counters"]["doc_attention.fwd_wgmma"] == {3: 1}
+    assert s["spans"]["doc_attention.fwd"]["calls"] == 2
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -293,3 +323,33 @@ def test_a_card_step_times_its_phases_on_the_device(card):
         assert by[name] and all(r["parent"] == bi and r["step"] == 1
                                 for _, r in by[name]), name
     assert {r["parent"] for _, r in by["doc_attention.fwd"]} <= {fi, bi}
+
+
+@pytest.mark.gpu
+def test_a_card_forward_counts_the_wgmma_kernel(card):
+    """On the card the ``doc_attention.fwd_wgmma`` counter counts the
+    forwards that ran ``fwd_wgmma_kernel``, and no other."""
+    from repro_torch.kernels import doc_attention as da
+    T = 256
+    doc = np.zeros((1, T), np.int32)
+    pos = np.arange(T, dtype=np.int32)[None]
+    meta = [torch.from_numpy(a).to(card) for a in (doc, pos, doc, pos)]
+    gen = torch.Generator(device=card)
+    gen.manual_seed(0)
+    q = torch.randn((1, 4, T, 64), generator=gen, device=card).bfloat16()
+    k, v = (torch.randn((1, 2, T, 64), generator=gen, device=card)
+            .bfloat16() for _ in range(2))
+    before = da.flash_fwd.wgmma_launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        with obs.span("step", step=5):
+            for bq in (64, 32):                 # wgmma, then mma.sync
+                tabs = da.build_block_tables(doc, pos, doc, pos,
+                                             block_q=bq, block_k=64)
+                da.flash_fwd(q, k, v, *meta, tabs.flat_as_torch(card)[:3],
+                             scale=0.125, block_q=bq, block_k=64,
+                             grid="flat")
+        torch.cuda.synchronize()
+    s = obs.summary()
+    assert da.flash_fwd.wgmma_launches == before + 1
+    assert s["counters"]["doc_attention.fwd_wgmma"] == {5: 1}
+    assert s["spans"]["doc_attention.fwd"]["calls"] == 2
